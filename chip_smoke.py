@@ -15,17 +15,27 @@ Phases:
    at edge shapes and at the main path's shapes, with its median time over
    CUDA events (L2 flushed before each launch), its bound, the plain
    version's time and, where one PyTorch call computes the same function,
-   that call's time;
+   that call's time (K3 has none: its yardstick is the unfused chain of
+   snappy resolve + gather + widen, timed on the same stream);
 3. the main path, REQUIRED: TPC-H SF1 ``lineitem`` (6,001,215 rows, the
    seven fixed-width columns that are not delta-encoded, the generator and
    seed of ``bench.py`` ``gen_lineitem16``) written with the port's writer
    (SNAPPY, dictionary on, page CRCs, 1,000,000 rows per row group), read
-   with ``DeviceFileReader(...).iter_row_groups()`` on the card, checked bit
-   for bit against the generator, with the kernel launch counts of the read
-   and the rows per second of a warm second pass;
+   with ``DeviceFileReader(...).iter_row_groups()`` on the card through the
+   full ship planner, checked bit for bit against the generator, with the
+   kernel launch counts and route table of the read and the rows per second
+   of a warm second pass;
 4. the main path, OPTIONAL: the same columns written OPTIONAL with no nulls
    (1,000,000 rows), checked the same way;
-5. one JSON line listing every ported kernel, then the result line.
+5. the compressed-shipping main path: the reference's K3 file
+   (``tests/test_fused_decode.py``: ``dates`` INT64 runs of 50, ``wide``
+   INT64 full range, ``cnt`` INT32, ``rate`` FLOAT, ``dbl`` DOUBLE runs of
+   100, plus ``dates32``, INT32 runs of 50 over ``l_shipdate``'s range) at
+   6,000,000 rows in row groups of 65,536, written GZIP (page CRCs,
+   dictionary off, chunk statistics on), read unforced on the card and
+   checked bit for bit; K3 must run twice per row group.  Then the same
+   read forced to ``plain`` and to ``fused_plain``, for their rows/s;
+6. one JSON line listing every ported kernel, then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -40,6 +50,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+# float32 outside the tensor cores, NVIDIA data sheet; taken as the peak for
+# K3's 32-bit integer compares (an upper bound on the integer rate)
+PEAK_OPS_PER_S = 67e12
 SF1_ROWS = 6_001_215
 ROWS_PER_GROUP = 1_000_000
 # ~2 ms of device spin at H100 clocks: longer than the host takes to
@@ -47,6 +60,9 @@ ROWS_PER_GROUP = 1_000_000
 SPIN_CYCLES = 4_000_000
 COLUMNS = ["l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
            "l_extendedprice", "l_discount", "l_tax"]
+K3_ROWS = 6_000_000
+K3_GROUP = 65_536
+K3_COLUMNS = ["dates", "wide", "cnt", "rate", "dbl", "dates32"]
 
 
 def log(msg: str) -> None:
@@ -238,6 +254,242 @@ def check_k2(torch, ck, flush, rng, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K3: op tables
+# ---------------------------------------------------------------------------
+
+def synth_ops(rng, out_len: int, depth: int, n_ops: int, literal_only: bool):
+    """Snappy-style op tables over ``out_len`` output bytes whose deepest
+    copy chain is exactly ``depth``: a literal, ``depth`` copies each copying
+    the op before it, then random literals and copies (overlapping ones,
+    offset < length, among them) that stay within ``depth``.  Returns K3's
+    (ends, asrc, offs, islit) with payload-relative literal sources, and the
+    payload."""
+    import bisect
+
+    import numpy as np
+
+    longest = max(2 * out_len // n_ops, 1)
+    ends, srcs, lits, depths = [], [], [], []
+    pay = pos = 0
+
+    def add(length, src, lit, d):
+        nonlocal pos
+        ends.append(pos + length)
+        srcs.append(src)
+        lits.append(lit)
+        depths.append(d)
+        pos += length
+
+    def literal(length):
+        nonlocal pay
+        add(length, pay, 1, 0)
+        pay += length
+
+    literal(min(out_len, 4))
+    for _ in range(0 if literal_only else depth):
+        if pos >= out_len:
+            break
+        prev = ends[-1] - (ends[-2] if len(ends) > 1 else 0)
+        add(min(prev, out_len - pos), prev, 0, depths[-1] + 1)
+    while pos < out_len:
+        length = int(min(out_len - pos, rng.integers(1, longest + 1)))
+        if literal_only or rng.random() < 0.35:
+            literal(length)
+            continue
+        off = int(rng.integers(1, pos + 1))
+        if rng.random() < 0.3:
+            off = int(rng.integers(1, min(length, pos) + 1))  # overlapping
+        lo, hi = pos - off, pos - off + min(length, off)
+        i0, i1 = bisect.bisect_right(ends, lo), bisect.bisect_left(ends, hi)
+        d = 1 + max(depths[i0 : i1 + 1])
+        if d > depth:
+            literal(length)
+            continue
+        add(length, off, 0, d)
+    assert max(depths) == (0 if literal_only else depth), max(depths)
+    dst_end = np.array(ends, np.int64)
+    st = np.concatenate([[0], dst_end[:-1]])
+    op_src = np.array(srcs, np.int64)
+    is_lit = np.array(lits, np.uint8)
+    payload = rng.integers(0, 256, max(pay, 1), dtype=np.uint8)
+    return (dst_end, np.where(is_lit != 0, op_src, st - op_src),
+            np.where(is_lit != 0, 1, op_src), is_lit), payload
+
+
+def stage_k3(torch, stream_tables, payload, n: int, out_pad: int, podd: int,
+             dev):
+    """Tables and payload in one staged buffer, as the reader lays them
+    out: the tables padded to ``n`` rows (sorted ends padded with
+    ``out_pad``) at a 64-byte boundary, the payload ``podd`` bytes past the
+    next one, random bytes around both.  Returns (buf, tbase, pbase,
+    ppad)."""
+    import numpy as np
+
+    from tpu_parquet_torch.torch_decode import _bucket_bytes
+
+    ends, asrc, offs, islit = stream_tables
+    tabs = [np.full(n, out_pad, np.int32), np.zeros(n, np.int32),
+            np.ones(n, np.int32), np.ones(n, np.uint8)]
+    for t, v in zip(tabs, (ends, asrc, offs, islit)):
+        t[: len(v)] = v
+    ppad = _bucket_bytes(len(payload), 64)
+    tbase = 64
+    pbase = tbase + -(-13 * n // 64) * 64 + podd
+    host = np.random.default_rng(n).integers(0, 256, pbase + ppad + 40,
+                                             dtype=np.uint8)
+    host[tbase : tbase + 13 * n] = np.concatenate(
+        [t.view(np.uint8) for t in tabs])
+    host[pbase : pbase + len(payload)] = payload
+    return torch.from_numpy(host).to(dev), tbase, pbase, ppad
+
+
+def k3_rounds(torch, buf, tbase, n_ops_pad, count_pad, k, out_pad, depth):
+    """Chase rounds this stream's bytes take in K3 (a byte stops at its
+    literal; an unresolved one takes depth + 1): the data-dependent part of
+    K3's operation count."""
+    n = n_ops_pad
+    tab = buf[tbase : tbase + 13 * n]
+    ends = tab[: 4 * n].view(torch.int32)
+    asrc = tab[4 * n : 8 * n].view(torch.int32)
+    offs = tab[8 * n : 12 * n].view(torch.int32)
+    islit = tab[12 * n :] != 0
+    p = torch.clamp(torch.arange(count_pad * k, dtype=torch.int32,
+                                 device=buf.device), 0, out_pad - 1)
+    done = torch.zeros(p.shape, dtype=torch.bool, device=buf.device)
+    rounds = 0
+    for _ in range(depth + 1):
+        rounds += int((~done).sum().item())
+        op = torch.clamp(torch.searchsorted(ends, p, right=True), max=n - 1)
+        prev = ends[torch.clamp(op - 1, min=0)]
+        within = p - torch.where(op > 0, prev, torch.zeros_like(prev))
+        lit = islit[op]
+        done = done | lit
+        p = torch.where(lit, p, asrc[op] + torch.remainder(
+            within, torch.clamp(offs[op], min=1)))
+    return rounds
+
+
+def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
+    """K3 against its plain version on the card, bit-exact: every k at
+    widths 4 and 8 under chain depths 0, 1, 12 and 16, overlapping copies
+    and literal-only streams, 8 and 4096 op rows, biases whose low word
+    carries and negative minima, n_valid at and beside a 256-value tile
+    edge, payloads at odd offsets.  Then the main path's shape — the first
+    row group of phase 5's ``dates`` (65,536 values, k = 2, width 8) through
+    the port's own narrow transcode and table packing — timed beside its
+    plain version and the unfused chain (snappy_resolve + gather + widen)
+    on the same stream."""
+    import math
+
+    import numpy as np
+
+    from tpu_parquet_torch import device_reader as DR
+    from tpu_parquet_torch import native
+    from tpu_parquet_torch.torch_decode import (_bucket, _bucket_bytes,
+                                                _bucket_count)
+
+    dev = flush.device
+    worst = 0
+    checks = 0
+    biases = [(1 << 40) + 0xFFFFFFF0, -(1 << 63), -5, 0xFFFFFFFF, 19_000]
+    combos = [(w, k, d) for w in (4, 8) for k in range(1, w + 1)
+              for d in (0, 1, 12, 16)]
+    for i, (width, k, depth) in enumerate(combos):
+        count = 2048 if i % 3 else 1000
+        out_len = count * k
+        # alternate small tables (8 rows) and full ones (4096 rows)
+        n_ops = 3 if i % 2 else min(4000, out_len)
+        literal_only = depth == 0 and i % 4 == 0
+        tables, payload = synth_ops(rng, out_len, depth, n_ops, literal_only)
+        n_ops_pad = _bucket(len(tables[0]))
+        out_pad = _bucket_bytes(out_len + 8, 8)
+        count_pad = ck.fused_narrow_count_pad(count)
+        buf, tbase, pbase, ppad = stage_k3(
+            torch, tables, payload, n_ops_pad, out_pad, i % 7, dev)
+        for n_valid in (255, 256, 257, count):
+            bias = biases[(i + n_valid) % len(biases)]
+            args = (buf, tbase, pbase, bias, n_valid)
+            kw = dict(k=k, width=width, depth=depth, count_pad=count_pad,
+                      out_pad=out_pad, n_ops_pad=n_ops_pad, ppad=ppad)
+            got = ck.fused_narrow_words(*args, **kw)
+            want = ck.fused_narrow_words_plain(*args, **kw)
+            err = _max_err(torch, got, want)
+            worst = max(worst, err)
+            checks += 1
+            if err:
+                raise fail(f"K3 width {width} k {k} depth {depth} n_ops_pad "
+                           f"{n_ops_pad} n_valid {n_valid}: err {err}")
+    torch.cuda.synchronize()
+    log(f"K3 fused_narrow_words: {checks} edge cases bit-exact (k 1..width "
+        f"at widths 4/8, depths 0/1/12/16, 8..4096 op rows, overlapping "
+        f"copies, literal-only streams, carrying and negative biases, "
+        f"n_valid at and beside the 256-value tile edge, odd payload bases)")
+
+    # the main path's shape, from the port's own host code
+    n = len(dates)
+    mn, mx = int(dates.min()), int(dates.max())
+    k = DR._span_bytes(mn, mx)
+    out = np.empty(n * k, np.uint8)
+    native.int_truncate(dates, 0, n, 8, mn, k, out)
+    comp = native.snappy_compress(out)
+    fz = DR._fused_narrow_tables(comp, out.nbytes)
+    if fz is None:
+        raise fail("K3 main-path stream is over K3's caps")
+    tables, depth, n_ops_pad, out_pad, ppad = fz
+    stager = DR._RowGroupStager()
+    tbase = DR._pack_tables(stager, tables)
+    pbase = stager.add(np.frombuffer(comp, np.uint8))
+    stager.note_read_extent(pbase, ppad)
+    # the unfused chain's tables (absolute literal sources), same stream
+    info = DR._plan_snappy_ops(stager, [("comp", comp, out.nbytes, None)])
+    buf = stager.stage(dev)
+    count_pad = ck.fused_narrow_count_pad(n)
+    kw = dict(k=k, width=8, depth=depth, count_pad=count_pad,
+              out_pad=out_pad, n_ops_pad=n_ops_pad, ppad=ppad)
+    run = lambda: ck.fused_narrow_words(buf, tbase, pbase, mn, n, **kw)  # noqa
+    plain = lambda: ck.fused_narrow_words_plain(  # noqa: E731
+        buf, tbase, pbase, mn, n, **kw)
+    ucount = _bucket_count(n)
+    unfused = lambda: DR._snappy_narrow_staged(  # noqa: E731
+        buf, info.tbase, mn, n_ops=info.n_ops, out_pad=info.out_pad,
+        iters=info.iters, k=k, dtype="int64", count=ucount)
+    got = run()
+    err = _max_err(torch, got, plain())
+    vals = got.view(torch.int64).reshape(-1)[:n].cpu().numpy()
+    if err or not np.array_equal(vals, dates):
+        raise fail(f"K3 main-path shape: err {err}, matches the generator: "
+                   f"{np.array_equal(vals, dates)}")
+    if not np.array_equal(unfused()[:n].cpu().numpy(), dates):
+        raise fail("the unfused chain disagrees with the generator")
+    worst = max(worst, err)
+    real_ops = int(np.count_nonzero(tables[0] < out_pad))
+    ms = _median_ms(torch, run, flush)
+    plain_ms = _median_ms(torch, plain, flush, reps=10)
+    unfused_ms = _median_ms(torch, unfused, flush, reps=10)
+    moved = ppad + 13 * n_ops_pad + count_pad * 8
+    rounds = k3_rounds(torch, buf, tbase, n_ops_pad, count_pad, k, out_pad,
+                       depth)
+    steps = math.ceil(math.log2(n_ops_pad)) + 1
+    # per chase round: the binary search's compares plus about six integer
+    # operations (start, within, modulo, select); per value: widen + bias
+    ops = rounds * (steps + 6) + count_pad * (2 * k + 2)
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"K3 main-path shape: {n} values, k {k}, width 8, {real_ops} ops "
+        f"({n_ops_pad} table rows), depth {depth}, payload "
+        f"{len(comp)} bytes (ppad {ppad}); {ms:.4f} ms (plain {plain_ms:.4f} "
+        f"ms, unfused chain snappy_resolve + gather + widen {unfused_ms:.4f} "
+        f"ms, {info.iters} doubling rounds); bound {bound_ms:.6f} ms by "
+        f"{bound_by} ({moved} bytes -> {bytes_ms:.6f} ms at 3.35 TB/s; "
+        f"{rounds} chase rounds x {steps} search steps -> {ops} ops -> "
+        f"{ops_ms:.6f} ms at 67 T/s) ({smi})")
+    return dict(worst=worst, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: the main path over TPC-H lineitem
 # ---------------------------------------------------------------------------
 
@@ -292,25 +544,31 @@ def write_lineitem(path: str, groups, optional: bool) -> float:
     return time.perf_counter() - t0
 
 
-def read_main_path(torch, ck, path: str, groups, label: str) -> dict:
-    """Read ``path`` on the card through the public entry point, check every
-    column bit for bit, and time a warm second pass."""
+def route_table(st: dict) -> str:
+    return ", ".join(f"{r} {v['streams']} streams {v['logical']} logical "
+                     f"{v['shipped']} shipped"
+                     for r, v in st["ship_routes"].items())
+
+
+def check_route_launches(counts: dict, st: dict, label: str) -> None:
+    """Every fused stream in the route table is one launch of its kernel."""
+    for route, kernel in (("fused_plain", "fused_plain_words"),
+                          ("fused_narrow_snappy", "fused_narrow_words")):
+        streams = st["ship_routes"].get(route, {}).get("streams", 0)
+        if counts[kernel] != streams:
+            raise fail(f"{label}: {counts[kernel]} launches of {kernel} for "
+                       f"{streams} {route} streams")
+
+
+def check_groups(outs, groups, columns, label: str) -> tuple:
+    """Every column of every row group bit for bit against the generator;
+    returns (rows, decoded bytes)."""
     import numpy as np
 
-    from tpu_parquet_torch.device_reader import DeviceFileReader
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()
-    with DeviceFileReader(path, columns=COLUMNS) as r:
-        outs = list(r.iter_row_groups())
-        torch.cuda.synchronize()
-        counts = dict(ck.launches)
-        st = r.stats().as_dict()
     rows = 0
     decoded = 0
     for rg, want in zip(outs, groups, strict=True):
-        for name in COLUMNS:
+        for name in columns:
             col = rg[name]
             got = col.to_host()
             exp = want[name]
@@ -323,22 +581,61 @@ def read_main_path(torch, ck, path: str, groups, label: str) -> dict:
                 if d is None or len(d) != len(exp) or not (d == 1).all():
                     raise fail(f"{label}: def levels of {name} are wrong")
             decoded += got.nbytes
-        rows += len(want[COLUMNS[0]])
+        rows += len(want[columns[0]])
+    return rows, decoded
+
+
+def timed_pass(torch, path: str, columns, force: "str | None" = None):
+    """One read of ``path`` through the public entry point, timed end to
+    end (host parse + staging + decode, ending in a synchronize); under
+    ``TPQ_FORCE_ROUTE=force`` when given (the environment is restored).
+    Returns (outputs, seconds, stats)."""
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    before = os.environ.get("TPQ_FORCE_ROUTE")
+    if force is not None:
+        os.environ["TPQ_FORCE_ROUTE"] = force
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with DeviceFileReader(path, columns=columns) as r:
+            outs = list(r.iter_row_groups())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            st = r.stats().as_dict()
+    finally:
+        if before is None:
+            os.environ.pop("TPQ_FORCE_ROUTE", None)
+        else:
+            os.environ["TPQ_FORCE_ROUTE"] = before
+    return outs, seconds, st
+
+
+def read_main_path(torch, ck, path: str, groups, label: str,
+                   columns=COLUMNS) -> dict:
+    """Read ``path`` on the card through the public entry point and the full
+    ship planner (unforced), check every column bit for bit, and time a
+    warm second pass."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    outs, _, st = timed_pass(torch, path, columns)
+    counts = dict(ck.launches)
+    check_route_launches(counts, st, label)
+    rows, decoded = check_groups(outs, groups, columns, label)
     del outs
     # warm second pass, timed end to end (host parse + staging + decode)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with DeviceFileReader(path, columns=COLUMNS) as r:
-        keep = list(r.iter_row_groups())
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        st2 = r.stats().as_dict()
+    keep, seconds, st2 = timed_pass(torch, path, columns)
     del keep
     peak = torch.cuda.max_memory_allocated()
     log(f"{label}: {rows} rows bit-exact against the generator; "
-        f"launches {counts}; routes "
-        f"{ {k: v['streams'] for k, v in st['ship_routes'].items()} }, "
-        f"fused_fallbacks {st['fused_fallbacks']}")
+        f"launches {counts}")
+    log(f"{label}: routes {route_table(st)}; fused_fallbacks "
+        f"{st['fused_fallbacks']}; pages_device_expanded "
+        f"{st['pages_device_expanded']}; planner_link_mbps "
+        f"{st['planner_link_mbps']}; link_bytes_logical "
+        f"{st['link_bytes_logical']}, link_bytes_shipped "
+        f"{st['link_bytes_shipped']}")
     log(f"{label}: warm pass {seconds:.4f} s = {rows / seconds:.1f} rows/s; "
         f"host {st2['host_seconds']:.4f} s, stage enqueue "
         f"{st2['stage_seconds']:.4f} s, dispatch enqueue "
@@ -347,10 +644,10 @@ def read_main_path(torch, ck, path: str, groups, label: str) -> dict:
         f"max_memory_allocated {peak} bytes")
     return dict(counts=counts, rows=rows, seconds=seconds,
                 rows_per_s=rows / seconds, staged=st["staged_bytes"],
-                decoded=decoded, peak=peak)
+                decoded=decoded, peak=peak, stats=st)
 
 
-def device_breakdown(torch, path: str, label: str) -> dict:
+def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
     """One more read of ``path`` under ``torch.profiler``: device time by
     kernel (and copy), and the device's idle share of the profiled wall.
     The profiler's own host overhead lengthens that wall, so the idle share
@@ -360,10 +657,12 @@ def device_breakdown(torch, path: str, label: str) -> dict:
     from tpu_parquet_torch.device_reader import DeviceFileReader
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # acc_events: keep every event of the pass (without it the profiler
+    # dropped one row group's events of the 92-group read)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
-        with DeviceFileReader(path, columns=COLUMNS) as r:
+        with DeviceFileReader(path, columns=columns) as r:
             keep = list(r.iter_row_groups())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -387,6 +686,154 @@ def device_breakdown(torch, path: str, label: str) -> dict:
         log(f"{label}: device time not measured (the profiler recorded no "
             f"device events)")
     return dict(wall=wall, busy=busy_s)
+
+
+def host_breakdown(torch, path: str, label: str, columns) -> None:
+    """One more read of ``path`` under ``cProfile``: the host functions
+    that take the most time of their own (the host phase is the bottleneck
+    lane; the profiler's overhead inflates the total)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    keep, seconds, _ = timed_pass(torch, path, columns)
+    prof.disable()
+    del keep
+    rows = pstats.Stats(prof).sort_stats("tottime")
+    log(f"{label}: cProfile'd pass {seconds:.4f} s; top host functions by "
+        f"own time:")
+    for (fname, line, func), (cc, nc, tt, ct, _) in sorted(
+            rows.stats.items(), key=lambda kv: -kv[1][2])[:10]:
+        log(f"  host {tt:.4f} s own, {ct:.4f} s cumulative, {nc} calls: "
+            f"{os.path.basename(fname)}:{line} {func}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the compressed-shipping main path
+# ---------------------------------------------------------------------------
+
+def gen_k3_groups(rows: int = K3_ROWS, group: int = K3_GROUP):
+    """The reference's K3 file's columns (``tests/test_fused_decode.py``,
+    seed 23) plus ``dates32``, INT32 runs of 50 over ``l_shipdate``'s range
+    (8035 + 0..2525, ``bench.py``), drawn whole and cut into row groups."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    cols = {
+        "dates": np.repeat(19_000 + rng.integers(0, 1200, -(-rows // 50)),
+                           50)[:rows].astype(np.int64),
+        "wide": rng.integers(-(1 << 62), 1 << 62, rows),
+        "cnt": rng.integers(0, 50_000, rows).astype(np.int32),
+        "rate": rng.uniform(0, 1, rows).astype(np.float32),
+        "dbl": np.repeat(rng.uniform(0.0, 1.0, -(-rows // 100)),
+                         100)[:rows],
+        "dates32": np.repeat(8035 + rng.integers(0, 2526, -(-rows // 50)),
+                             50)[:rows].astype(np.int32),
+    }
+    return [{c: v[lo : lo + group] for c, v in cols.items()}
+            for lo in range(0, rows, group)]
+
+
+def write_k3_file(path: str, groups) -> float:
+    """GZIP, page CRCs, dictionary off, chunk statistics on: one row group
+    per generated group."""
+    from tpu_parquet_torch.format import (CompressionCodec,
+                                          FieldRepetitionType as FRT, Type)
+    from tpu_parquet_torch.schema.core import build_schema, data_column
+    from tpu_parquet_torch.writer import FileWriter
+
+    types = {"dates": Type.INT64, "wide": Type.INT64, "cnt": Type.INT32,
+             "rate": Type.FLOAT, "dbl": Type.DOUBLE, "dates32": Type.INT32}
+    schema = build_schema([data_column(c, types[c], FRT.REQUIRED)
+                           for c in K3_COLUMNS])
+    t0 = time.perf_counter()
+    with FileWriter(path, schema, codec=CompressionCodec.GZIP,
+                    use_dictionary=False, write_crc=True,
+                    write_statistics=True, row_group_size=128 << 20) as w:
+        for cols in groups:
+            w.write_columns(cols)
+            w.flush_row_group()
+    return time.perf_counter() - t0
+
+
+def k3_over_caps(groups) -> list:
+    """The ``dates``/``dates32`` streams of ``groups`` that K3 cannot claim,
+    found with the port's own host code (narrow transcode, snappy, tag walk,
+    ``_fused_narrow_tables``): [(row group, column, ops, depth, payload
+    bytes)]."""
+    import numpy as np
+
+    from tpu_parquet_torch import device_reader as DR
+    from tpu_parquet_torch import native
+
+    over = []
+    for g, cols in enumerate(groups):
+        for name, width in (("dates", 8), ("dates32", 4)):
+            v = cols[name]
+            mn = int(v.min())
+            k = DR._span_bytes(mn, int(v.max()))
+            out = np.empty(len(v) * k, np.uint8)
+            native.int_truncate(v, 0, len(v), width, mn, k, out)
+            comp = native.snappy_compress(out)
+            if DR._fused_narrow_tables(comp, out.nbytes) is None:
+                dst_end, _, _, depth = native.snappy_plan(comp, out.nbytes)
+                over.append((g, name, len(dst_end), depth, len(comp)))
+    return over
+
+
+def read_k3_path(torch, ck, path: str, groups, smi: str) -> dict:
+    """Phase 5: the unforced read through the full planner, checked bit for
+    bit, with K3 launched for ``dates`` and ``dates32`` in every row group;
+    then a warm pass and the reads forced to ``plain`` and ``fused_plain``."""
+    label = "K3 file"
+    main = read_main_path(torch, ck, path, groups, label, columns=K3_COLUMNS)
+    counts, st = main["counts"], main["stats"]
+    routes = st["ship_routes"]
+    n_groups = len(groups)
+    # dates and dates32 rank fused_narrow_snappy first in every row group;
+    # a stream over one of K3's caps (a copy chain deeper than
+    # FUSED_MAX_DEPTH) takes the staged narrow_snappy chain with a counted
+    # fallback, as in the reference.  cnt and wide fall back once per group
+    # (cnt does not compress; wide has no narrow span).
+    over = k3_over_caps(groups)
+    k3 = counts["fused_narrow_words"]
+    staged = routes.get("narrow_snappy", {}).get("streams", 0)
+    if k3 != 2 * n_groups - len(over) or staged != len(over):
+        raise fail(f"{label}: K3 launched {k3} times and narrow_snappy took "
+                   f"{staged} streams; want {2 * n_groups - len(over)} and "
+                   f"{len(over)} (dates and dates32 per row group, "
+                   f"{len(over)} over K3's caps)")
+    if st["fused_fallbacks"] != 2 * n_groups + staged:
+        raise fail(f"{label}: fused_fallbacks {st['fused_fallbacks']}, want "
+                   f"{2 * n_groups + staged}")
+    log(f"{label}: K3 launched for {k3} of the {2 * n_groups} dates/dates32 "
+        f"streams; over K3's caps (ops <= {ck.FUSED_MAX_OPS}, depth <= "
+        f"{ck.FUSED_MAX_DEPTH}, payload <= {ck.FUSED_MAX_PAYLOAD}), taking "
+        f"narrow_snappy: " + (", ".join(
+            f"row group {g} {c} ({n} ops, depth {d}, {p} bytes)"
+            for g, c, n, d, p in over) or "none"))
+    if counts["fused_plain_words"] != 2 * n_groups:
+        raise fail(f"{label}: K2 launched {counts['fused_plain_words']} "
+                   f"times, want {2 * n_groups} (wide, rate)")
+    for route in ("narrow", "recompress"):
+        if route not in routes:
+            raise fail(f"{label}: the staged chain {route} did not run")
+    forced = {}
+    for force in ("plain", "fused_plain"):
+        outs, seconds, fst = timed_pass(torch, path, K3_COLUMNS, force)
+        check_groups(outs, groups, K3_COLUMNS, f"{label} forced {force}")
+        del outs
+        forced[force] = main["rows"] / seconds
+        log(f"{label} forced {force}: {seconds:.4f} s = "
+            f"{forced[force]:.1f} rows/s; host {fst['host_seconds']:.4f} "
+            f"s, dispatch enqueue {fst['dispatch_seconds']:.4f} s; routes "
+            f"{route_table(fst)}; staged {fst['staged_bytes']} bytes ({smi})")
+    log(f"{label}: rows/s unforced {main['rows_per_s']:.1f}, forced plain "
+        f"{forced['plain']:.1f}, forced fused_plain "
+        f"{forced['fused_plain']:.1f} ({smi})")
+    main["forced"] = forced
+    return main
 
 
 def main() -> int:
@@ -426,6 +873,8 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     k1 = check_k1(torch, ck, flush, rng, smi)
     k2 = check_k2(torch, ck, flush, rng, smi)
+    k3_groups = gen_k3_groups()
+    k3 = check_k3(torch, ck, flush, rng, smi, k3_groups[0]["dates"])
     del flush
 
     # phase 3: main path, REQUIRED lineitem SF1
@@ -451,7 +900,17 @@ def main() -> int:
     if opt["counts"]["unpack_bp_groups"] <= 0:
         raise fail("OPTIONAL path never launched unpack_bp_groups")
 
-    # phase 5: the kernels line and the result line
+    # phase 5: the compressed-shipping main path, the reference's K3 file
+    k3_path = os.path.join(work, "k3_file_gzip.parquet")
+    secs = write_k3_file(k3_path, k3_groups)
+    log(f"wrote {k3_path}: {K3_ROWS} rows, {len(k3_groups)} row groups of "
+        f"{K3_GROUP} (the last {len(k3_groups[-1]['dates'])}), "
+        f"{os.path.getsize(k3_path)} bytes in {secs:.2f} s")
+    k3_main = read_k3_path(torch, ck, k3_path, k3_groups, smi)
+    device_breakdown(torch, k3_path, "K3 file", columns=K3_COLUMNS)
+    host_breakdown(torch, k3_path, "K3 file", K3_COLUMNS)
+
+    # phase 6: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "unpack_bp_groups", "route": "cuda",
@@ -468,9 +927,17 @@ def main() -> int:
          "max_abs_err": k2["worst"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": k2["library_ms"]},
+        {"name": "fused_narrow_words", "route": "cuda",
+         "source": "tpu_parquet_torch/csrc/fused_narrow.cu",
+         "replaces": "tpu_parquet/pallas_kernels.py:353",
+         "launches": k3_main["counts"]["fused_narrow_words"],
+         "max_abs_err": k3["worst"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]
     log(f"main path rows/s: REQUIRED {main['rows_per_s']:.1f}, "
-        f"OPTIONAL {opt['rows_per_s']:.1f} ({smi})")
+        f"OPTIONAL {opt['rows_per_s']:.1f}, K3 file unforced "
+        f"{k3_main['rows_per_s']:.1f} ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -152,7 +152,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     CK.unpack_bp_groups(buf, 0, 7, 1024)
     CK.fused_plain_words(buf, 3, 100, width=8, count_pad=1024)
     CK.unpack_bits(buf, 3, 1000)
-    assert CK.launches == {"unpack_bp_groups": 0, "fused_plain_words": 0}
+    CK.fused_narrow_words(buf, 0, 1000, 5, 100, k=2, width=8, depth=1,
+                          count_pad=256, out_pad=512, n_ops_pad=8, ppad=64)
+    assert CK.launches == {"unpack_bp_groups": 0, "fused_plain_words": 0,
+                           "fused_narrow_words": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +323,9 @@ def test_port_imports_no_jax_and_no_reference_module():
             tpu_parquet_torch.__path__, "tpu_parquet_torch.")]
         for name in names:
             importlib.import_module(name)
+        for name in ("ship", "torch_kernels", "cuda_kernels",
+                     "device_reader", "torch_decode"):
+            assert "tpu_parquet_torch." + name in names, name
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "tpu_parquet" or m.startswith("tpu_parquet."))

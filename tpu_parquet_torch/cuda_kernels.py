@@ -1,8 +1,7 @@
 """Hand-written CUDA kernels for the decode hot path, with their plain versions.
 
 The counterpart of ``tpu_parquet.pallas_kernels``.  Each Pallas TPU kernel
-of the flat-column slice is a CUDA C++ kernel for Hopper (``sm_90a``) under
-``csrc/``:
+is a CUDA C++ kernel for Hopper (``sm_90a``) under ``csrc/``:
 
 - **K1** ``unpack_bp_groups`` (``csrc/bp_unpack.cu``): LSB-first
   fixed-width unpack of 8-value bit-packed groups — every dictionary-index
@@ -10,6 +9,9 @@ of the flat-column slice is a CUDA C++ kernel for Hopper (``sm_90a``) under
 - **K2** ``fused_plain_words`` (``csrc/fused_plain.cu``): PLAIN 4/8-byte
   values to finished little-endian words with the validity tail zeroed —
   the ``fused_plain`` ship route.
+- **K3** ``fused_narrow_words`` (``csrc/fused_narrow.cu``): a snappy stream
+  over the k-byte narrow transcode to finished, re-biased words with the
+  validity tail zeroed — the ``fused_narrow_snappy`` ship route.
 
 The sources are compiled with ``nvcc`` at first use into shared libraries
 with a plain C interface (one ``nvcc`` per source, started together), under
@@ -21,8 +23,9 @@ tensor on the CPU.  The plain versions compute in ``int64`` and mask
 on-card comparison run.  ``launches`` counts the kernel launches of each
 wrapper.
 
-Padding follows the reference's tiles (1024 groups, 1024 values), so padded
-shapes and the read extents the stager must cover match the reference's.
+Padding follows the reference's tiles (1024 groups, 1024 values, 256
+values), so padded shapes and the read extents the stager must cover match
+the reference's.
 """
 
 from __future__ import annotations
@@ -37,24 +40,37 @@ import threading
 import torch
 
 from .torch_decode import _bucket_count
-from .torch_kernels import u32_bits
+from .torch_kernels import narrow_widen_words, u32_bits
 
 __all__ = ["unpack_bp_groups", "unpack_bp_groups_plain", "unpack_bits",
            "bp_groups_pad", "fused_plain_words", "fused_plain_words_plain",
-           "fused_count_pad", "launches", "reset_launches", "build",
-           "KERNELS"]
+           "fused_count_pad", "fused_narrow_words",
+           "fused_narrow_words_plain", "fused_narrow_count_pad",
+           "FUSED_MAX_OPS", "FUSED_MAX_DEPTH", "FUSED_MAX_PAYLOAD",
+           "SNAPPY_OPS_BYTES",
+           "launches", "reset_launches", "build", "KERNELS"]
 
 _GROUPS_PER_TILE = 1024  # K1 tile: 8192 values (the reference's tile)
 _FUSED_TILE = 1024       # K2 tile: values per tile (the reference's tile)
+_FUSED_NS_TILE = 256     # K3 tile: values per tile (the reference's tile)
+# K3 eligibility caps, the reference's: the planner declines exactly the
+# streams the reference declines (those keep the unfused resolve chain)
+FUSED_MAX_OPS = 4096         # padded op-table rows
+FUSED_MAX_DEPTH = 16         # copy-chain depth chased per byte
+FUSED_MAX_PAYLOAD = 4 << 20  # compressed payload bytes
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # kernel name -> (source under csrc/, C entry point, argtypes)
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ULL = ctypes.c_ulonglong
 KERNELS = {
     "unpack_bp_groups": ("bp_unpack.cu", "tpq_unpack_bp_groups",
                          [_VP, _LL, _LL, _INT, _LL, _VP, _VP]),
     "fused_plain_words": ("fused_plain.cu", "tpq_fused_plain_words",
                           [_VP, _LL, _LL, _INT, _LL, _LL, _VP, _VP]),
+    "fused_narrow_words": ("fused_narrow.cu", "tpq_fused_narrow_words",
+                           [_VP, _LL, _LL, _LL, _INT, _LL, _ULL, _LL, _INT,
+                            _INT, _INT, _LL, _LL, _VP, _VP]),
 }
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -294,4 +310,108 @@ def fused_plain_words(buf: torch.Tensor, vbase: int, n_valid: int, *,
                       device=buf.device)
     _launch("fused_plain_words", buf, vbase, int(width), n_valid, count_pad,
             out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: fused narrow+snappy decode
+# ---------------------------------------------------------------------------
+
+# packed op-table bytes per op row: ends/asrc/offs int32 + islit uint8
+SNAPPY_OPS_BYTES = 13
+
+
+def fused_narrow_count_pad(count: int) -> int:
+    """Pad a value count to whole K3 tiles (bucketed first, as the
+    reference pads)."""
+    b = _bucket_count(max(count, 1))
+    return -(-b // _FUSED_NS_TILE) * _FUSED_NS_TILE
+
+
+def fused_narrow_words_plain(buf: torch.Tensor, tbase: int, pbase: int,
+                             bias: int, n_valid: int, *, k: int, width: int,
+                             depth: int, count_pad: int, out_pad: int,
+                             n_ops_pad: int, ppad: int) -> torch.Tensor:
+    """Plain PyTorch version of K3 (same arguments and result): every
+    output byte's op by a searchsorted, the copy chain chased ``depth + 1``
+    rounds, then widen, re-bias and the tail mask."""
+    n = n_ops_pad
+    tab = buf[tbase : tbase + SNAPPY_OPS_BYTES * n]
+    ends = tab[: 4 * n].view(torch.int32)
+    asrc = tab[4 * n : 8 * n].view(torch.int32)
+    offs = tab[8 * n : 12 * n].view(torch.int32)
+    islit = tab[12 * n :] != 0
+    payload = buf[pbase : pbase + ppad]
+    dev = buf.device
+    p = torch.clamp(torch.arange(count_pad * k, dtype=torch.int32,
+                                 device=dev), 0, out_pad - 1)
+    src = torch.zeros_like(p)
+    done = torch.zeros(p.shape, dtype=torch.bool, device=dev)
+    for _ in range(depth + 1):
+        op = torch.clamp(torch.searchsorted(ends, p, right=True), max=n - 1)
+        prev = ends[torch.clamp(op - 1, min=0)]
+        within = p - torch.where(op > 0, prev, torch.zeros_like(prev))
+        lit = islit[op]
+        a = asrc[op]
+        src = torch.where(lit & ~done, a + within, src)
+        done = done | lit
+        p = torch.where(lit, p, a + torch.remainder(
+            within, torch.clamp(offs[op], min=1)))
+    idx = torch.clamp(src, 0, payload.shape[0] - 1).long()
+    raw = payload[idx].reshape(count_pad, k)
+    words = narrow_widen_words(raw, bias, width=width)
+    keep = torch.arange(count_pad, device=dev) < n_valid
+    return torch.where(keep[:, None], words, torch.zeros_like(words))
+
+
+def fused_narrow_words(buf: torch.Tensor, tbase: int, pbase: int, bias: int,
+                       n_valid: int, *, k: int, width: int, depth: int,
+                       count_pad: int, out_pad: int, n_ops_pad: int,
+                       ppad: int) -> torch.Tensor:
+    """Fused narrow+snappy decode in ONE pass: resolve each output byte of a
+    snappy stream over the ``k``-byte narrow transcode through its op
+    tables, widen, add ``bias`` (the column minimum, modulo
+    ``2**(8*width)``) and zero the rows at or past ``n_valid``.
+
+    The staged buffer ``buf`` holds the padded op tables at ``tbase``
+    (``ends``/``asrc``/``offs`` int32 then ``islit`` uint8, ``n_ops_pad``
+    rows each; literal sources PAYLOAD-relative) and the compressed payload
+    at ``pbase`` (``ppad`` bytes).  ``depth`` is the exact max copy-chain
+    depth from the host's tag walk; ``out_pad`` the stream's padded output
+    space.  Returns ``int32[count_pad, width // 4]`` holding ``uint32``
+    words; ``count_pad`` must come from :func:`fused_narrow_count_pad`."""
+    _check_buf(buf)
+    if width not in (4, 8) or not 1 <= k <= width:
+        raise ValueError(f"fused narrow: bad k={k}/width={width}")
+    if count_pad <= 0 or count_pad % _FUSED_NS_TILE:
+        raise ValueError(f"count_pad {count_pad} not a positive multiple of "
+                         f"{_FUSED_NS_TILE}")
+    if not 0 <= depth <= FUSED_MAX_DEPTH:
+        raise ValueError(f"depth {depth} outside 0..FUSED_MAX_DEPTH")
+    if n_ops_pad <= 0 or out_pad <= 0 or ppad <= 0:
+        raise ValueError("fused narrow: n_ops_pad, out_pad and ppad must be "
+                         "positive")
+    tbase, pbase = int(tbase), int(pbase)
+    tend = tbase + SNAPPY_OPS_BYTES * n_ops_pad
+    if tbase < 0 or tend > buf.numel():
+        raise ValueError(f"fused_narrow_words tables [{tbase}, {tend}) past "
+                         f"a {buf.numel()}-byte buffer")
+    if (buf.data_ptr() + tbase) % 4:
+        raise ValueError(f"fused_narrow_words tables at {tbase} are not "
+                         f"4-byte aligned")
+    if pbase < 0 or pbase + ppad > buf.numel():
+        raise ValueError(f"fused_narrow_words payload [{pbase}, "
+                         f"{pbase + ppad}) past a {buf.numel()}-byte buffer")
+    n_valid = int(n_valid)
+    bias = int(bias) % (1 << 64)
+    if _device_kind(buf) == "cpu":
+        return fused_narrow_words_plain(
+            buf, tbase, pbase, bias, n_valid, k=k, width=width, depth=depth,
+            count_pad=count_pad, out_pad=out_pad, n_ops_pad=n_ops_pad,
+            ppad=ppad)
+    out = torch.empty((count_pad, width // 4), dtype=torch.int32,
+                      device=buf.device)
+    _launch("fused_narrow_words", buf, tbase, pbase, int(n_ops_pad),
+            int(ppad), bias, n_valid, int(k), int(width), int(depth),
+            int(out_pad), int(count_pad), out.data_ptr())
     return out

@@ -1,26 +1,30 @@
 """Batched device reader: one staged buffer per row group, decoded on the card.
 
-The counterpart of ``tpu_parquet.device_reader`` for the flat-column slice.
-Per row group:
+The counterpart of ``tpu_parquet.device_reader`` for fixed-width flat
+columns.  Per row group:
 
-1. the host walks the footer and each chunk's page headers, decompresses the
-   pages and walks the RLE/bit-packed run headers (``_collect_chunk``);
-2. per chunk, ``_ChunkAssembler`` picks the ship route (``ship.py``) and
-   registers the bytes its kernels read with ONE ``_RowGroupStager``,
-   returning a ``_Plan``;
+1. the host walks the footer and each chunk's page headers and walks the
+   RLE/bit-packed run headers (``_collect_chunk``).  PLAIN pages of a SNAPPY
+   chunk stay compressed until a route needs their host bytes (lazy pages,
+   ``ParsedDataPage.comp``); every other page is decompressed here;
+2. per chunk, ``_ChunkAssembler.preship`` ranks the seven ship routes
+   (``ship.py``) and does the host half of the first feasible one (narrow
+   transcode, link recompression); ``finish`` registers the bytes its
+   device half reads with ONE ``_RowGroupStager`` and returns a ``_Plan``;
 3. the stager fills one pinned host buffer and copies it to the device in
    one ``non_blocking`` transfer;
 4. ``_run_plans`` runs every chunk's decode over that one buffer: the
    hand-written CUDA kernels of ``cuda_kernels`` (K1 for dictionary indices
-   and def levels, K2 for ``fused_plain`` PLAIN columns) and the tensor code
-   of ``torch_kernels``;
+   and def levels, K2 for ``fused_plain``, K3 for ``fused_narrow_snappy``)
+   and the tensor code of ``torch_kernels`` (the snappy resolve of the
+   staged chains, gathers, widening);
 5. the output is one :class:`DeviceColumnData` per column.
 
 The slice: flat columns (REQUIRED or OPTIONAL, no repetition) of physical
 type INT32, INT64, FLOAT and DOUBLE; PLAIN and RLE_DICTIONARY /
-PLAIN_DICTIONARY pages; UNCOMPRESSED, SNAPPY and GZIP (decompressed on the
-host); data pages v1 and v2; page CRCs.  Anything else raises
-``NotImplementedError`` naming the slice — there is no host-decode fallback.
+PLAIN_DICTIONARY pages; UNCOMPRESSED, SNAPPY and GZIP; data pages v1 and v2;
+page CRCs.  Anything else raises ``NotImplementedError`` naming the slice —
+there is no host-decode fallback.
 
 Nothing on the decode path waits for the device: the dictionary-index range
 check runs on the host (``_check_dict_range``).  Only when the native run
@@ -38,17 +42,23 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import native
 from . import torch_kernels as K
 from .chunk_decode import _check_crc, validate_chunk_meta, walk_pages
 from .compress import decompress_block
-from .cuda_kernels import (bp_groups_pad, fused_count_pad, fused_plain_words,
-                           unpack_bp_groups)
+from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
+                           SNAPPY_OPS_BYTES, bp_groups_pad, fused_count_pad,
+                           fused_narrow_count_pad, fused_narrow_words,
+                           fused_plain_words, unpack_bp_groups)
 from .footer import ParquetError, read_file_metadata
-from .format import Encoding, PageType, Type, parse_encoding
+from .format import CompressionCodec, Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack
 from .schema.core import Schema, SchemaNode
-from .ship import (ChunkFacts, FUSED_ROUTES, ROUTE_FUSED_PLAIN, ROUTE_PLAIN,
-                   ShipPlanner)
+from .ship import (
+    ChunkFacts, FUSED_ROUTES, ROUTE_DEVICE_SNAPPY, ROUTE_FUSED_NARROW_SNAPPY,
+    ROUTE_FUSED_PLAIN, ROUTE_NARROW, ROUTE_NARROW_SNAPPY, ROUTE_PLAIN,
+    ROUTE_RECOMPRESS, SNAPPY_WORTH_RATIO, ShipPlanner,
+)
 from .torch_decode import (
     DeviceColumnData, ParsedDataPage, _bucket, _bucket_bytes, _bucket_count,
     _SLACK, _PTYPE_TO_NAME, _hybrid, _hybrid_vw, host_decode_dictionary,
@@ -72,14 +82,65 @@ def _out_of_slice(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what}: not supported by {SLICE}")
 
 
+# pointer-doubling round buckets; 24 covers chains of 2^24 ops
+_SNAPPY_ITER_BUCKETS = (2, 4, 8, 16, 24)
+# op-table cap: a stream shattered into more ops than this ships decompressed
+_SNAPPY_MAX_OPS = 1 << 20
+# ratio~1 chunks larger than this take the host-decompress path
+_SNAPPY_SMALL_OUT = 8 << 20
+# transcode only when it saves >= 3 bytes/value
+_NARROW_SAVE_BYTES = 3
+# probe the first page's head before scanning the whole chunk: full-range
+# data must not pay a full min/max pass just to bail
+_NARROW_PROBE = 65536
+
+
 def _check_plain_sizes(pages, width: int) -> None:
-    """Reject PLAIN pages whose value stream is shorter than defined*width."""
+    """Reject PLAIN pages whose value stream is shorter than defined*width
+    (a lazy page is measured by its declared decompressed size)."""
     for p in pages:
-        nbytes = len(p.raw) - p.value_pos
+        nbytes = (p.comp[2] if p.comp is not None
+                  else len(p.raw) - p.value_pos)
         if nbytes < p.defined * width:
             raise ParquetError(
                 f"PLAIN data truncated: {nbytes} < {p.defined * width}"
             )
+
+
+def _span_bytes(lo: int, hi: int) -> int:
+    """Bytes needed for the unsigned span hi - lo (>= 1)."""
+    return max((int(hi) - int(lo)).bit_length() + 7, 8) // 8
+
+
+def _narrow_max_k(width: int) -> int:
+    """Largest transcoded byte width still worth the host pass (shared by
+    the stats hint and the narrow plan function, which must agree)."""
+    return width - (_NARROW_SAVE_BYTES if width == 8 else 2)
+
+
+def _int_stats_span(statistics, leaf) -> "tuple[int, int] | None":
+    """Chunk Statistics min/max as an int span hint, if plausible.
+
+    Returns (min, max) for INT32/INT64 leaves whose stats carry well-formed
+    PLAIN-encoded bounds, else None.  A planning INPUT only (it routes the
+    narrow transcode), never trusted for correctness."""
+    if (statistics is None
+            or leaf.physical_type not in (Type.INT32, Type.INT64)):
+        return None
+    width = 8 if leaf.physical_type == Type.INT64 else 4
+    dt = "<i8" if width == 8 else "<i4"
+    lo = (statistics.min_value if statistics.min_value is not None
+          else statistics.min)
+    hi = (statistics.max_value if statistics.max_value is not None
+          else statistics.max)
+    if (not isinstance(lo, (bytes, bytearray)) or len(lo) != width
+            or not isinstance(hi, (bytes, bytearray)) or len(hi) != width):
+        return None
+    lo_v = int(np.frombuffer(lo, dt)[0])
+    hi_v = int(np.frombuffer(hi, dt)[0])
+    if lo_v > hi_v:
+        return None
+    return lo_v, hi_v
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +291,97 @@ def _staged(buf: torch.Tensor, spec) -> torch.Tensor:
     return _tslice(buf, base, 0, n, dt)
 
 
+def _clamped(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[idx]`` with the index clamped into ``t``, where the reference
+    clips (a torch gather past the end raises or faults)."""
+    return t[torch.clamp(idx, 0, t.shape[0] - 1).long()]
+
+
+# ---------------------------------------------------------------------------
+# staged device halves of the compressed-shipping routes (ship.py)
+# ---------------------------------------------------------------------------
+
+def _narrow_widen(raw, bias: int, *, dtype: str):
+    """Widen ``k``-byte little-endian rows and re-bias: ``v = min +
+    zero_extend(bytes)`` (the shared back half of both narrow routes).  All
+    arithmetic is modular, so the reconstruction is exact for any int range
+    whose *span* fits ``k`` bytes, including negative minima."""
+    words = K.narrow_widen_words(raw, bias,
+                                 width=4 if dtype == "int32" else 8)
+    return words.view(_TORCH_DTYPES[dtype]).reshape(-1)
+
+
+def _plain_narrow(buf, base: int, bias: int, *, k: int, dtype: str,
+                  count: int):
+    """Reconstruct a narrow-transcoded PLAIN INT column: the host shipped
+    ``(v - min)`` truncated to ``k`` little-endian bytes per value."""
+    raw = buf[base : base + count * k].reshape(count, k)
+    return _narrow_widen(raw, bias, dtype=dtype)
+
+
+def _resolve_snappy_staged(buf, tbase: int, *, n_ops: int, out_pad: int,
+                           iters: int):
+    """Slice the packed op tables at ``tbase`` back out of the staged buffer
+    and resolve the output-space source map (``torch_kernels.
+    snappy_resolve``, the shared device half of the staged chains)."""
+    ends = _tslice(buf, tbase, 0, n_ops, torch.int32)
+    asrc = _tslice(buf, tbase, 4 * n_ops, n_ops, torch.int32)
+    offs = _tslice(buf, tbase, 8 * n_ops, n_ops, torch.int32)
+    islit = _tslice(buf, tbase, 12 * n_ops, n_ops, torch.uint8)
+    return K.snappy_resolve(ends, asrc, offs, islit, out_pad=out_pad,
+                            iters=iters)
+
+
+def _snappy_plain_staged(buf, tbase: int, *, n_ops: int, out_pad: int,
+                         iters: int, dtype: str, count: int, n_pages: int):
+    """Decompress snappy PLAIN pages on the device and decode their values.
+
+    The host shipped the COMPRESSED page payloads plus tag-walk op tables;
+    the source map resolves every output byte, then each value's bytes are
+    gathered through it: a per-page searchsorted over ``vstart`` gives the
+    value's page, ``vbase`` its output-space byte base.  Output positions
+    past the real total resolve through padded literal ops and are never
+    selected by a real value."""
+    S = _resolve_snappy_staged(buf, tbase, n_ops=n_ops, out_pad=out_pad,
+                               iters=iters)
+    o = SNAPPY_OPS_BYTES * n_ops
+    vbase = _tslice(buf, tbase, o, n_pages, torch.int32)
+    vstart = _tslice(buf, tbase, o + 4 * n_pages, n_pages + 1, torch.int32)
+    width = 8 if dtype in ("int64", "float64") else 4
+    i = torch.arange(count, dtype=torch.int32, device=buf.device)
+    p = torch.clamp(torch.searchsorted(vstart, i, right=True) - 1,
+                    0, n_pages - 1)
+    vpos = vbase[p] + (i - vstart[p]) * width
+    byte_idx = (vpos[:, None] + torch.arange(
+        width, dtype=torch.int32, device=buf.device)[None, :]).reshape(-1)
+    bts = _clamped(buf, _clamped(S, byte_idx))
+    return K.plain_decode_fixed(bts, dtype, count)
+
+
+def _snappy_narrow_staged(buf, tbase: int, bias: int, *, n_ops: int,
+                          out_pad: int, iters: int, k: int, dtype: str,
+                          count: int):
+    """The unfused narrow+snappy chain: resolve the stream's output space,
+    gather the ``k``-byte rows, widen and re-bias.  Rows past the real
+    count resolve through padded ops — callers slice by ``n_values``."""
+    S = _resolve_snappy_staged(buf, tbase, n_ops=n_ops, out_pad=out_pad,
+                               iters=iters)
+    idx = torch.arange(count * k, dtype=torch.int32, device=buf.device)
+    raw = _clamped(buf, _clamped(S, idx)).reshape(count, k)
+    return _narrow_widen(raw, bias, dtype=dtype)
+
+
+def _snappy_gather_staged(buf, tbase: int, *, n_ops: int, out_pad: int,
+                          iters: int, nbytes: int):
+    """Materialize the first ``nbytes`` of a snappy stream's output space
+    (a dictionary's value table).  Positions past the real output resolve
+    through padded literal ops; consumers never index them."""
+    S = _resolve_snappy_staged(buf, tbase, n_ops=n_ops, out_pad=out_pad,
+                               iters=iters)
+    idx = torch.arange(nbytes, dtype=torch.int32, device=buf.device)
+    return _clamped(buf, _clamped(S, idx))
+
+
 # ---------------------------------------------------------------------------
 # the hybrid (RLE/bit-packed) path through K1
 # ---------------------------------------------------------------------------
@@ -367,6 +519,178 @@ def _merge_run_tables(ends_l, rle_l, vals_l, starts_l, fill_end,
 
 
 # ---------------------------------------------------------------------------
+# compressed shipping: the host half shared by the snappy routes
+# ---------------------------------------------------------------------------
+
+class _SnappyShipInfo:
+    """Padded shapes + staged table base of one planned compressed
+    shipment."""
+
+    __slots__ = ("tbase", "n_ops", "out_pad", "iters", "shipped")
+
+    def __init__(self, tbase, n_ops, out_pad, iters, shipped):
+        self.tbase = tbase
+        self.n_ops = n_ops
+        self.out_pad = out_pad
+        self.iters = iters
+        self.shipped = shipped
+
+
+def _plan_snappy_ops(stager: _RowGroupStager, specs, extra_tables=()):
+    """Register snappy/raw payloads and pack the op tables the device
+    resolver (``torch_kernels.snappy_resolve``) consumes — the shared host
+    half of the staged compressed-shipping routes.
+
+    ``specs``: per stream, ``('comp', payload, out_len[, plan])`` — a
+    raw-snappy payload whose uncompressed length is ``out_len`` (``plan``
+    optionally carries a pre-run ``native.snappy_plan`` result) — or
+    ``('raw', buf, pos, out_len)`` — host bytes shipped as one synthetic
+    literal op.  Output spaces concatenate in spec order.  ``extra_tables``
+    pack behind the op tables at the same ``tbase`` (consumers slice them at
+    ``SNAPPY_OPS_BYTES * n_ops_pad``).
+
+    Returns ``_SnappyShipInfo`` or None when infeasible (native library
+    absent, stream rejected by the tag walk, op-table cap, i32 arena
+    ceiling).  Infeasibility leaves the stager UNTOUCHED, so callers fall
+    through to another route with no dead staged bytes."""
+    if not native.available():
+        return None
+    plans = []
+    n_ops_total = 0
+    total_out = 0
+    for spec in specs:
+        if spec[0] == "comp":
+            payload, out_len = spec[1], spec[2]
+            r = spec[3] if len(spec) > 3 and spec[3] is not None else (
+                native.snappy_plan(payload, out_len))
+            if r is None or isinstance(r, int):
+                return None
+            plans.append((spec, r, out_len))
+            n_ops_total += len(r[0])
+        else:
+            out_len = spec[3]
+            plans.append((spec, None, out_len))
+            n_ops_total += 1
+        total_out += out_len
+    if n_ops_total == 0 or n_ops_total > _SNAPPY_MAX_OPS:
+        return None
+    out_pad = _bucket_bytes(total_out + 8, 8)
+    segs = [
+        (spec[1], 0, len(spec[1])) if r is not None
+        else (spec[1], spec[2], out_len)
+        for spec, r, out_len in plans
+    ]
+    shipped = sum(s[2] for s in segs)
+    n_ops_pad = _bucket(n_ops_total)
+    extra_bytes = sum(np.ascontiguousarray(t).nbytes for t in extra_tables)
+    if (stager.total + shipped + SNAPPY_OPS_BYTES * n_ops_pad + extra_bytes
+            + out_pad > (_I32_MAX >> 1)):
+        return None  # i32 source/table math would overflow
+    bases = stager.add_segments(segs)
+    ends = np.empty(n_ops_total, np.int64)
+    asrc = np.empty(n_ops_total, np.int64)
+    offs = np.zeros(n_ops_total, np.int32)
+    islit = np.empty(n_ops_total, np.uint8)
+    at = 0
+    out_base = 0
+    max_depth = 0
+    for (spec, r, out_len), base in zip(plans, bases):
+        if r is None:
+            ends[at] = out_base + out_len
+            asrc[at] = base
+            islit[at] = 1
+            at += 1
+        else:
+            dst_end, op_src, is_lit_p, depth = r
+            n = len(dst_end)
+            if n:
+                ends[at : at + n] = dst_end + out_base
+                # literal: absolute staged position of the run's payload;
+                # copy: output-space source base  dst_start - offset
+                starts = np.empty(n, np.int64)
+                starts[0] = 0
+                starts[1:] = dst_end[:-1]
+                asrc[at : at + n] = np.where(
+                    is_lit_p != 0, op_src + base,
+                    out_base + starts - op_src,
+                )
+                offs[at : at + n] = np.where(is_lit_p != 0, 1, op_src)
+                islit[at : at + n] = is_lit_p
+                at += n
+                max_depth = max(max_depth, depth)
+        out_base += out_len
+    assert at == n_ops_total, (at, n_ops_total)
+    iters = next(
+        (b for b in _SNAPPY_ITER_BUCKETS
+         if (1 << b) >= max_depth + 1), _SNAPPY_ITER_BUCKETS[-1]
+    ) if max_depth > 0 else 0
+    ends_t = np.full(n_ops_pad, out_pad, np.int32)
+    ends_t[:n_ops_total] = ends
+    asrc_t = np.zeros(n_ops_pad, np.int32)
+    asrc_t[:n_ops_total] = asrc
+    offs_t = np.ones(n_ops_pad, np.int32)
+    offs_t[:n_ops_total] = offs
+    islit_t = np.ones(n_ops_pad, np.uint8)
+    islit_t[:n_ops_total] = islit
+    tbase = _pack_tables(
+        stager, [ends_t, asrc_t, offs_t, islit_t, *extra_tables]
+    )
+    return _SnappyShipInfo(tbase, n_ops_pad, out_pad, iters, shipped)
+
+
+def _fixed_value_tables(sizes, counts):
+    """Bucket-padded (vbase, vstart) page tables for the fixed-width snappy
+    routes: per-page OUT-SPACE byte bases (exclusive cumsum of ``sizes``)
+    and cumulative defined ``counts``.  Layout twin of what
+    ``_snappy_plain_staged`` slices back out.  Returns
+    (vbase_t, vstart_t, pages_pad, defined)."""
+    out_bases = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    vstart = np.concatenate([[0], np.cumsum(counts)])
+    pages_pad = _bucket(len(sizes))
+    vbase_t = np.zeros(pages_pad, np.int32)
+    vbase_t[: len(sizes)] = out_bases
+    vstart_t = np.full(pages_pad + 1, vstart[-1], np.int32)
+    vstart_t[: len(sizes) + 1] = vstart
+    return vbase_t, vstart_t, pages_pad, int(vstart[-1])
+
+
+def _fused_narrow_tables(comp, out_len: int):
+    """K3's op tables for one snappy stream of ``out_len`` output bytes:
+    ``([ends, asrc, offs, islit], depth, n_ops_pad, out_pad, ppad)``, the
+    tables padded to ``n_ops_pad`` rows with literal sources
+    PAYLOAD-relative (the staged chain's are absolute).  None when the
+    stream is over one of K3's caps (FUSED_MAX_PAYLOAD, FUSED_MAX_DEPTH,
+    FUSED_MAX_OPS) or the tag walk rejects it — the reference's declines."""
+    if len(comp) > FUSED_MAX_PAYLOAD:
+        return None
+    r = native.snappy_plan(comp, out_len)
+    if r is None or isinstance(r, int):
+        return None
+    dst_end, op_src, is_lit, depth = r
+    n_ops = len(dst_end)
+    if n_ops == 0 or depth > FUSED_MAX_DEPTH:
+        return None
+    n_ops_pad = _bucket(n_ops)
+    if n_ops_pad > FUSED_MAX_OPS:
+        return None
+    out_pad = _bucket_bytes(out_len + 8, 8)
+    ppad = _bucket_bytes(max(len(comp), 1), 64)
+    ends_t = np.full(n_ops_pad, out_pad, np.int32)
+    ends_t[:n_ops] = dst_end
+    starts = np.empty(n_ops, np.int64)
+    starts[0] = 0
+    starts[1:] = dst_end[:-1]
+    asrc_t = np.zeros(n_ops_pad, np.int32)
+    asrc_t[:n_ops] = np.where(is_lit != 0, op_src, starts - op_src)
+    offs_t = np.ones(n_ops_pad, np.int32)
+    offs_t[:n_ops] = np.where(is_lit != 0, 1, op_src)
+    islit_t = np.ones(n_ops_pad, np.uint8)
+    islit_t[:n_ops] = is_lit
+    return ([ends_t, asrc_t, offs_t, islit_t], int(depth), n_ops_pad,
+            out_pad, ppad)
+
+
+# ---------------------------------------------------------------------------
 # plans
 # ---------------------------------------------------------------------------
 
@@ -432,9 +756,19 @@ class _ChunkAssembler:
         self.dict_dtype: Optional[str] = None
         self.dict_len = 0
         self._deferred = deferred_checks  # (device max, dict_len, path)
+        # the dictionary page's snappy payload: (payload, ulen)
+        self.dict_comp: "tuple | None" = None
+        # chunk Statistics (min, max) of an INT column: the narrow hint
+        self.stats_span: "tuple | None" = None
         self._ship_pref: "list | None" = None
-        # fused routes that degraded to their unfused twin (level lanes,
-        # i32 ceilings) — a counter, never a crash
+        # host artifacts preship built, by route family; failed host work
+        # is memoized as None so no plan function repeats it
+        self._ship: dict = {}
+        self._dict_ship: "tuple | None" = None  # (route, payload, out_len)
+        # pages whose compressed payload shipped (device-side expansion)
+        self.pages_kept_compressed = 0
+        # fused routes that degraded to their unfused twin (kernel caps,
+        # level lanes, i32 ceilings) — a counter, never a crash
         self.fused_fallbacks = 0
         self.ship_records: list = []
 
@@ -449,20 +783,183 @@ class _ChunkAssembler:
             raise _out_of_slice("byte-array dictionary")
         self.dict_u8, self.dict_dtype, self.dict_len = decoded
 
-    # -- ship planning -------------------------------------------------------
+    # -- ship planning (host half; see ship.py) -------------------------------
+
+    def _try_snappy(self, stream):
+        """snappy over one host stream; returns the payload only when it
+        beats SNAPPY_WORTH_RATIO — thin wins lose to the op tables and the
+        device resolve."""
+        if not native.available():
+            return None
+        nbytes = len(stream) if isinstance(stream, (bytes, bytearray)) \
+            else stream.nbytes
+        if nbytes == 0:
+            return None
+        comp = native.snappy_compress(stream)
+        if len(comp) > SNAPPY_WORTH_RATIO * nbytes:
+            return None
+        return comp
+
+    def _recompress_streams(self, streams):
+        """Link recompression (ROUTE_RECOMPRESS): snappy over each page's
+        value stream.  ``streams``: [(buf, pos, size)].  Returns the
+        per-page payloads, or None when the whole chunk didn't compress
+        past SNAPPY_WORTH_RATIO."""
+        if not native.available():
+            return None
+        total = sum(s[2] for s in streams)
+        if total == 0:
+            return None
+        payloads = [native.snappy_compress(np.frombuffer(buf, np.uint8,
+                                                         size, pos))
+                    for buf, pos, size in streams]
+        if sum(len(c) for c in payloads) > SNAPPY_WORTH_RATIO * total:
+            return None
+        return payloads
+
+    def _narrow_host_transcode(self, width: int):
+        """Host half of the narrow routes: span probe, exact min/max, and
+        the k-byte truncating transcode into one dense buffer.  Returns
+        (k, min, uint8 buffer) or None when the span is too wide (full-range
+        data pays only a 64k-value probe).  Pages are peeked, not
+        materialized, so a later route can still ship the file's compressed
+        payload."""
+        if not native.available():
+            return None
+        max_k = _narrow_max_k(width)
+        defined = sum(p.defined for p in self.pages)
+        if defined == 0:
+            return None
+        for p in self.pages:
+            p.peek()
+        if any(len(p.raw) - p.value_pos < p.defined * width
+               for p in self.pages):
+            return None  # truncated: the plain path raises with diagnostics
+        probe = next(p for p in self.pages if p.defined)
+        head = native.int_minmax(
+            probe.raw, probe.value_pos, min(probe.defined, _NARROW_PROBE),
+            width,
+        )
+        if _span_bytes(*head) > max_k:
+            return None
+        mms = [native.int_minmax(p.raw, p.value_pos, p.defined, width)
+               for p in self.pages if p.defined]
+        mn = min(m[0] for m in mms)
+        mx = max(m[1] for m in mms)
+        k = _span_bytes(mn, mx)
+        if k > max_k:
+            return None
+        # one truncating pass per page into a single dense buffer:
+        # (v - min) mod 2^width fits k bytes by construction
+        out = np.empty(defined * k, dtype=np.uint8)
+        at = 0
+        for p in self.pages:
+            native.int_truncate(p.raw, p.value_pos, p.defined, width, mn, k,
+                                out[at:])
+            at += p.defined * k
+        return k, mn, out
 
     def preship(self, planner: ShipPlanner) -> None:
-        """Route choice for a PLAIN fixed-width chunk (``ship.py``)."""
+        """Route choice + link-byte host work for this chunk (ship.py):
+        stores the ordered route preference plus any host-built artifacts;
+        ``finish`` executes the routes in order, falling through on
+        infeasibility."""
+        self._preship_dict(planner)
         if not self.pages:
             return
         if {parse_encoding(p.encoding) for p in self.pages} != {Encoding.PLAIN}:
             return
+        self._preship_fixed(planner)
+
+    def _preship_fixed(self, planner: ShipPlanner) -> None:
         leaf = self.leaf
-        width = np.dtype(_PTYPE_TO_NAME[leaf.physical_type]).itemsize
+        name = _PTYPE_TO_NAME[leaf.physical_type]
+        width = np.dtype(name).itemsize
         defined = sum(p.defined for p in self.pages)
-        self._ship_pref = planner.routes(ChunkFacts(
-            logical=defined * width, width=width,
-            flat=leaf.max_def == 0 and leaf.max_rep == 0))
+        comp_bytes = sum(len(p.comp[0]) for p in self.pages
+                         if p.comp is not None)
+        is_int = leaf.physical_type in (Type.INT32, Type.INT64)
+        narrow_k = 0
+        if is_int and self.stats_span is not None:
+            k = _span_bytes(*self.stats_span)
+            if k <= _narrow_max_k(width):
+                narrow_k = k
+        facts = ChunkFacts(
+            logical=defined * width, width=width, narrow_k=narrow_k,
+            narrow_possible=is_int and native.available(),
+            comp_bytes=comp_bytes, native=native.available(),
+            flat=leaf.max_def == 0 and leaf.max_rep == 0,
+        )
+        self._ship_pref = planner.routes(facts)
+        for route in self._ship_pref:
+            if route in (ROUTE_NARROW, ROUTE_NARROW_SNAPPY,
+                         ROUTE_FUSED_NARROW_SNAPPY):
+                if not is_int or defined == 0:
+                    continue
+                if "narrow" in self._ship:  # an earlier entry failed
+                    continue
+                art = self._narrow_host_transcode(width)
+                if art is None:
+                    self._ship["narrow"] = None
+                    continue
+                k, mn, out = art
+                comp = (self._try_snappy(out)
+                        if route in (ROUTE_NARROW_SNAPPY,
+                                     ROUTE_FUSED_NARROW_SNAPPY) else None)
+                self._ship["narrow"] = (k, mn, out, comp)
+                return
+            if route == ROUTE_DEVICE_SNAPPY:
+                if comp_bytes:
+                    return  # planned at finish (needs the stager)
+                continue
+            if route == ROUTE_RECOMPRESS:
+                if comp_bytes or defined == 0:
+                    continue
+                if any(len(p.raw) - p.value_pos < p.defined * width
+                       for p in self.pages):
+                    continue  # truncated: plain path raises diagnostics
+                payloads = self._recompress_streams(
+                    [(p.raw, p.value_pos, p.defined * width)
+                     for p in self.pages])
+                self._ship["recompress"] = payloads
+                if payloads is None:
+                    continue
+                return
+            if route in (ROUTE_PLAIN, ROUTE_FUSED_PLAIN):
+                return  # no host artifacts to prepare for either
+
+    def _preship_dict(self, planner: ShipPlanner) -> None:
+        """Dictionary VALUE TABLE shipping: a fixed-width dictionary whose
+        snappy page payload is exactly the rows keeps that payload;
+        otherwise the table may recompress.  Only the link bytes change."""
+        if self.dict_len == 0 or self.dict_u8 is None:
+            return
+        nbytes = self.dict_u8.nbytes
+        comp0 = None
+        if self.dict_comp is not None and self.dict_comp[1] >= nbytes:
+            comp0 = self.dict_comp
+        facts = ChunkFacts(
+            logical=nbytes, width=0,
+            comp_bytes=len(comp0[0]) if comp0 is not None else 0,
+            native=native.available(),
+            host_bytes_ready=True,  # dict pages always decompress on host
+        )
+        for route in planner.routes(facts):
+            if route == ROUTE_DEVICE_SNAPPY and comp0 is not None:
+                self._dict_ship = (route, comp0[0], comp0[1])
+                return
+            if route == ROUTE_RECOMPRESS and comp0 is None:
+                # as in the reference, the 2-D table goes to snappy_compress,
+                # which takes len() — the row count — as its byte count; the
+                # payload then fails the tag walk at finish and the table
+                # ships plain, unrecorded (kept for route parity; ROADMAP)
+                comp = self._try_snappy(np.ascontiguousarray(self.dict_u8))
+                if comp is None:
+                    continue
+                self._dict_ship = (route, comp, nbytes)
+                return
+            if route == ROUTE_PLAIN:
+                return
 
     # -- finish: the device plan ----------------------------------------------
 
@@ -476,6 +973,11 @@ class _ChunkAssembler:
             Encoding.RLE_DICTIONARY if e == Encoding.PLAIN_DICTIONARY else e
             for e in encs
         }
+        # lazily-compressed pages are consumed only by the PLAIN fixed-width
+        # routes; every other path gets host bytes
+        if encs != {Encoding.PLAIN}:
+            for p in self.pages:
+                p.materialize()
         slots_pad = _bucket_count(slots)
         d_plan = None
         if leaf.max_def > 0:
@@ -570,18 +1072,35 @@ class _ChunkAssembler:
 
     def _finish_plain_fixed(self, common, stager):
         """PLAIN fixed-width: execute the ship planner's route preference in
-        order, falling through on infeasibility; ``plain`` cannot fail."""
+        order (ship.py), falling through on infeasibility; the ``plain``
+        tail cannot fail."""
         name = _PTYPE_TO_NAME[self.leaf.physical_type]
-        for route in self._ship_pref or [ROUTE_PLAIN]:
-            if route == ROUTE_PLAIN:
-                break
+        for route in self._ship_pref:
             plan = None
-            if route == ROUTE_FUSED_PLAIN:
+            if route == ROUTE_PLAIN:
+                break  # the infallible tail below; later entries are dead
+            if route == ROUTE_DEVICE_SNAPPY:
+                if any(p.comp is not None for p in self.pages):
+                    plan = self._plan_device_snappy(common, stager, name)
+            elif route == ROUTE_FUSED_PLAIN:
                 plan = self._plan_fused_plain(common, stager, name)
+            elif route in (ROUTE_NARROW, ROUTE_NARROW_SNAPPY,
+                           ROUTE_FUSED_NARROW_SNAPPY):
+                if name in ("int32", "int64"):
+                    plan = self._plan_narrow_ints(
+                        common, stager, name,
+                        compress=route != ROUTE_NARROW,
+                        fused=route == ROUTE_FUSED_NARROW_SNAPPY)
+            elif route == ROUTE_RECOMPRESS:
+                plan = self._plan_recompress_fixed(common, stager, name)
             if plan is None and route in FUSED_ROUTES:
+                # a fused route the kernel cannot claim (levels, op/depth/
+                # payload caps, i32 ceilings) degrades with a counter
                 self.fused_fallbacks += 1
             if plan is not None:
                 return plan
+        for p in self.pages:
+            p.materialize()
         width = np.dtype(name).itemsize
         base, defined, count = self._stage_fixed_width(stager, width)
         logical = defined * width
@@ -591,6 +1110,162 @@ class _ChunkAssembler:
             (base,),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
         )
+
+    def _snappy_plain_plan(self, common, info, name: str, defined: int,
+                           pages_pad: int) -> _Plan:
+        """The device half shared by ``recompress`` and ``device_snappy``:
+        resolve, gather and decode the staged compressed pages."""
+        count = _bucket_count(defined)
+        n_ops, out_pad, iters = info.n_ops, info.out_pad, info.iters
+        return _Plan(
+            lambda buf, tbase_d: _snappy_plain_staged(
+                buf, tbase_d, n_ops=n_ops, out_pad=out_pad, iters=iters,
+                dtype=name, count=count, n_pages=pages_pad),
+            (info.tbase,),
+            lambda v: DeviceColumnData(values=v, n_values=defined, **common),
+        )
+
+    def _plan_recompress_fixed(self, common, stager, name: str):
+        """Link recompression for PLAIN fixed-width chunks stored GZIP or
+        uncompressed (ROUTE_RECOMPRESS): one more snappy pass on the host
+        trades host cycles for link bytes; the device expands through the
+        same resolver as native snappy files."""
+        width = np.dtype(name).itemsize
+        if any(p.comp is not None for p in self.pages):
+            return None  # the file's own payload is the better ship
+        defined = sum(p.defined for p in self.pages)
+        if defined == 0:
+            return None
+        _check_plain_sizes(self.pages, width)
+        if "recompress" in self._ship:
+            payloads = self._ship["recompress"]  # None: preship declined
+        else:
+            payloads = self._recompress_streams(
+                [(p.raw, p.value_pos, p.defined * width) for p in self.pages])
+        if payloads is None:
+            return None
+        sizes = [p.defined * width for p in self.pages]
+        specs = [("comp", c, n, None) for c, n in zip(payloads, sizes)]
+        vbase_t, vstart_t, pages_pad, _ = _fixed_value_tables(
+            sizes, [p.defined for p in self.pages])
+        info = _plan_snappy_ops(stager, specs,
+                                extra_tables=[vbase_t, vstart_t])
+        if info is None:
+            return None
+        self.pages_kept_compressed = len(specs)
+        self._record_ship(ROUTE_RECOMPRESS, defined * width, info.shipped)
+        return self._snappy_plain_plan(common, info, name, defined,
+                                       pages_pad)
+
+    def _plan_device_snappy(self, common, stager, name: str):
+        """Ship COMPRESSED snappy PLAIN pages; decompress + decode on the
+        device.  Host work per page is the native tag walk — no
+        decompression, no value copies.  Returns None when the chunk should
+        fall back (shattered op tables, the i32 ceiling, the worth-it gate,
+        native library absent)."""
+        width = np.dtype(name).itemsize
+        _check_plain_sizes(self.pages, width)
+        specs = []
+        sizes = []
+        lazy_out = comp_bytes = 0
+        for p in self.pages:
+            if p.comp is not None:
+                payload, _codec, ulen = p.comp
+                r = native.snappy_plan(payload, ulen)
+                if r is None:
+                    return None
+                if isinstance(r, int):
+                    # malformed stream: materialize so the codec's
+                    # diagnostics raise
+                    p.materialize()
+                    return None
+                specs.append(("comp", payload, ulen, r))
+                sizes.append(ulen)
+                lazy_out += ulen
+                comp_bytes += len(payload)
+            else:
+                nbytes = len(p.raw) - p.value_pos
+                # an already-materialized page: its raw value bytes as one
+                # synthetic literal op
+                specs.append(("raw", p.raw, p.value_pos, nbytes))
+                sizes.append(nbytes)
+        # worth-it gate: at ratio ~1 the only win is the skipped host
+        # decompress, which loses to the device resolve on large chunks
+        if (lazy_out > 0 and comp_bytes > SNAPPY_WORTH_RATIO * lazy_out
+                and lazy_out > _SNAPPY_SMALL_OUT):
+            return None
+        vbase_t, vstart_t, pages_pad, defined = _fixed_value_tables(
+            sizes, [p.defined for p in self.pages])
+        info = _plan_snappy_ops(stager, specs,
+                                extra_tables=[vbase_t, vstart_t])
+        if info is None:
+            return None
+        self.pages_kept_compressed = len(
+            [1 for s in specs if s[0] == "comp"])
+        self._record_ship(ROUTE_DEVICE_SNAPPY, defined * width, info.shipped)
+        return self._snappy_plain_plan(common, info, name, defined,
+                                       pages_pad)
+
+    def _plan_narrow_ints(self, common, stager, name: str, *,
+                          compress: bool, fused: bool):
+        """Narrow transcode for PLAIN INT columns: ship ``v - min``
+        truncated to the minimal byte width, widened and re-biased on the
+        device.  Under ROUTE_NARROW_SNAPPY the truncated buffer is also
+        snappy-compressed (resolved by the staged chain, or by K3 under
+        ROUTE_FUSED_NARROW_SNAPPY).  Returns None when the span saves fewer
+        than _NARROW_SAVE_BYTES per value."""
+        width = np.dtype(name).itemsize
+        _check_plain_sizes(self.pages, width)
+        defined = sum(p.defined for p in self.pages)
+        if defined == 0 or not native.available():
+            return None
+        if "narrow" in self._ship:
+            art = self._ship["narrow"]
+            if art is None:
+                return None  # preship already scanned and declined
+            k, mn, out, comp = art
+        else:
+            trans = self._narrow_host_transcode(width)
+            if trans is None:
+                return None
+            k, mn, out = trans
+            comp = self._try_snappy(out) if compress else None
+        if fused:
+            plan = (self._plan_fused_narrow(common, stager, name, k, mn,
+                                            out, comp)
+                    if comp is not None else None)
+            if plan is not None:
+                return plan
+            # K3 cannot claim it (no compressed payload, or the op/depth/
+            # payload caps): the unfused chain, same bytes, with a counter
+            self.fused_fallbacks += 1
+        count = _bucket_count(defined)
+        bias = int(mn)
+
+        def build(v):
+            return DeviceColumnData(values=v, n_values=defined, **common)
+
+        if comp is not None:
+            info = _plan_snappy_ops(
+                stager, [("comp", comp, out.nbytes, None)])
+            if info is not None:
+                self.pages_kept_compressed = len(self.pages)
+                self._record_ship(ROUTE_NARROW_SNAPPY, defined * width,
+                                  info.shipped)
+                n_ops, out_pad, iters = info.n_ops, info.out_pad, info.iters
+                return _Plan(
+                    lambda buf, tb_d, bias_d: _snappy_narrow_staged(
+                        buf, tb_d, bias_d, n_ops=n_ops, out_pad=out_pad,
+                        iters=iters, k=k, dtype=name, count=count),
+                    (info.tbase, bias), build)
+            # op planning fell through: ship the narrow bytes uncompressed
+        base = stager.add(out)
+        stager.note_read_extent(base, count * k)
+        self._record_ship(ROUTE_NARROW, defined * width, out.nbytes)
+        return _Plan(
+            lambda buf, base_d, bias_d: _plain_narrow(
+                buf, base_d, bias_d, k=k, dtype=name, count=count),
+            (base, bias), build)
 
     def _plan_fused_plain(self, common, stager, name: str):
         """ONE K2 pass for a PLAIN fixed-width chunk (route ``fused_plain``):
@@ -609,6 +1284,8 @@ class _ChunkAssembler:
         count = fused_count_pad(defined)
         if stager.total + count * width > _I32_MAX:
             return None
+        for p in self.pages:
+            p.materialize()
         segs = [(p.raw, p.value_pos, p.defined * width) for p in self.pages]
         base = (int(stager.add_segments(segs)[0]) if segs
                 else stager._reserve(0, None))
@@ -623,6 +1300,50 @@ class _ChunkAssembler:
 
         return _Plan(
             fn, (base, defined),
+            lambda v: DeviceColumnData(values=v, n_values=defined, **common),
+        )
+
+    def _plan_fused_narrow(self, common, stager, name: str, k: int, mn,
+                           out: np.ndarray, comp):
+        """ONE K3 pass for the narrow+snappy composition (route
+        ``fused_narrow_snappy``): resolve, gather, widen, re-bias and the
+        validity tail fused — the staged chain's source map never exists.
+        The kernel's caps (FUSED_MAX_OPS / FUSED_MAX_DEPTH /
+        FUSED_MAX_PAYLOAD) bound eligibility exactly as the reference's do;
+        beyond them the caller degrades to the staged chain.  Literal op
+        sources are packed PAYLOAD-RELATIVE."""
+        leaf = self.leaf
+        if leaf.max_def > 0 or leaf.max_rep > 0:
+            return None
+        width = np.dtype(name).itemsize
+        defined = sum(p.defined for p in self.pages)
+        if defined == 0:
+            return None
+        fz = _fused_narrow_tables(comp, out.nbytes)
+        if fz is None:
+            return None
+        tables, depth, n_ops_pad, out_pad, ppad = fz
+        count = fused_narrow_count_pad(defined)
+        if (stager.total + len(comp) + SNAPPY_OPS_BYTES * n_ops_pad + ppad
+                + out_pad > (_I32_MAX >> 1)):
+            return None  # i32 table/source math (checked before mutation)
+        tbase = _pack_tables(stager, tables)
+        pbase = stager.add(np.frombuffer(comp, np.uint8))
+        # K3 reads ppad payload bytes from pbase
+        stager.note_read_extent(pbase, ppad)
+        self.pages_kept_compressed = len(self.pages)
+        self._record_ship(ROUTE_FUSED_NARROW_SNAPPY, defined * width,
+                          len(comp))
+
+        def fn(buf, tb_d, pb_d, bias_d, nv_d):
+            words = fused_narrow_words(
+                buf, tb_d, pb_d, bias_d, nv_d, k=k, width=width, depth=depth,
+                count_pad=count, out_pad=out_pad, n_ops_pad=n_ops_pad,
+                ppad=ppad)
+            return _fused_words_cast(words, name)
+
+        return _Plan(
+            fn, (tbase, pbase, int(mn), defined),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
         )
 
@@ -739,21 +1460,42 @@ class _ChunkAssembler:
         name = self.dict_dtype
         if name not in _TORCH_DTYPES:
             raise _out_of_slice(f"dictionary of {name} values")
-        # the dictionary rides the row-group buffer, bucketed and zero-filled
-        # past dict_len so clamped tail gathers read zeros
+        # the dictionary rides the row-group buffer, its row count bucketed
         dict_kp = _bucket(max(self.dict_len, 1))
         itemsize = int(self.dict_u8.shape[1])
-        dict_base = stager.add(np.ascontiguousarray(self.dict_u8),
-                               reserve=dict_kp * itemsize)
+        int_dt, val_dt = _INT_OF[name], _TORCH_DTYPES[name]
+        table_fn = None
+        ship = self._dict_ship  # (route, payload, out_len) or None: ship.py
+        if ship is not None:
+            info = _plan_snappy_ops(stager, [("comp", ship[1], ship[2], None)])
+            if info is not None:
+                # value table shipped compressed; the device gathers the
+                # bucketed rows out of the stream's output space.  Rows past
+                # dict_len resolve through padded ops — garbage no valid
+                # index selects (the range check rejects the others)
+                self._record_ship(ship[0], self.dict_u8.nbytes, info.shipped)
+                table_dyn = info.tbase
+
+                def table_fn(buf, tb):
+                    return _snappy_gather_staged(
+                        buf, tb, n_ops=info.n_ops, out_pad=info.out_pad,
+                        iters=info.iters, nbytes=dict_kp * itemsize,
+                    ).view(int_dt)
+        if table_fn is None:
+            # zero-filled past dict_len so clamped tail gathers read zeros
+            table_dyn = stager.add(np.ascontiguousarray(self.dict_u8),
+                                   reserve=dict_kp * itemsize)
+
+            def table_fn(buf, tb):
+                return _tslice(buf, tb, 0, dict_kp, int_dt)
         n_idx = len(idx_dyn)
         deferred = self._deferred
         dict_len = self.dict_len
         path_name = ".".join(self.leaf.path)
-        int_dt, val_dt = _INT_OF[name], _TORCH_DTYPES[name]
 
         def fn(buf, *d):
             idx = idx_fn(buf, *d[:n_idx])
-            table = _tslice(buf, d[n_idx], 0, dict_kp, int_dt)
+            table = table_fn(buf, d[n_idx])
             vals = K.dict_gather(table, idx).view(val_dt)
             mx = (idx.to(torch.int64) & 0xFFFFFFFF).max() if need_max else None
             return vals, mx
@@ -764,16 +1506,24 @@ class _ChunkAssembler:
                 deferred.append((mx, dict_len, path_name))
             return DeviceColumnData(values=vals, n_values=prefix, **common)
 
-        return _Plan(fn, tuple(idx_dyn) + (dict_base,), build)
+        return _Plan(fn, tuple(idx_dyn) + (table_dyn,), build)
 
 
 def _collect_chunk(buf: bytes, codec: int, total_values: int,
                    leaf: SchemaNode, deferred_checks: list,
-                   validate_crc: bool = False) -> _ChunkAssembler:
+                   validate_crc: bool = False,
+                   statistics=None) -> _ChunkAssembler:
     """Walk a chunk's pages into an assembler (host phase): CRC checks,
-    host decompression, the dictionary page, and each data page's level
-    and index structure."""
+    the dictionary page, and each data page's level and index structure.
+    PLAIN pages of a SNAPPY chunk stay compressed (lazy pages) for the
+    compressed-shipping routes; every other page is decompressed here."""
     asm = _ChunkAssembler(leaf, deferred_checks)
+    asm.stats_span = _int_stats_span(statistics, leaf)
+    # parse_data_page applies the per-page conditions (PLAIN encoding,
+    # levels outside the compressed region)
+    lazy = (codec == CompressionCodec.SNAPPY
+            and leaf.physical_type in _PTYPE_TO_NAME
+            and native.available())
     for ps in walk_pages(buf, total_values):
         header = ps.header
         pt = header.type
@@ -784,12 +1534,17 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
                                    header.uncompressed_page_size)
             dh = header.dictionary_page_header
             asm.set_dictionary(raw, dh.encoding, dh.num_values or 0)
+            if codec == CompressionCodec.SNAPPY:
+                # kept: the planner may ship the dictionary VALUE TABLE
+                # compressed (_preship_dict / _finish_dict)
+                asm.dict_comp = (payload,
+                                 max(header.uncompressed_page_size or 0, 0))
             continue
         if pt in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
             asm.pages.append(
                 parse_data_page(ps, buf, codec, leaf,
                                 validate_crc=validate_crc,
-                                decode_levels=False)
+                                decode_levels=False, lazy_decompress=lazy)
             )
         # index/unknown pages: skip
     return asm
@@ -806,6 +1561,7 @@ class ReaderStats:
     row_groups: int = 0
     chunks: int = 0
     pages: int = 0
+    pages_device_expanded: int = 0  # pages shipped compressed
     rows: int = 0
     compressed_bytes: int = 0      # chunk bytes read from the file
     staged_bytes: int = 0          # bytes registered for the device buffers
@@ -816,9 +1572,11 @@ class ReaderStats:
     route_streams: dict = field(default_factory=dict)
     route_bytes_logical: dict = field(default_factory=dict)
     route_bytes_shipped: dict = field(default_factory=dict)
-    # fused routes that degraded to their unfused twin (level lanes, i32
-    # ceilings) — forced-fused on an ineligible stream counts here
+    # fused routes that degraded to their unfused twin (kernel caps, level
+    # lanes, i32 ceilings) — forced-fused on an ineligible stream counts here
     fused_fallbacks: int = 0
+    # the link rate the planner assumed (TPQ_LINK_MBPS or its default)
+    planner_link_mbps: float = 0.0
 
     def count_route(self, route: str, logical: int, shipped: int) -> None:
         self.route_streams[route] = self.route_streams.get(route, 0) + 1
@@ -842,7 +1600,9 @@ class ReaderStats:
     def as_dict(self) -> dict:
         return {
             "row_groups": self.row_groups, "chunks": self.chunks,
-            "pages": self.pages, "rows": self.rows,
+            "pages": self.pages,
+            "pages_device_expanded": self.pages_device_expanded,
+            "rows": self.rows,
             "compressed_bytes": self.compressed_bytes,
             "staged_bytes": self.staged_bytes,
             "link_bytes_logical": self.link_bytes_logical,
@@ -854,6 +1614,7 @@ class ReaderStats:
                 for r in sorted(self.route_streams)
             },
             "fused_fallbacks": self.fused_fallbacks,
+            "planner_link_mbps": round(self.planner_link_mbps, 1),
             "host_seconds": round(self.host_seconds, 6),
             "stage_seconds": round(self.stage_seconds, 6),
             "dispatch_seconds": round(self.dispatch_seconds, 6),
@@ -944,6 +1705,7 @@ class DeviceFileReader:
         self._stats = ReaderStats()
         self._t0: "float | None" = None
         self._ship_planner = ShipPlanner()
+        self._stats.planner_link_mbps = self._ship_planner.link_mbps
         self._pinned = _PinnedPool() if self.device.type == "cuda" else None
 
     def set_selected_columns(self, columns) -> None:
@@ -1013,7 +1775,8 @@ class DeviceFileReader:
             self._stats.compressed_bytes += md.total_compressed_size
             asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
                                  self._deferred,
-                                 validate_crc=self.validate_crc)
+                                 validate_crc=self.validate_crc,
+                                 statistics=md.statistics)
             asm.preship(self._ship_planner)
             self._stats.pages += len(asm.pages)
             name = ".".join(path)
@@ -1027,6 +1790,7 @@ class DeviceFileReader:
                 )
                 continue
             plans.append((name, asm.finish(stager)))
+            self._stats.pages_device_expanded += asm.pages_kept_compressed
             self._stats.fused_fallbacks += asm.fused_fallbacks
             for rec in asm.ship_records:
                 self._stats.count_route(*rec)

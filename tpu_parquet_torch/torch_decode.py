@@ -279,11 +279,36 @@ class ParsedDataPage:
     # def-stream run tables from the decode_levels=False walk (native eq-count
     # gives `defined` without materializing levels); reused by _plan_levels
     def_meta: Optional["HybridMeta"] = None
+    # lazily-decompressed value stream: (compressed_payload, codec, ulen).
+    # Set by parse_data_page(lazy_decompress=True) on pages eligible for
+    # device-side snappy expansion (PLAIN values, levels outside the
+    # compressed region); then ``raw`` is b"" until materialize().  Consumers
+    # that need host bytes call materialize(); the device-snappy planner
+    # ships the compressed payload instead.
+    comp: Optional[tuple] = None
+
+    def materialize(self) -> bytes:
+        """Host bytes, dropping the compressed payload (the page commits to
+        a host-bytes route)."""
+        if self.comp is not None:
+            self.peek()
+            self.comp = None
+        return self.raw
+
+    def peek(self) -> bytes:
+        """Decompressed bytes WITHOUT dropping the compressed payload: a
+        host pass (the narrow probe) may read them while a later route still
+        ships the file's compressed payload."""
+        if self.comp is not None and len(self.raw) == 0:
+            payload, codec, ulen = self.comp
+            self.raw = decompress_block(payload, codec, ulen)
+        return self.raw
 
 
 def parse_data_page(
     ps: PageSlice, buf: bytes, codec: int, leaf: SchemaNode,
     validate_crc: bool = False, decode_levels: bool = True,
+    lazy_decompress: bool = False,
 ) -> ParsedDataPage:
     """Parse one v1/v2 data page on host (no device work).
 
@@ -297,6 +322,10 @@ def parse_data_page(
     (the count has to come from somewhere).  The device-side
     *reconstruction* from levels (validity scatter, row starts) runs as
     prefix scans in torch_kernels.
+
+    With ``lazy_decompress`` a PLAIN page whose value stream is the whole
+    compressed region (v1 without levels, or v2) keeps its payload
+    compressed in ``comp``.
     """
     header = ps.header
     payload = buf[ps.payload_start : ps.payload_end]
@@ -307,6 +336,17 @@ def parse_data_page(
         num_values = dh.num_values or 0
         if num_values < 0:
             raise ParquetError(f"negative page value count {num_values}")
+        if (lazy_decompress and max_rep == 0 and max_def == 0
+                and parse_encoding(dh.encoding) == Encoding.PLAIN):
+            # no levels inside the compressed region: the whole payload is
+            # the PLAIN value stream — keep it compressed for device-side
+            # expansion (materialize() restores the host bytes on demand)
+            return ParsedDataPage(
+                raw=b"", value_pos=0, num_values=num_values,
+                defined=num_values, encoding=dh.encoding,
+                comp=(payload, codec, max(header.uncompressed_page_size or 0,
+                                          0)),
+            )
         raw = decompress_block(payload, codec, header.uncompressed_page_size)
         pos = 0
         rlv = dlv = None
@@ -406,14 +446,22 @@ def parse_data_page(
             )
     values_block = payload[rep_len + def_len :]
     uncompressed_values = header.uncompressed_page_size - rep_len - def_len
+    comp = None
     if dh.is_compressed is None or dh.is_compressed:
-        raw = decompress_block(values_block, codec, uncompressed_values)
+        if (lazy_decompress
+                and parse_encoding(dh.encoding) == Encoding.PLAIN):
+            # v2 keeps levels OUTSIDE the compressed region, so the value
+            # block can stay compressed for device-side expansion
+            raw, comp = b"", (values_block, codec,
+                              max(uncompressed_values, 0))
+        else:
+            raw = decompress_block(values_block, codec, uncompressed_values)
     else:
         raw = values_block
     return ParsedDataPage(
         raw=raw, value_pos=0, num_values=num_values, defined=defined,
         encoding=dh.encoding, def_levels=dlv, rep_levels=rlv,
-        def_stream=dsp, rep_stream=rsp, def_meta=def_meta,
+        def_stream=dsp, rep_stream=rsp, def_meta=def_meta, comp=comp,
     )
 
 

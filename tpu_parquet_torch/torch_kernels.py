@@ -1,6 +1,6 @@
 """Device decode transforms in plain PyTorch — the tensor half of the decode.
 
-The counterpart of ``tpu_parquet.jax_kernels`` for the flat-column slice.
+The counterpart of ``tpu_parquet.jax_kernels`` for the fixed-width slices.
 None of these is a hand-written kernel: they are tensor code, as XLA ran
 their JAX counterparts, and run on whatever device their inputs live on.
 The hand-written CUDA kernels (the Pallas kernels' counterparts) are in
@@ -33,6 +33,8 @@ __all__ = [
     "dict_gather",
     "levels_to_validity",
     "plain_decode_fixed",
+    "snappy_resolve",
+    "narrow_widen_words",
 ]
 
 _TORCH_DTYPES = {
@@ -174,3 +176,71 @@ def plain_decode_fixed(buf: torch.Tensor, dtype: str, count: int):
     if raw.storage_offset() % nbytes:
         raw = raw.clone()  # a dtype view needs an aligned start
     return raw.view(dt).clone()
+
+
+def snappy_resolve(ends, asrc, offs, islit, *, out_pad: int, iters: int):
+    """Resolve snappy op tables into a per-output-byte SOURCE MAP.
+
+    The shared device half of the compressed-shipping routes (``ship.py``):
+    the host's tag walk (``native.snappy_plan``, packed by
+    ``device_reader._plan_snappy_ops``) describes each op's output extent;
+    this maps every position of the decompressed OUTPUT SPACE to the staged
+    buffer index holding its byte, without materializing the output:
+
+    1. per output byte, find its op (one searchsorted over ``ends``) and
+       compute a source: literal bytes point into the staged compressed
+       stream (>= 0); copy bytes encode their output-space source as
+       ``-(pos)-1`` using the periodic form
+       ``dst_start - offset + (i mod offset)``, which maps overlapping
+       (RLE-style) copies straight past their own op;
+    2. resolve copy chains by pointer doubling: ``iters`` rounds of
+       ``S = where(S >= 0, S, S[-S-1])`` (``iters`` comes from the host's
+       exact max chain depth, so no device read decides it).
+
+    All math is int32, like the reference's (planners enforce the arena
+    ceiling); every gather index is clamped where the reference clips.
+    Positions past the real output resolve through padded literal ops.
+    Returns ``int32[out_pad]`` of staged-buffer byte indices.
+    """
+    n_ops = ends.shape[0]
+    j = torch.arange(out_pad, dtype=torch.int32, device=ends.device)
+    op = torch.clamp(torch.searchsorted(ends, j, right=True), 0, n_ops - 1)
+    prev = ends[torch.clamp(op - 1, min=0)]
+    start = torch.where(op > 0, prev, torch.zeros_like(prev))
+    within = j - start
+    a = asrc[op]
+    S = torch.where(
+        islit[op] != 0,
+        a + within,
+        -(a + torch.remainder(within, torch.clamp(offs[op], min=1))) - 1,
+    )
+    for _ in range(iters):
+        t = torch.clamp(-S - 1, 0, out_pad - 1)
+        S = torch.where(S >= 0, S, S[t.long()])
+    return S
+
+
+def narrow_widen_words(raw: torch.Tensor, bias: int, *, width: int):
+    """Widen ``k``-byte little-endian rows and re-bias them to finished
+    words: ``v = bias + zero_extend(bytes)`` modulo ``2**(8*width)``.
+
+    ``raw`` uint8[count, k] (1 <= k <= width), ``bias`` a Python int (taken
+    modulo 2**64), ``width`` 4 or 8.  Returns ``int32[count, width // 4]``
+    holding the little-endian ``uint32`` words.  The add runs as the
+    reference's u32 word pair with carry, in ``int64`` lanes that never
+    overflow, so any bias and any k give the modular result."""
+    k = raw.shape[1]
+    r = raw.to(torch.int64)
+    bu = int(bias) % (1 << 64)
+    mask = (1 << 32) - 1
+    lo = torch.zeros(raw.shape[0], dtype=torch.int64, device=raw.device)
+    for i in range(min(k, 4)):
+        lo = lo | (r[:, i] << (8 * i))
+    lo_sum = lo + (bu & mask)
+    if width == 4:
+        return u32_bits(lo_sum & mask)[:, None]
+    hi = torch.zeros_like(lo)
+    for i in range(4, k):
+        hi = hi | (r[:, i] << (8 * (i - 4)))
+    hi_sum = (hi + (bu >> 32) + (lo_sum >> 32)) & mask
+    return u32_bits(torch.stack([lo_sum & mask, hi_sum], dim=1))
