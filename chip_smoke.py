@@ -12,11 +12,13 @@ Phases:
 1. the card's name and power limit; build of the CUDA kernels from
    ``tpu_parquet_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. each kernel against its plain PyTorch version on the card, bit-exact,
-   at edge shapes and at the main path's shapes, with its median time over
-   CUDA events (L2 flushed before each launch), its bound, the plain
-   version's time and, where one PyTorch call computes the same function,
-   that call's time (K3 has none: its yardstick is the unfused chain of
-   snappy resolve + gather + widen, timed on the same stream);
+   at edge shapes and at each shape the main path launches it at, with its
+   median time over CUDA events (L2 flushed before each launch; the time
+   of a near-empty launch measured the same way is printed first), its
+   bound, the plain version's time and, where one PyTorch call computes
+   the same function, that call's time and the ratio (K3 has none: its
+   yardstick is the unfused chain of snappy resolve + gather + widen,
+   timed on the same stream);
 3. the main path, REQUIRED: TPC-H SF1 ``lineitem`` (6,001,215 rows, the
    seven fixed-width columns that are not delta-encoded, the generator and
    seed of ``bench.py`` ``gen_lineitem16``) written with the port's writer
@@ -172,12 +174,31 @@ def check_k1(torch, ck, flush, rng, smi: str) -> dict:
 
 def check_k2(torch, ck, flush, rng, smi: str) -> dict:
     """K2 at widths 4 and 8 with n_valid at and beside tile edges and odd
-    bases, then timed on 1M int64 values."""
+    bases; ``vbase`` at every residue mod 16 in buffers that end exactly at
+    the read extent ``vbase + count_pad * width``; buffer views whose first
+    byte is not 16-byte aligned.  Then timed at the main path's shapes:
+    1,048,576 int64 values (SF1's ``l_extendedprice``) aligned and at an
+    odd base, and 65,536 int64 and int32 values (phase 5's ``wide`` and
+    ``rate``), each beside the library yardstick of the same call."""
     import numpy as np
 
     dev = torch.device("cuda")
     worst = 0
     checks = 0
+
+    def check(buf, vbase, n_valid, width, count_pad, what):
+        nonlocal worst, checks
+        got = ck.fused_plain_words(buf, vbase, n_valid, width=width,
+                                   count_pad=count_pad)
+        want = ck.fused_plain_words_plain(buf, vbase, n_valid, width=width,
+                                          count_pad=count_pad)
+        err = _max_err(torch, got, want)
+        worst = max(worst, err)
+        checks += 1
+        if err:
+            raise fail(f"K2 width {width} {what} vbase {vbase} n_valid "
+                       f"{n_valid}: err {err}")
+
     for width in (4, 8):
         for count, vbase in ((1024, 0), (1024, 3), (2048, 1), (5000, 64),
                              (4096, 5)):
@@ -187,70 +208,87 @@ def check_k2(torch, ck, flush, rng, smi: str) -> dict:
             buf = torch.from_numpy(host).to(dev)
             for n_valid in {0, 1, count - 1, count, min(count + 1, count_pad),
                             1023, 1024, 1025, count_pad}:
-                if not 0 <= n_valid <= count_pad:
-                    continue
-                got = ck.fused_plain_words(buf, vbase, n_valid, width=width,
-                                           count_pad=count_pad)
-                want = ck.fused_plain_words_plain(
-                    buf, vbase, n_valid, width=width, count_pad=count_pad)
-                err = _max_err(torch, got, want)
-                worst = max(worst, err)
-                checks += 1
-                if err:
-                    raise fail(f"K2 width {width} count {count} vbase "
-                               f"{vbase} n_valid {n_valid}: err {err}")
+                if 0 <= n_valid <= count_pad:
+                    check(buf, vbase, n_valid, width, count_pad,
+                          f"count {count}")
+        count_pad = ck.fused_count_pad(2048)
+        for residue in range(16):
+            # the buffer ends exactly at the read extent
+            vbase = 48 + residue
+            host = rng.integers(0, 256, vbase + count_pad * width,
+                                dtype=np.uint8)
+            buf = torch.from_numpy(host).to(dev)
+            for n_valid in (count_pad, count_pad - 1, 1000):
+                check(buf, vbase, n_valid, width, count_pad,
+                      "buffer ending at the read extent")
+            # a view whose first byte is not 16-byte aligned
+            base = torch.from_numpy(rng.integers(
+                0, 256, 16 + count_pad * width + 16, dtype=np.uint8)).to(dev)
+            view = base[residue + 1 : residue + 1 + count_pad * width + 3]
+            for vbase in (0, 3):
+                check(view, vbase, count_pad - 5, width, count_pad,
+                      f"view at {residue + 1} bytes")
     torch.cuda.synchronize()
-    log(f"K2 fused_plain_words: {checks} edge cases bit-exact "
-        f"(widths 4/8, n_valid at and beside tile edges, odd vbase)")
-    n = 1_000_000
-    count_pad = ck.fused_count_pad(n)
-    width = 8
-    vals = rng.integers(-(1 << 62), 1 << 62, count_pad)
-    out = {}
-    for vbase in (0, 3):
+    log(f"K2 fused_plain_words: {checks} edge cases bit-exact (widths 4/8, "
+        f"n_valid at and beside tile edges, vbase at every residue mod 16 "
+        f"with the buffer ending at the read extent, unaligned views)")
+
+    shapes = []
+    for n, width, vbase, what in (
+            (1_000_000, 8, 0, "SF1 l_extendedprice"),
+            (1_000_000, 8, 3, "SF1 shape at an odd base"),
+            (65_536, 8, 0, "phase 5 wide"), (65_536, 4, 0, "phase 5 rate")):
+        count_pad = ck.fused_count_pad(n)
+        dtype = np.int64 if width == 8 else np.int32
+        vals = rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max,
+                            count_pad, dtype=dtype)
         host = np.zeros(vbase + count_pad * width + 64, dtype=np.uint8)
         host[vbase : vbase + count_pad * width] = vals.view(np.uint8)
         buf = torch.from_numpy(host).to(dev)
-        got = ck.fused_plain_words(buf, vbase, n, width=width,
-                                   count_pad=count_pad)
-        want = ck.fused_plain_words_plain(buf, vbase, n, width=width,
-                                          count_pad=count_pad)
-        err = _max_err(torch, got, want)
-        exact = np.array_equal(got.view(torch.int64).reshape(-1)[:n].cpu()
-                               .numpy(), vals[:n])
+        run = lambda: ck.fused_plain_words(  # noqa: E731
+            buf, vbase, n, width=width, count_pad=count_pad)
+        got = run()
+        err = _max_err(torch, got, ck.fused_plain_words_plain(
+            buf, vbase, n, width=width, count_pad=count_pad))
+        tdt = torch.int64 if width == 8 else torch.int32
+        exact = np.array_equal(got.view(tdt).reshape(-1)[:n].cpu().numpy(),
+                               vals[:n])
         if err or not exact:
-            raise fail(f"K2 1M int64 values at vbase {vbase}: err {err}, "
-                       f"matches the generator: {exact}")
-        ms = _median_ms(torch, lambda: ck.fused_plain_words(
-            buf, vbase, n, width=width, count_pad=count_pad), flush)
+            raise fail(f"K2 {what}: err {err}, matches the generator: "
+                       f"{exact}")
+        src = buf[vbase : vbase + count_pad * width]
+
+        def library_call():
+            # one PyTorch call computing the same function: a dtype-view
+            # copy of the byte slice, then the tail mask (aligned bases only)
+            v = src.view(tdt).clone()
+            v[n:] = 0
+            return v
+
+        library_ms = None
+        if vbase == 0:
+            if not torch.equal(library_call(), got.view(tdt).reshape(-1)):
+                raise fail(f"K2 {what} disagrees with the library yardstick")
+            library_ms = _median_ms(torch, library_call, flush)
+        ms = _median_ms(torch, run, flush)
         plain_ms = _median_ms(torch, lambda: ck.fused_plain_words_plain(
             buf, vbase, n, width=width, count_pad=count_pad), flush, reps=10)
-        out[vbase] = dict(ms=ms, plain_ms=plain_ms, buf=buf)
-    moved = 2 * count_pad * width
-
-    def library_call():
-        # one PyTorch call computing the same function on an aligned base:
-        # a dtype-view copy of the byte slice, then the tail mask
-        v = out[0]["buf"][: count_pad * width].view(torch.int64).clone()
-        v[n:] = 0
-        return v
-
-    lib = library_call()
-    if not torch.equal(lib, ck.fused_plain_words(
-            out[0]["buf"], 0, n, width=width,
-            count_pad=count_pad).view(torch.int64).reshape(-1)):
-        raise fail("K2 disagrees with the library yardstick")
-    library_ms = _median_ms(torch, library_call, flush)
-    for vbase, t in out.items():
-        log(f"K2 width 8 vbase {vbase}: {count_pad} values, {t['ms']:.4f} ms "
-            f"(plain {t['plain_ms']:.4f} ms), bound {_bound_ms(moved):.4f} ms "
-            f"({moved} bytes at 3.35 TB/s), "
-            f"{moved / (t['ms'] * 1e-3) / 1e9:.1f} GB/s ({smi})")
-    log(f"K2 library yardstick (view copy + tail mask, aligned): "
-        f"{library_ms:.4f} ms ({smi})")
-    return dict(worst=worst, ms=out[0]["ms"], ms_odd=out[3]["ms"],
-                plain_ms=out[0]["plain_ms"], bound_ms=_bound_ms(moved),
-                library_ms=library_ms, values=count_pad, bytes=moved)
+        moved = 2 * count_pad * width
+        t = dict(what=what, values=count_pad, width=width, vbase=vbase, ms=ms,
+                 plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=_bound_ms(moved), bytes=moved)
+        shapes.append(t)
+        ratio = (f", library {library_ms:.4f} ms, K2/library "
+                 f"{ms / library_ms:.3f}" if library_ms else "")
+        log(f"K2 {what}: {count_pad} values, width {width}, vbase {vbase}: "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms{ratio}), bound "
+            f"{t['bound_ms']:.4f} ms ({moved} bytes at 3.35 TB/s), "
+            f"{moved / (ms * 1e-3) / 1e9:.1f} GB/s ({smi})")
+    sf1 = shapes[0]
+    return dict(worst=worst, ms=sf1["ms"], ms_odd=shapes[1]["ms"],
+                plain_ms=sf1["plain_ms"], bound_ms=sf1["bound_ms"],
+                library_ms=sf1["library_ms"], values=sf1["values"],
+                bytes=sf1["bytes"], shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -343,22 +381,33 @@ def stage_k3(torch, stream_tables, payload, n: int, out_pad: int, podd: int,
     return torch.from_numpy(host).to(dev), tbase, pbase, ppad
 
 
-def k3_rounds(torch, buf, tbase, n_ops_pad, count_pad, k, out_pad, depth):
-    """Chase rounds this stream's bytes take in K3 (a byte stops at its
-    literal; an unresolved one takes depth + 1): the data-dependent part of
-    K3's operation count."""
+def k3_work(torch, ck, buf, tbase, n_ops_pad, count_pad, k, out_pad, depth):
+    """The data-dependent part of K3's operation count on this stream:
+    ``(rounds, steps)``, the chase rounds its bytes take (a byte stops at
+    its literal; an unresolved one takes depth + 1) and the binary-search
+    steps of their lookups, each searching only the ops between the coarse
+    index entries of its bucket and the next (the index built here as the
+    kernel builds it: the upper bound of each bucket start)."""
     n = n_ops_pad
     tab = buf[tbase : tbase + 13 * n]
     ends = tab[: 4 * n].view(torch.int32)
     asrc = tab[4 * n : 8 * n].view(torch.int32)
     offs = tab[8 * n : 12 * n].view(torch.int32)
     islit = tab[12 * n :] != 0
+    _, shift, _ = ck.fused_narrow_geometry(count_pad, n_ops_pad, out_pad, 1)
+    nb = -(-out_pad >> shift)
+    starts = torch.arange(nb + 1, dtype=torch.int32, device=buf.device)
+    index = torch.searchsorted(ends, starts << shift, right=True)
     p = torch.clamp(torch.arange(count_pad * k, dtype=torch.int32,
                                  device=buf.device), 0, out_pad - 1)
     done = torch.zeros(p.shape, dtype=torch.bool, device=buf.device)
-    rounds = 0
+    rounds = steps = 0
     for _ in range(depth + 1):
-        rounds += int((~done).sum().item())
+        live = ~done
+        rounds += int(live.sum().item())
+        bk = (p >> shift).long()
+        span = (index[bk + 1] - index[bk]).double()
+        steps += int(torch.ceil(torch.log2(span + 1))[live].sum().item())
         op = torch.clamp(torch.searchsorted(ends, p, right=True), max=n - 1)
         prev = ends[torch.clamp(op - 1, min=0)]
         within = p - torch.where(op > 0, prev, torch.zeros_like(prev))
@@ -366,7 +415,7 @@ def k3_rounds(torch, buf, tbase, n_ops_pad, count_pad, k, out_pad, depth):
         done = done | lit
         p = torch.where(lit, p, asrc[op] + torch.remainder(
             within, torch.clamp(offs[op], min=1)))
-    return rounds
+    return rounds, steps
 
 
 def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
@@ -374,13 +423,13 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
     widths 4 and 8 under chain depths 0, 1, 12 and 16, overlapping copies
     and literal-only streams, 8 and 4096 op rows, biases whose low word
     carries and negative minima, n_valid at and beside a 256-value tile
-    edge, payloads at odd offsets.  Then the main path's shape — the first
+    edge, payloads at odd offsets; then a literal-only stream of a handful
+    of ops over a 1 MiB output, 4096 op rows at depth 16, and k = 8 at
+    width 8 with every row valid.  Then the main path's shape — the first
     row group of phase 5's ``dates`` (65,536 values, k = 2, width 8) through
     the port's own narrow transcode and table packing — timed beside its
     plain version and the unfused chain (snappy_resolve + gather + widen)
     on the same stream."""
-    import math
-
     import numpy as np
 
     from tpu_parquet_torch import device_reader as DR
@@ -419,11 +468,37 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
             if err:
                 raise fail(f"K3 width {width} k {k} depth {depth} n_ops_pad "
                            f"{n_ops_pad} n_valid {n_valid}: err {err}")
+    # the redesign's edges: a literal-only stream of a handful of ops over
+    # a 1 MiB output (the coarse index's large buckets), 4096 op rows at
+    # depth 16, and k = 8 at width 8 with every row valid
+    for width, k, depth, n_ops, count, literal_only in (
+            (4, 2, 0, 4, 1 << 19, True), (8, 3, 16, 3500, 2048, False),
+            (8, 8, 12, 600, 1024, False)):
+        tables, payload = synth_ops(rng, count * k, depth, n_ops,
+                                    literal_only)
+        n_ops_pad = _bucket(len(tables[0]))
+        out_pad = _bucket_bytes(count * k + 8, 8)
+        count_pad = ck.fused_narrow_count_pad(count)
+        buf, tbase, pbase, ppad = stage_k3(
+            torch, tables, payload, n_ops_pad, out_pad, 3, dev)
+        for n_valid in (count_pad, count_pad - 1):
+            args = (buf, tbase, pbase, biases[n_valid % 5], n_valid)
+            kw = dict(k=k, width=width, depth=depth, count_pad=count_pad,
+                      out_pad=out_pad, n_ops_pad=n_ops_pad, ppad=ppad)
+            err = _max_err(torch, ck.fused_narrow_words(*args, **kw),
+                           ck.fused_narrow_words_plain(*args, **kw))
+            worst = max(worst, err)
+            checks += 1
+            if err:
+                raise fail(f"K3 width {width} k {k} depth {depth} n_ops_pad "
+                           f"{n_ops_pad} out_pad {out_pad} n_valid {n_valid}: "
+                           f"err {err}")
     torch.cuda.synchronize()
     log(f"K3 fused_narrow_words: {checks} edge cases bit-exact (k 1..width "
         f"at widths 4/8, depths 0/1/12/16, 8..4096 op rows, overlapping "
-        f"copies, literal-only streams, carrying and negative biases, "
-        f"n_valid at and beside the 256-value tile edge, odd payload bases)")
+        f"copies, literal-only streams up to a 1 MiB output, carrying and "
+        f"negative biases, n_valid at and beside the 256-value tile edge and "
+        f"at count_pad, odd payload bases)")
 
     # the main path's shape, from the port's own host code
     n = len(dates)
@@ -467,12 +542,12 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
     plain_ms = _median_ms(torch, plain, flush, reps=10)
     unfused_ms = _median_ms(torch, unfused, flush, reps=10)
     moved = ppad + 13 * n_ops_pad + count_pad * 8
-    rounds = k3_rounds(torch, buf, tbase, n_ops_pad, count_pad, k, out_pad,
-                       depth)
-    steps = math.ceil(math.log2(n_ops_pad)) + 1
-    # per chase round: the binary search's compares plus about six integer
-    # operations (start, within, modulo, select); per value: widen + bias
-    ops = rounds * (steps + 6) + count_pad * (2 * k + 2)
+    rounds, steps = k3_work(torch, ck, buf, tbase, n_ops_pad, count_pad, k,
+                            out_pad, depth)
+    # per chase round: the bucket, its two index entries, start, within,
+    # the literal test and the modulo or the source (8 integer operations),
+    # a compare and a select per search step; per value: widen + bias
+    ops = rounds * 8 + steps * 2 + count_pad * (2 * k + 2)
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
@@ -481,9 +556,10 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
         f"({n_ops_pad} table rows), depth {depth}, payload "
         f"{len(comp)} bytes (ppad {ppad}); {ms:.4f} ms (plain {plain_ms:.4f} "
         f"ms, unfused chain snappy_resolve + gather + widen {unfused_ms:.4f} "
-        f"ms, {info.iters} doubling rounds); bound {bound_ms:.6f} ms by "
+        f"ms, {info.iters} doubling rounds, K3/unfused "
+        f"{ms / unfused_ms:.3f}); bound {bound_ms:.6f} ms by "
         f"{bound_by} ({moved} bytes -> {bytes_ms:.6f} ms at 3.35 TB/s; "
-        f"{rounds} chase rounds x {steps} search steps -> {ops} ops -> "
+        f"{rounds} chase rounds, {steps} search steps -> {ops} ops -> "
         f"{ops_ms:.6f} ms at 67 T/s) ({smi})")
     return dict(worst=worst, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -676,12 +752,15 @@ def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
             if us:
                 by_name[e.key] = (us, e.count)
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the eight largest, and the port's own kernels wherever they rank
+    top = [kv for i, kv in enumerate(ranked) if i < 8 or "tpq_" in kv[0]]
     if busy_s:
         log(f"{label}: profiled pass {wall:.4f} s wall, device busy "
             f"{busy_s:.6f} s, idle share {1 - busy_s / wall:.4f}")
         for name, (us, n) in top:
-            log(f"  device {us / 1e3:.3f} ms in {n} x {name[:70]}")
+            log(f"  device {us / 1e3:.3f} ms in {n} x {name[:70]} "
+                f"({us / n:.2f} us each)")
     else:
         log(f"{label}: device time not measured (the profiler recorded no "
             f"device events)")
@@ -871,6 +950,11 @@ def main() -> int:
     # phase 2: each kernel against its plain version, on the card
     rng = np.random.default_rng(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    # what the timing below reads for a launch that does almost nothing:
+    # every kernel time includes it
+    tiny = torch.empty(1, dtype=torch.int32, device="cuda")
+    log(f"timing floor: one 4-byte fill timed as the kernels are, "
+        f"{_median_ms(torch, tiny.zero_, flush):.4f} ms ({smi})")
     k1 = check_k1(torch, ck, flush, rng, smi)
     k2 = check_k2(torch, ck, flush, rng, smi)
     k3_groups = gen_k3_groups()

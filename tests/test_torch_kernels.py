@@ -145,6 +145,28 @@ def test_fused_plain_words_rejects_bad_arguments():
         CK.fused_plain_words(buf, 1, 1, width=8, count_pad=1024)
 
 
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("count", [1, 1000, 36_224, 65_536, 1_000_000,
+                                   6_001_215])
+def test_fused_plain_geometry(width, count):
+    count_pad = CK.fused_count_pad(count)
+    grid, steps = CK.fused_plain_geometry(count_pad, width, 132)
+    chunks = count_pad * width // 16
+    # the kernel takes whole warp tiles of 32 * steps 16-byte chunks
+    assert steps in (1, 4) and chunks % (32 * steps) == 0
+    # four chunks in flight per lane only where that still fills the SMs
+    assert (steps == 4) == (chunks // (32 * 4 * 8) >= 132)
+    tiles = chunks // (32 * steps)
+    assert grid == min(-(-tiles // 8), 4 * 132) >= 1
+
+
+def test_fused_plain_geometry_at_the_main_path_shapes():
+    # SF1's l_extendedprice and the K3 file's wide/rate
+    assert CK.fused_plain_geometry(1_048_576, 8, 132) == (512, 4)
+    assert CK.fused_plain_geometry(65_536, 8, 132) == (128, 1)
+    assert CK.fused_plain_geometry(65_536, 4, 132) == (64, 1)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     CK.reset_launches()
     buf = torch.from_numpy(

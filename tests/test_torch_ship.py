@@ -147,6 +147,12 @@ K3_CASES = [
     (8, 6, 0, 3500, 512, 257, (1 << 63) - 3, 1, True),
     (8, 7, 1, 300, 256, 256, -(1 << 40), 13, False),
     (8, 8, 0, 3, 256, 100, 0x7FFFFFFFFFFFFFFF, 3, True),
+    # the redesign's edges: a literal-only stream of a handful of ops over
+    # a 1 MiB output (the coarse index's large buckets), 4096 op rows at
+    # depth 16, and k = 8 at width 8 with every row valid
+    (4, 2, 0, 4, 1 << 19, (1 << 19) - 3, 8035, 6, True),
+    (8, 3, 16, 3500, 2048, 2048, -(1 << 35), 4, False),
+    (8, 8, 12, 600, 1024, 1024, (1 << 64) - 1, 10, False),
 ]
 
 
@@ -201,6 +207,42 @@ def test_fused_narrow_words_rejects_bad_arguments():
         CK.fused_narrow_words(buf, 4000, 1024, 0, 10, **ok)  # tables past
     with pytest.raises(ValueError):
         CK.fused_narrow_words(buf.to(torch.int32), 0, 1024, 0, 10, **ok)
+
+
+def test_fused_narrow_words_rejects_tables_over_the_cap():
+    buf = torch.zeros(1 << 17, dtype=torch.uint8)
+    n = 2 * CK.FUSED_MAX_OPS
+    with pytest.raises(ValueError):
+        CK.fused_narrow_words(buf, 0, 13 * n, 0, 10, k=2, width=8, depth=3,
+                              count_pad=256, out_pad=512, n_ops_pad=n,
+                              ppad=64)
+
+
+@pytest.mark.parametrize("out_pad", [8, 520, 8192, 163_840, (1 << 20) + 8,
+                                     (1 << 24) + 8])
+@pytest.mark.parametrize("n_ops_pad", [8, 512, 4096])
+def test_fused_narrow_geometry(out_pad, n_ops_pad):
+    count_pad = CK.fused_narrow_count_pad(max(out_pad // 4, 1))
+    grid, shift, smem = CK.fused_narrow_geometry(count_pad, n_ops_pad,
+                                                 out_pad, 132)
+    # the coarse index fits its 4096 entries with the least bucket that does
+    entries = lambda s: -(-out_pad >> s) + 1  # noqa: E731
+    assert entries(shift) <= 4096
+    assert shift == 0 or entries(shift - 1) > 4096
+    # shared memory as the kernel lays it out: tables (+16 for their
+    # alignment), index, scan scratch; within one block's limit
+    assert smem == (-(-(13 * n_ops_pad + 16) // 16) * 16
+                    + -(-2 * entries(shift) // 16) * 16 + 128)
+    assert smem <= 61_584 < 227 * 1024
+    # one 512-thread block per SM at most, every value covered by a stride
+    assert grid == min(-(-count_pad // 512), 132)
+
+
+def test_fused_narrow_geometry_at_the_main_path_shape():
+    # the first row group of the K3 file's dates: 65,536 values, k = 2,
+    # 4,096 op rows, out_pad 163,840: 64-byte buckets, 128 blocks
+    assert CK.fused_narrow_geometry(65_536, 4096, 163_840, 132) == (
+        128, 6, 58_528)
 
 
 def test_k3_caps_match_reference():

@@ -31,6 +31,7 @@ the reference's.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,6 +47,7 @@ __all__ = ["unpack_bp_groups", "unpack_bp_groups_plain", "unpack_bits",
            "bp_groups_pad", "fused_plain_words", "fused_plain_words_plain",
            "fused_count_pad", "fused_narrow_words",
            "fused_narrow_words_plain", "fused_narrow_count_pad",
+           "fused_narrow_geometry", "fused_plain_geometry",
            "FUSED_MAX_OPS", "FUSED_MAX_DEPTH", "FUSED_MAX_PAYLOAD",
            "SNAPPY_OPS_BYTES",
            "launches", "reset_launches", "build", "KERNELS"]
@@ -67,10 +69,12 @@ KERNELS = {
     "unpack_bp_groups": ("bp_unpack.cu", "tpq_unpack_bp_groups",
                          [_VP, _LL, _LL, _INT, _LL, _VP, _VP]),
     "fused_plain_words": ("fused_plain.cu", "tpq_fused_plain_words",
-                          [_VP, _LL, _LL, _INT, _LL, _LL, _VP, _VP]),
+                          [_VP, _LL, _LL, _INT, _LL, _LL, _INT, _INT, _VP,
+                           _VP]),
     "fused_narrow_words": ("fused_narrow.cu", "tpq_fused_narrow_words",
                            [_VP, _LL, _LL, _LL, _INT, _LL, _ULL, _LL, _INT,
-                            _INT, _INT, _LL, _LL, _VP, _VP]),
+                            _INT, _INT, _LL, _LL, _INT, _INT, _INT, _VP,
+                            _VP]),
 }
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -176,6 +180,11 @@ def _device_kind(buf: torch.Tensor) -> str:
     return kind
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(name: str, buf: torch.Tensor, *args) -> None:
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     with torch.cuda.device(buf.device):
@@ -270,6 +279,24 @@ def fused_count_pad(count: int) -> int:
     return -(-b // _FUSED_TILE) * _FUSED_TILE
 
 
+_K2_THREADS = 256  # threads per block: 8 warps
+_K2_TILE = 32      # 16-byte chunks per warp span, one per lane
+
+
+def fused_plain_geometry(count_pad: int, width: int, sm_count: int) -> tuple:
+    """One K2 launch's ``(grid, steps)``: a warp moves ``steps`` spans of
+    32 16-byte chunks at once.  Four spans in flight where the data fills
+    every SM with blocks of such tiles, else one, so that a small page
+    still spreads over the SMs; the grid is at most four blocks per SM,
+    striding over the tiles."""
+    chunks = count_pad * width // 16
+    warps_per_block = _K2_THREADS // 32
+    steps = 4 if chunks // (_K2_TILE * 4 * warps_per_block) >= sm_count else 1
+    tiles = chunks // (_K2_TILE * steps)
+    grid = min(-(-tiles // warps_per_block), 4 * sm_count)
+    return grid, steps
+
+
 def fused_plain_words_plain(buf: torch.Tensor, vbase: int, n_valid: int, *,
                             width: int, count_pad: int) -> torch.Tensor:
     """Plain PyTorch version of K2 (same arguments and result)."""
@@ -308,8 +335,10 @@ def fused_plain_words(buf: torch.Tensor, vbase: int, n_valid: int, *,
                                        count_pad=count_pad)
     out = torch.empty((count_pad, width // 4), dtype=torch.int32,
                       device=buf.device)
+    grid, steps = fused_plain_geometry(count_pad, width,
+                                       _sm_count(buf.device.index))
     _launch("fused_plain_words", buf, vbase, int(width), n_valid, count_pad,
-            out.data_ptr())
+            steps, grid, out.data_ptr())
     return out
 
 
@@ -319,6 +348,9 @@ def fused_plain_words(buf: torch.Tensor, vbase: int, n_valid: int, *,
 
 # packed op-table bytes per op row: ends/asrc/offs int32 + islit uint8
 SNAPPY_OPS_BYTES = 13
+_K3_THREADS = 512         # threads per block, one value each per stride
+_K3_BLOCKS_PER_SM = 1     # blocks per SM: each copies the tables once
+_K3_INDEX_ENTRIES = 4096  # coarse op index entries (uint16): buckets + 1
 
 
 def fused_narrow_count_pad(count: int) -> int:
@@ -326,6 +358,27 @@ def fused_narrow_count_pad(count: int) -> int:
     reference pads)."""
     b = _bucket_count(max(count, 1))
     return -(-b // _FUSED_NS_TILE) * _FUSED_NS_TILE
+
+
+def fused_narrow_geometry(count_pad: int, n_ops_pad: int, out_pad: int,
+                          sm_count: int) -> tuple:
+    """One K3 launch's ``(grid, shift, smem_bytes)``.
+
+    The coarse op index has one entry per bucket of ``2**shift`` output
+    bytes plus one, at most ``_K3_INDEX_ENTRIES``: ``shift`` is the least
+    that fits ``out_pad``.  The block's shared memory holds the op tables
+    as staged (at their address modulo 16, so 16 spare bytes), the uint16
+    index and 32 ints of scan scratch, each part rounded to 16 bytes, as
+    ``fused_narrow.cu`` lays them out.  The grid is at most
+    ``_K3_BLOCKS_PER_SM`` blocks per SM, striding over the values."""
+    shift = 0
+    while ((out_pad + (1 << shift) - 1) >> shift) + 1 > _K3_INDEX_ENTRIES:
+        shift += 1
+    entries = ((out_pad + (1 << shift) - 1) >> shift) + 1
+    smem = (((SNAPPY_OPS_BYTES * n_ops_pad + 31) & ~15)
+            + ((2 * entries + 15) & ~15) + 32 * 4)
+    grid = min(-(-count_pad // _K3_THREADS), _K3_BLOCKS_PER_SM * sm_count)
+    return grid, shift, smem
 
 
 def fused_narrow_words_plain(buf: torch.Tensor, tbase: int, pbase: int,
@@ -391,6 +444,8 @@ def fused_narrow_words(buf: torch.Tensor, tbase: int, pbase: int, bias: int,
     if n_ops_pad <= 0 or out_pad <= 0 or ppad <= 0:
         raise ValueError("fused narrow: n_ops_pad, out_pad and ppad must be "
                          "positive")
+    if n_ops_pad > FUSED_MAX_OPS:
+        raise ValueError(f"n_ops_pad {n_ops_pad} over FUSED_MAX_OPS")
     tbase, pbase = int(tbase), int(pbase)
     tend = tbase + SNAPPY_OPS_BYTES * n_ops_pad
     if tbase < 0 or tend > buf.numel():
@@ -411,7 +466,9 @@ def fused_narrow_words(buf: torch.Tensor, tbase: int, pbase: int, bias: int,
             ppad=ppad)
     out = torch.empty((count_pad, width // 4), dtype=torch.int32,
                       device=buf.device)
+    grid, shift, smem = fused_narrow_geometry(
+        count_pad, n_ops_pad, out_pad, _sm_count(buf.device.index))
     _launch("fused_narrow_words", buf, tbase, pbase, int(n_ops_pad),
             int(ppad), bias, n_valid, int(k), int(width), int(depth),
-            int(out_pad), int(count_pad), out.data_ptr())
+            int(out_pad), int(count_pad), shift, smem, grid, out.data_ptr())
     return out

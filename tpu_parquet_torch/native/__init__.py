@@ -2,7 +2,9 @@
 
 Built lazily with g++ the first time they're needed (no pip/cmake dependency at
 import time); the shared object is cached next to the sources and rebuilt when any
-source file changes (content-hash stamp).  Everything here is optional: each consumer
+source file changes (content-hash stamp).  The build writes a per-process temporary
+file and renames it onto the stamped name, so processes that load at the same moment
+never open a half-written library.  Everything here is optional: each consumer
 has a pure-Python fallback, so the framework still works — slower — without a C++
 toolchain.
 """
@@ -32,12 +34,29 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _build(lib_path: str) -> None:
+def _build(lib_path: str, attempt: int = 0) -> None:
+    """Compile into a temporary name of this process, then rename it onto
+    ``lib_path`` in one step (another process sees no file or a whole one),
+    and only then drop the builds of other source stamps."""
+    tmp = f"{lib_path}.tmp{os.getpid()}_{attempt}"
     cmd = [
         "g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-march=native",
-        "-o", lib_path,
+        "-o", tmp,
     ] + [os.path.join(_DIR, s) for s in _SOURCES]
-    subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    keep = os.path.basename(lib_path)
+    for f in os.listdir(_DIR):
+        # stale stamps only: another process's temporary file is its build
+        if f.startswith(_LIB_BASENAME) and f != keep and ".tmp" not in f:
+            try:
+                os.unlink(os.path.join(_DIR, f))
+            except OSError:
+                pass
 
 
 def load():
@@ -53,14 +72,12 @@ def load():
             lib_path = os.path.join(_DIR, f"{_LIB_BASENAME}.{stamp}")
             if not os.path.exists(lib_path):
                 _build(lib_path)
-                # drop stale builds
-                for f in os.listdir(_DIR):
-                    if f.startswith(_LIB_BASENAME) and not f.endswith(stamp):
-                        try:
-                            os.unlink(os.path.join(_DIR, f))
-                        except OSError:
-                            pass
-            lib = ctypes.CDLL(lib_path)
+            try:
+                lib = ctypes.CDLL(lib_path)
+            except OSError:
+                # a damaged file under the stamped name: rebuild it once
+                _build(lib_path, attempt=1)
+                lib = ctypes.CDLL(lib_path)
             lib.tpq_snappy_uncompressed_length.restype = ctypes.c_longlong
             lib.tpq_snappy_uncompressed_length.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t,
