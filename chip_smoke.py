@@ -15,20 +15,25 @@ Phases:
    at edge shapes and at each shape the main path launches it at, with its
    median time over CUDA events (L2 flushed before each launch; the time
    of a near-empty launch measured the same way is printed first), its
+   time per launch over 50 back-to-back launches (warm L2, no floor), its
    bound, the plain version's time and, where one PyTorch call computes
-   the same function, that call's time and the ratio (K3 has none: its
-   yardstick is the unfused chain of snappy resolve + gather + widen,
-   timed on the same stream);
+   the same function, that call's time and the ratio (K3 and the fused K1
+   have none: their yardstick is the unfused chain they replace, timed on
+   the same stream).  The fused K1's main-path shapes are SF1 row group
+   0's dictionary-index streams, planned by the port's own host code;
 3. the main path, REQUIRED: TPC-H SF1 ``lineitem`` (6,001,215 rows, the
    seven fixed-width columns that are not delta-encoded, the generator and
    seed of ``bench.py`` ``gen_lineitem16``) written with the port's writer
    (SNAPPY, dictionary on, page CRCs, 1,000,000 rows per row group), read
    with ``DeviceFileReader(...).iter_row_groups()`` on the card through the
    full ship planner, checked bit for bit against the generator, with the
-   kernel launch counts and route table of the read and the rows per second
-   of a warm second pass;
+   kernel launch counts (the fused K1 once per planned hybrid stream) and
+   route table of the read, the rows per second of a warm second pass and
+   a profiled pass; then the same read with the hybrid streams through the
+   unfused chain the fused K1 replaced (standalone K1 + PyTorch combine),
+   checked, timed and profiled as the same-call yardstick;
 4. the main path, OPTIONAL: the same columns written OPTIONAL with no nulls
-   (1,000,000 rows), checked the same way;
+   (1,000,000 rows), checked, profiled and compared the same way;
 5. the compressed-shipping main path: the reference's K3 file
    (``tests/test_fused_decode.py``: ``dates`` INT64 runs of 50, ``wide``
    INT64 full range, ``cnt`` INT32, ``rate`` FLOAT, ``dbl`` DOUBLE runs of
@@ -104,6 +109,26 @@ def _median_ms(torch, fn, flush, reps: int = 30) -> float:
     return times[len(times) // 2]
 
 
+def _b2b_ms(torch, fn, launches: int = 50) -> float:
+    """Device time per launch of ``launches`` back-to-back calls of ``fn``
+    between two CUDA events, the card kept busy while the host enqueues
+    them (warm L2: the timing floor of one launch is spread over all)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(3):
+        torch.cuda._sleep(SPIN_CYCLES * 5)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[1]
+
+
 def _bound_ms(nbytes: int) -> float:
     return nbytes / PEAK_BYTES_PER_S * 1e3
 
@@ -121,8 +146,9 @@ def _max_err(torch, a, b) -> int:
 
 
 def check_k1(torch, ck, flush, rng, smi: str) -> dict:
-    """K1 at every width 1..32 on edge shapes, then timed at the main
-    path's shapes (1,048,576 values at widths 6 and 14)."""
+    """The standalone K1 at every width 1..32 on edge shapes, then timed
+    at SF1's index-stream shapes (1,048,576 values at widths 6 and 14; on
+    the main path these streams now take the fused K1)."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -156,20 +182,248 @@ def check_k1(torch, ck, flush, rng, smi: str) -> dict:
         err = _max_err(torch, got, want)
         if err:
             raise fail(f"K1 main-path shape width {width}: max abs err {err}")
-        ms = _median_ms(torch, lambda: ck.unpack_bp_groups(buf, base, width,
-                                                           gpad), flush)
+        run = lambda: ck.unpack_bp_groups(buf, base, width, gpad)  # noqa
+        ms = _median_ms(torch, run, flush)
+        b2b = _b2b_ms(torch, run)
         plain_ms = _median_ms(
             torch, lambda: ck.unpack_bp_groups_plain(buf, base, width, gpad),
             flush, reps=10)
         moved = gpad * width + gpad * 8 * 4
-        timings[width] = dict(ms=ms, plain_ms=plain_ms,
+        timings[width] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain_ms,
                               bound_ms=_bound_ms(moved), values=gpad * 8,
                               bytes=moved)
         log(f"K1 width {width}: {gpad * 8} values, {ms:.4f} ms "
-            f"(plain {plain_ms:.4f} ms), bound {_bound_ms(moved):.4f} ms "
+            f"(back-to-back {b2b:.4f} ms per launch; plain {plain_ms:.4f} "
+            f"ms), bound {_bound_ms(moved):.4f} ms "
             f"({moved} bytes at 3.35 TB/s), "
             f"{moved / (ms * 1e-3) / 1e9:.1f} GB/s ({smi})")
     return dict(worst=worst, timings=timings)
+
+
+# ---------------------------------------------------------------------------
+# the fused K1: BP unpack + run-table combine
+# ---------------------------------------------------------------------------
+
+def synth_hybrid(rng, n_runs: int, max_len: int, zero_every: int = 0):
+    """A hybrid stream's run table as the planner builds it: runs of 1 to
+    ``max_len`` values, RLE (odd lengths) or bit-packed (any length, so the
+    next run starts off a group boundary) at random, every
+    ``zero_every``-th run of length 0.  Returns (ends, is_rle, values,
+    bp_idx_base, bit-packed groups)."""
+    import numpy as np
+
+    lengths = rng.integers(1, max_len + 1, n_runs)
+    rle = rng.random(n_runs) < 0.5
+    lengths = np.where(rle, lengths | 1, lengths)
+    if zero_every:
+        lengths[::zero_every] = 0
+    ends = np.cumsum(lengths)
+    groups = np.where(rle, 0, -(-lengths // 8))
+    bib = np.where(rle, 0, (np.cumsum(groups) - groups) * 8 - (ends - lengths))
+    values = rng.integers(0, 1 << 32, n_runs, dtype=np.uint64)
+    return (ends.astype(np.int32), rle.astype(np.uint8),
+            values.astype(np.uint32), bib.astype(np.int32), int(groups.sum()))
+
+
+def stage_hybrid(torch, ck, rng, table, width: int, rp: int, podd: int,
+                 tail: int, dev):
+    """The run table padded to ``rp`` rows (ends with the total) at byte
+    64, the payload (``bp_groups_pad`` groups of random bytes) ``podd``
+    bytes past the next 64-byte boundary, the buffer ending ``tail`` bytes
+    past the read extent.  Returns (buf, bp_base, tbase, gpad, total)."""
+    import numpy as np
+
+    ends, isr, vals, bib, groups = table
+    total = int(ends[-1])
+    tabs = [np.full(rp, total, np.int32), np.zeros(rp, np.uint8),
+            np.zeros(rp, np.uint32), np.zeros(rp, np.int32)]
+    for t, v in zip(tabs, (ends, isr, vals, bib)):
+        t[: len(v)] = v
+    tbase = 64
+    bp_base = tbase + -(-13 * rp // 64) * 64 + podd
+    gpad = ck.bp_groups_pad(groups)
+    host = rng.integers(0, 256, bp_base + gpad * width + tail, dtype=np.uint8)
+    host[tbase : tbase + 13 * rp] = np.concatenate(
+        [t.view(np.uint8) for t in tabs])
+    return torch.from_numpy(host).to(dev), bp_base, tbase, gpad, total
+
+
+def hybrid_tiles(torch, ck, buf, bp_base, tbase, n_valid, *, width, gpad,
+                 count, rp) -> dict:
+    """How the fused K1's blocks take this stream, decided as
+    ``csrc/bp_unpack.cu`` decides: the tiles with a position under
+    ``n_valid``, those of them whose run window is over ``HYBRID_WINDOW``
+    rows (the run table read from global memory), those whose payload span
+    is over the shared capacity (the payload read from global memory), and
+    the stream's bit-packed positions under ``n_valid``."""
+    dev = buf.device
+    tab = buf[tbase : tbase + 13 * rp]
+    ends = tab[: 4 * rp].view(torch.int32)
+    isr = tab[4 * rp : 5 * rp] != 0
+    bib = tab[9 * rp :].view(torch.int32)
+
+    def run(p):
+        return torch.clamp(torch.searchsorted(ends, p.to(torch.int32),
+                                              right=True), max=rp - 1)
+
+    T = ck.HYBRID_TILE
+    n_tiles = -(-count // T)
+    lim = min(count, max(n_valid, 0))
+    t0 = torch.arange(n_tiles, dtype=torch.int64, device=dev) * T
+    v1 = torch.clamp(t0 + T, max=lim)
+    live = v1 > t0
+    wide = live & (run(v1 - 1) - run(t0) + 1 > ck.HYBRID_WINDOW)
+    pos = torch.arange(lim, dtype=torch.int32, device=dev)
+    r = run(pos)
+    bp = ~isr[r]
+    idx = torch.clamp(bib[r] + pos, 0, gpad * 8 - 1).to(torch.int64)[bp]
+    tile = (pos.to(torch.int64) // T)[bp]
+    mn = torch.full((n_tiles,), 1 << 40, dtype=torch.int64,
+                    device=dev).scatter_reduce(0, tile, idx, "amin")
+    mx = torch.full((n_tiles,), -1, dtype=torch.int64,
+                    device=dev).scatter_reduce(0, tile, idx, "amax")
+    base = buf.data_ptr() + bp_base
+    a0 = (base + ((mn * width) >> 3)) & ~15
+    a1 = (base + (((mx + 1) * width + 7) >> 3) + 8 + 15) & ~15
+    cap = ((ck.HYBRID_SPAN_VALUES * width) // 8 + 48 + 15) & ~15
+    span = live & (mx >= 0) & (a1 - a0 > cap)
+    return dict(tiles=int(live.sum()), wide_window=int(wide.sum()),
+                wide_span=int(span.sum()), bp_values=int(bp.sum()))
+
+
+def sf1_index_streams(torch, path: str) -> tuple:
+    """SF1 row group 0's index streams of ``l_suppkey`` (width 14),
+    ``l_quantity`` (6) and ``l_linenumber`` (3), planned by the port's own
+    host code (``_plan_hybrid_pallas`` on the reader's row-group stager)
+    and staged on the card: (buf, {width: plan})."""
+    from tpu_parquet_torch import device_reader as DR
+
+    plans = {}
+    real = DR._plan_hybrid_pallas
+
+    def keep(stager, pages_info, width, total, count_pad):
+        plan = real(stager, pages_info, width, total, count_pad)
+        if plan is not None:
+            plans[width] = plan
+        return plan
+
+    DR._plan_hybrid_pallas = keep
+    try:
+        with DR.DeviceFileReader(path, columns=["l_suppkey", "l_quantity",
+                                                "l_linenumber"]) as r:
+            _, _, stager = r._prepare_row_group(0)
+            buf = stager.stage(r.device)
+    finally:
+        DR._plan_hybrid_pallas = real
+    if sorted(plans) != [3, 6, 14]:
+        raise fail(f"SF1 row group 0 planned hybrid streams of widths "
+                   f"{sorted(plans)}, want 3, 6 and 14")
+    return buf, plans
+
+
+def check_hybrid(torch, ck, flush, rng, smi: str, sf1_path: str) -> dict:
+    """The fused K1 against its plain version on the card, bit-exact: every
+    width 1..32 on long runs with an aligned payload; short odd-length RLE
+    runs between bit-packed runs with zero-length runs, an odd payload base,
+    ``count`` not a multiple of 4 and ``n_valid`` under the total; a table
+    padded to four times its runs with ``n_valid = count`` (positions past
+    the total read padded rows, their index clamped); buffers ending exactly
+    at the read extent; then 60,000 runs of 0..3 values (windows over the
+    shared capacity).  Then SF1 row group 0's index streams, timed beside
+    the plain version and the unfused chain they replace (standalone K1 +
+    the PyTorch combine)."""
+    from tpu_parquet_torch.torch_decode import _bucket, _bucket_count
+
+    dev = flush.device
+    worst = 0
+    checks = 0
+    seen = dict(tiles=0, wide_window=0, wide_span=0)
+
+    def check(buf, bp_base, tbase, n_valid, what, **kw):
+        nonlocal worst, checks
+        got = ck.hybrid_unpack_combine(buf, bp_base, tbase, n_valid, **kw)
+        want = ck.hybrid_unpack_combine_plain(buf, bp_base, tbase, n_valid,
+                                              **kw)
+        err = _max_err(torch, got, want)
+        worst = max(worst, err)
+        checks += 1
+        if err:
+            raise fail(f"fused K1 width {kw['width']} {what}: max abs err "
+                       f"{err}")
+        t = hybrid_tiles(torch, ck, buf, bp_base, tbase, n_valid, **kw)
+        for key in seen:
+            seen[key] += t[key]
+
+    def case(width, table, rp, podd, tail, n_valid, count, what):
+        buf, bp_base, tbase, gpad, total = stage_hybrid(
+            torch, ck, rng, table, width, rp, podd, tail, dev)
+        count = count(total)
+        check(buf, bp_base, tbase, n_valid(total, count), what, width=width,
+              gpad=gpad, count=count, rp=rp)
+
+    for width in range(1, 33):
+        t = synth_hybrid(rng, 40, 600)
+        case(width, t, _bucket(40), 0, 0, lambda tot, c: tot, _bucket_count,
+             "long runs, aligned base")
+        t = synth_hybrid(rng, 900, 24, zero_every=7)
+        case(width, t, _bucket(900), 1 + width % 15, 0,
+             lambda tot, c: tot - 7, lambda tot: tot + 5,
+             "short runs, zero-length runs, odd base, ragged count")
+        t = synth_hybrid(rng, 60, 600)
+        case(width, t, 4 * _bucket(60), 3, 5, lambda tot, c: c,
+             _bucket_count, "padded table, n_valid = count")
+    for width in (5, 17):
+        t = synth_hybrid(rng, 60_000, 3, zero_every=5)
+        case(width, t, _bucket(60_000), 7, 0, lambda tot, c: tot,
+             _bucket_count, "60,000 runs of 0..3 values")
+    torch.cuda.synchronize()
+    log(f"fused K1 hybrid_unpack_combine: {checks} edge cases bit-exact "
+        f"(widths 1..32, odd-length RLE runs between bit-packed runs, "
+        f"zero-length runs, padded tables, count > n_valid and ragged, odd "
+        f"and aligned payload bases, buffers ending at the read extent, "
+        f"60,000-run streams); of their {seen['tiles']} tiles, "
+        f"{seen['wide_window']} read the run table and {seen['wide_span']} "
+        f"the payload from global memory (over the shared capacity)")
+
+    buf, plans = sf1_index_streams(torch, sf1_path)
+    shapes = {}
+    for name, width in (("l_suppkey", 14), ("l_quantity", 6),
+                        ("l_linenumber", 3)):
+        plan = plans[width]
+        bp_base, tbase, total = plan.dyn
+        kw = plan.fn.keywords
+        count, rp, gpad = kw["count"], kw["rp"], kw["gpad"]
+        run = lambda: ck.hybrid_unpack_combine(  # noqa: E731
+            buf, bp_base, tbase, total, **kw)
+        plain = lambda: ck.hybrid_unpack_combine_plain(  # noqa: E731
+            buf, bp_base, tbase, total, **kw)
+        chain = lambda: ck.hybrid_combine_plain(  # noqa: E731
+            ck.unpack_bp_groups(buf, bp_base, width, gpad), buf, tbase,
+            total, count=count, rp=rp)
+        got = run()
+        err = max(_max_err(torch, got, plain()), _max_err(torch, got, chain()))
+        worst = max(worst, err)
+        if err:
+            raise fail(f"fused K1 main-path shape {name}: max abs err {err}")
+        t = hybrid_tiles(torch, ck, buf, bp_base, tbase, total, **kw)
+        ms = _median_ms(torch, run, flush)
+        b2b = _b2b_ms(torch, run)
+        plain_ms = _median_ms(torch, plain, flush, reps=10)
+        chain_ms = _median_ms(torch, chain, flush, reps=10)
+        moved = -(-t["bp_values"] * width // 8) + 13 * rp + 4 * count
+        bound_ms = _bound_ms(moved)
+        shapes[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain_ms,
+                            chain_ms=chain_ms, bound_ms=bound_ms)
+        log(f"fused K1 {name}: {count} positions ({total} valid, "
+            f"{t['bp_values']} bit-packed), width {width}, {rp} table rows, "
+            f"{t['tiles']} tiles ({t['wide_window']} with the run table and "
+            f"{t['wide_span']} with the payload in global memory): "
+            f"{ms:.4f} ms (back-to-back {b2b:.4f} ms per launch; plain "
+            f"{plain_ms:.4f} ms; unfused chain K1 + PyTorch combine "
+            f"{chain_ms:.4f} ms, fused/chain {ms / chain_ms:.3f}), bound "
+            f"{bound_ms:.4f} ms ({moved} bytes at 3.35 TB/s) ({smi})")
+    main = shapes["l_suppkey"]
+    return dict(worst=worst, **main)
 
 
 def check_k2(torch, ck, flush, rng, smi: str) -> dict:
@@ -271,17 +525,19 @@ def check_k2(torch, ck, flush, rng, smi: str) -> dict:
                 raise fail(f"K2 {what} disagrees with the library yardstick")
             library_ms = _median_ms(torch, library_call, flush)
         ms = _median_ms(torch, run, flush)
+        b2b = _b2b_ms(torch, run)
         plain_ms = _median_ms(torch, lambda: ck.fused_plain_words_plain(
             buf, vbase, n, width=width, count_pad=count_pad), flush, reps=10)
         moved = 2 * count_pad * width
         t = dict(what=what, values=count_pad, width=width, vbase=vbase, ms=ms,
-                 plain_ms=plain_ms, library_ms=library_ms,
+                 b2b_ms=b2b, plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=_bound_ms(moved), bytes=moved)
         shapes.append(t)
         ratio = (f", library {library_ms:.4f} ms, K2/library "
                  f"{ms / library_ms:.3f}" if library_ms else "")
         log(f"K2 {what}: {count_pad} values, width {width}, vbase {vbase}: "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms{ratio}), bound "
+            f"{ms:.4f} ms (back-to-back {b2b:.4f} ms per launch; plain "
+            f"{plain_ms:.4f} ms{ratio}), bound "
             f"{t['bound_ms']:.4f} ms ({moved} bytes at 3.35 TB/s), "
             f"{moved / (ms * 1e-3) / 1e9:.1f} GB/s ({smi})")
     sf1 = shapes[0]
@@ -539,6 +795,7 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
     worst = max(worst, err)
     real_ops = int(np.count_nonzero(tables[0] < out_pad))
     ms = _median_ms(torch, run, flush)
+    b2b = _b2b_ms(torch, run)
     plain_ms = _median_ms(torch, plain, flush, reps=10)
     unfused_ms = _median_ms(torch, unfused, flush, reps=10)
     moved = ppad + 13 * n_ops_pad + count_pad * 8
@@ -554,15 +811,16 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"K3 main-path shape: {n} values, k {k}, width 8, {real_ops} ops "
         f"({n_ops_pad} table rows), depth {depth}, payload "
-        f"{len(comp)} bytes (ppad {ppad}); {ms:.4f} ms (plain {plain_ms:.4f} "
-        f"ms, unfused chain snappy_resolve + gather + widen {unfused_ms:.4f} "
-        f"ms, {info.iters} doubling rounds, K3/unfused "
+        f"{len(comp)} bytes (ppad {ppad}); {ms:.4f} ms (back-to-back "
+        f"{b2b:.4f} ms per launch; plain {plain_ms:.4f} ms, unfused chain "
+        f"snappy_resolve + gather + widen {unfused_ms:.4f} ms, "
+        f"{info.iters} doubling rounds, K3/unfused "
         f"{ms / unfused_ms:.3f}); bound {bound_ms:.6f} ms by "
         f"{bound_by} ({moved} bytes -> {bytes_ms:.6f} ms at 3.35 TB/s; "
         f"{rounds} chase rounds, {steps} search steps -> {ops} ops -> "
         f"{ops_ms:.6f} ms at 67 T/s) ({smi})")
-    return dict(worst=worst, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(worst=worst, ms=ms, b2b_ms=b2b, plain_ms=plain_ms,
+                unfused_ms=unfused_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ---------------------------------------------------------------------------
@@ -692,12 +950,33 @@ def read_main_path(torch, ck, path: str, groups, label: str,
     """Read ``path`` on the card through the public entry point and the full
     ship planner (unforced), check every column bit for bit, and time a
     warm second pass."""
+    from tpu_parquet_torch import device_reader as DR
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()
-    outs, _, st = timed_pass(torch, path, columns)
-    counts = dict(ck.launches)
+    planned = [0]
+    real = DR._plan_hybrid_pallas
+
+    def count_plans(*args):
+        plan = real(*args)
+        planned[0] += plan is not None
+        return plan
+
+    DR._plan_hybrid_pallas = count_plans
+    try:
+        ck.reset_launches()
+        outs, _, st = timed_pass(torch, path, columns)
+        counts = dict(ck.launches)
+    finally:
+        DR._plan_hybrid_pallas = real
     check_route_launches(counts, st, label)
+    # each planned hybrid stream is one launch of the fused K1, and the
+    # standalone unpack is off the path
+    if counts["hybrid_unpack_combine"] != planned[0] or \
+            counts["unpack_bp_groups"]:
+        raise fail(f"{label}: {counts['hybrid_unpack_combine']} launches of "
+                   f"hybrid_unpack_combine and {counts['unpack_bp_groups']} "
+                   f"of unpack_bp_groups for {planned[0]} hybrid streams")
     rows, decoded = check_groups(outs, groups, columns, label)
     del outs
     # warm second pass, timed end to end (host parse + staging + decode)
@@ -752,12 +1031,14 @@ def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
             if us:
                 by_name[e.key] = (us, e.count)
     busy_s = sum(us for us, _ in by_name.values()) / 1e6
+    n_device = sum(n for _, n in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the eight largest, and the port's own kernels wherever they rank
     top = [kv for i, kv in enumerate(ranked) if i < 8 or "tpq_" in kv[0]]
     if busy_s:
         log(f"{label}: profiled pass {wall:.4f} s wall, device busy "
-            f"{busy_s:.6f} s, idle share {1 - busy_s / wall:.4f}")
+            f"{busy_s:.6f} s in {n_device} kernels and copies, idle share "
+            f"{1 - busy_s / wall:.4f}")
         for name, (us, n) in top:
             log(f"  device {us / 1e3:.3f} ms in {n} x {name[:70]} "
                 f"({us / n:.2f} us each)")
@@ -765,6 +1046,38 @@ def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
         log(f"{label}: device time not measured (the profiler recorded no "
             f"device events)")
     return dict(wall=wall, busy=busy_s)
+
+
+def unfused_yardstick(torch, ck, path: str, groups, label: str,
+                      columns=COLUMNS) -> None:
+    """The same read with every hybrid stream through the chain the fused
+    K1 replaced (standalone K1 + the PyTorch combine), checked, timed warm
+    and profiled: the same-call yardstick of the fused K1 on the main
+    path."""
+    from tpu_parquet_torch import device_reader as DR
+
+    real = DR.hybrid_unpack_combine
+
+    def chain(buf, bp_base, tbase, n_valid, *, width, gpad, count, rp):
+        vals = ck.unpack_bp_groups(buf, bp_base, width, gpad)
+        return ck.hybrid_combine_plain(vals, buf, tbase, n_valid,
+                                       count=count, rp=rp)
+
+    label = f"{label} through the unfused chain"
+    DR.hybrid_unpack_combine = chain
+    try:
+        outs, _, _ = timed_pass(torch, path, columns)
+        check_groups(outs, groups, columns, label)
+        del outs
+        keep, seconds, st = timed_pass(torch, path, columns)
+        del keep
+        rows = sum(len(g[columns[0]]) for g in groups)
+        log(f"{label}: warm pass {seconds:.4f} s = {rows / seconds:.1f} "
+            f"rows/s; host {st['host_seconds']:.4f} s, dispatch enqueue "
+            f"{st['dispatch_seconds']:.4f} s")
+        device_breakdown(torch, path, label, columns)
+    finally:
+        DR.hybrid_unpack_combine = real
 
 
 def host_breakdown(torch, path: str, label: str, columns) -> None:
@@ -956,12 +1269,8 @@ def main() -> int:
     log(f"timing floor: one 4-byte fill timed as the kernels are, "
         f"{_median_ms(torch, tiny.zero_, flush):.4f} ms ({smi})")
     k1 = check_k1(torch, ck, flush, rng, smi)
-    k2 = check_k2(torch, ck, flush, rng, smi)
-    k3_groups = gen_k3_groups()
-    k3 = check_k3(torch, ck, flush, rng, smi, k3_groups[0]["dates"])
-    del flush
-
-    # phase 3: main path, REQUIRED lineitem SF1
+    # the SF1 file (phase 3) first: its row group 0 gives the fused K1's
+    # main-path shapes
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     groups = list(gen_lineitem(SF1_ROWS))
@@ -969,11 +1278,19 @@ def main() -> int:
     secs = write_lineitem(req_path, groups, optional=False)
     log(f"wrote {req_path}: {SF1_ROWS} rows, {len(groups)} row groups, "
         f"{os.path.getsize(req_path)} bytes in {secs:.2f} s")
+    hyb = check_hybrid(torch, ck, flush, rng, smi, req_path)
+    k2 = check_k2(torch, ck, flush, rng, smi)
+    k3_groups = gen_k3_groups()
+    k3 = check_k3(torch, ck, flush, rng, smi, k3_groups[0]["dates"])
+    del flush
+
+    # phase 3: main path, REQUIRED lineitem SF1
     main = read_main_path(torch, ck, req_path, groups, "REQUIRED lineitem")
-    for name in ("unpack_bp_groups", "fused_plain_words"):
+    for name in ("hybrid_unpack_combine", "fused_plain_words"):
         if main["counts"][name] <= 0:
             raise fail(f"main path never launched {name}")
     device_breakdown(torch, req_path, "REQUIRED lineitem")
+    unfused_yardstick(torch, ck, req_path, groups, "REQUIRED lineitem")
 
     # phase 4: main path, OPTIONAL lineitem (no nulls), 1M rows
     opt_groups = groups[:1]
@@ -981,8 +1298,10 @@ def main() -> int:
     secs = write_lineitem(opt_path, opt_groups, optional=True)
     log(f"wrote {opt_path}: {ROWS_PER_GROUP} rows in {secs:.2f} s")
     opt = read_main_path(torch, ck, opt_path, opt_groups, "OPTIONAL lineitem")
-    if opt["counts"]["unpack_bp_groups"] <= 0:
-        raise fail("OPTIONAL path never launched unpack_bp_groups")
+    if opt["counts"]["hybrid_unpack_combine"] <= 0:
+        raise fail("OPTIONAL path never launched hybrid_unpack_combine")
+    device_breakdown(torch, opt_path, "OPTIONAL lineitem")
+    unfused_yardstick(torch, ck, opt_path, opt_groups, "OPTIONAL lineitem")
 
     # phase 5: the compressed-shipping main path, the reference's K3 file
     k3_path = os.path.join(work, "k3_file_gzip.parquet")
@@ -997,6 +1316,13 @@ def main() -> int:
     # phase 6: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
+        {"name": "hybrid_unpack_combine", "route": "cuda",
+         "source": "tpu_parquet_torch/csrc/bp_unpack.cu",
+         "replaces": "tpu_parquet/pallas_kernels.py:93",
+         "launches": main["counts"]["hybrid_unpack_combine"],
+         "max_abs_err": hyb["worst"], "ms": hyb["ms"],
+         "plain_ms": hyb["plain_ms"], "bound_ms": hyb["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "unpack_bp_groups", "route": "cuda",
          "source": "tpu_parquet_torch/csrc/bp_unpack.cu",
          "replaces": "tpu_parquet/pallas_kernels.py:93",

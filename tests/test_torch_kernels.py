@@ -176,8 +176,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     CK.unpack_bits(buf, 3, 1000)
     CK.fused_narrow_words(buf, 0, 1000, 5, 100, k=2, width=8, depth=1,
                           count_pad=256, out_pad=512, n_ops_pad=8, ppad=64)
-    assert CK.launches == {"unpack_bp_groups": 0, "fused_plain_words": 0,
-                           "fused_narrow_words": 0}
+    assert CK.launches == {"unpack_bp_groups": 0, "hybrid_unpack_combine": 0,
+                           "fused_plain_words": 0, "fused_narrow_words": 0}
 
 
 # ---------------------------------------------------------------------------

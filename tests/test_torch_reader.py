@@ -264,8 +264,8 @@ def test_cpu_read_launches_no_kernel(files):
                           device="cpu") as r:
         list(r.iter_row_groups())
         routes = r.stats().as_dict()["ship_routes"]
-    assert CK.launches == {"unpack_bp_groups": 0, "fused_plain_words": 0,
-                           "fused_narrow_words": 0}
+    assert CK.launches == {"unpack_bp_groups": 0, "hybrid_unpack_combine": 0,
+                           "fused_plain_words": 0, "fused_narrow_words": 0}
     # ranked by the full planner, as on the card
     assert set(routes) == {"device_snappy", "fused_plain", "narrow"}
 

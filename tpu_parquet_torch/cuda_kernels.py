@@ -3,9 +3,12 @@
 The counterpart of ``tpu_parquet.pallas_kernels``.  Each Pallas TPU kernel
 is a CUDA C++ kernel for Hopper (``sm_90a``) under ``csrc/``:
 
-- **K1** ``unpack_bp_groups`` (``csrc/bp_unpack.cu``): LSB-first
-  fixed-width unpack of 8-value bit-packed groups — every dictionary-index
-  and def-level stream with bit-packed runs goes through it.
+- **K1** ``hybrid_unpack_combine`` (``csrc/bp_unpack.cu``): one
+  RLE/bit-packed hybrid stream in stream order, the unpack of its
+  bit-packed runs fused with the run-table combine — every
+  dictionary-index and def-level stream with bit-packed runs goes through
+  it.  ``unpack_bp_groups`` (the same source) is K1 alone, the LSB-first
+  fixed-width unpack of 8-value groups, reached through ``unpack_bits``.
 - **K2** ``fused_plain_words`` (``csrc/fused_plain.cu``): PLAIN 4/8-byte
   values to finished little-endian words with the validity tail zeroed —
   the ``fused_plain`` ship route.
@@ -14,7 +17,8 @@ is a CUDA C++ kernel for Hopper (``sm_90a``) under ``csrc/``:
   validity tail zeroed — the ``fused_narrow_snappy`` ship route.
 
 The sources are compiled with ``nvcc`` at first use into shared libraries
-with a plain C interface (one ``nvcc`` per source, started together), under
+with a plain C interface (one ``nvcc`` per source, started together; one
+source may hold several kernels), under
 ``build/tpu_parquet_torch/`` beside the package, and loaded with
 ``ctypes``.  Each wrapper launches its kernel on PyTorch's current stream
 for a CUDA tensor, or raises; it takes the plain PyTorch version only for a
@@ -44,7 +48,10 @@ from .torch_decode import _bucket_count
 from .torch_kernels import narrow_widen_words, u32_bits
 
 __all__ = ["unpack_bp_groups", "unpack_bp_groups_plain", "unpack_bits",
-           "bp_groups_pad", "fused_plain_words", "fused_plain_words_plain",
+           "bp_groups_pad", "hybrid_unpack_combine",
+           "hybrid_unpack_combine_plain", "hybrid_combine_plain",
+           "HYBRID_TILE", "HYBRID_WINDOW", "HYBRID_SPAN_VALUES",
+           "fused_plain_words", "fused_plain_words_plain",
            "fused_count_pad", "fused_narrow_words",
            "fused_narrow_words_plain", "fused_narrow_count_pad",
            "fused_narrow_geometry", "fused_plain_geometry",
@@ -53,6 +60,13 @@ __all__ = ["unpack_bp_groups", "unpack_bp_groups_plain", "unpack_bits",
            "launches", "reset_launches", "build", "KERNELS"]
 
 _GROUPS_PER_TILE = 1024  # K1 tile: 8192 values (the reference's tile)
+# the fused K1's geometry, as csrc/bp_unpack.cu lays it out: positions per
+# block, run-table rows of a tile's window it keeps in shared memory, the
+# bit-packed values it stages there (a tile over a cap reads global memory
+# instead)
+HYBRID_TILE = 2048
+HYBRID_WINDOW = 1024
+HYBRID_SPAN_VALUES = 2 * HYBRID_TILE
 _FUSED_TILE = 1024       # K2 tile: values per tile (the reference's tile)
 _FUSED_NS_TILE = 256     # K3 tile: values per tile (the reference's tile)
 # K3 eligibility caps, the reference's: the planner declines exactly the
@@ -68,6 +82,9 @@ _ULL = ctypes.c_ulonglong
 KERNELS = {
     "unpack_bp_groups": ("bp_unpack.cu", "tpq_unpack_bp_groups",
                          [_VP, _LL, _LL, _INT, _LL, _VP, _VP]),
+    "hybrid_unpack_combine": ("bp_unpack.cu", "tpq_hybrid_unpack_combine",
+                              [_VP, _LL, _LL, _LL, _LL, _INT, _LL, _LL, _INT,
+                               _VP, _VP]),
     "fused_plain_words": ("fused_plain.cu", "tpq_fused_plain_words",
                           [_VP, _LL, _LL, _INT, _LL, _LL, _INT, _INT, _VP,
                            _VP]),
@@ -111,21 +128,21 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> str:
-    src = os.path.join(_CSRC, KERNELS[name][0])
+def _lib_path(src: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
+    with open(os.path.join(_CSRC, src), "rb") as f:
         h.update(f.read())
     h.update(" ".join(_NVCC_FLAGS).encode())
-    return os.path.join(build_dir(), f"libtpq_{name}.{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(src)[0]
+    return os.path.join(build_dir(), f"libtpq_{stem}.{h.hexdigest()[:16]}.so")
 
 
 def build(names=None) -> dict:
     """Compile (if not already built) and load the kernel libraries.
 
-    One ``nvcc`` process per source, all started together; returns
-    ``{name: ctypes library}``.  Raises ``RuntimeError`` with the compiler's
-    output when a build fails."""
+    One ``nvcc`` process per source, all started together, however many
+    kernels a source holds; returns ``{name: ctypes library}``.  Raises
+    ``RuntimeError`` with the compiler's output when a build fails."""
     names = list(KERNELS) if names is None else list(names)
     with _build_lock:
         todo = [n for n in names if n not in _libs]
@@ -133,27 +150,30 @@ def build(names=None) -> dict:
             return {n: _libs[n] for n in names}
         os.makedirs(build_dir(), exist_ok=True)
         procs = []
-        for n in todo:
-            path = _lib_path(n)
+        for src in sorted({KERNELS[n][0] for n in todo}):
+            path = _lib_path(src)
             if os.path.exists(path):
                 continue
             tmp = f"{path}.tmp{os.getpid()}"
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-                   os.path.join(_CSRC, KERNELS[n][0])]
-            procs.append((n, path, tmp, subprocess.Popen(
+            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+            procs.append((src, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failed = []
-        for n, path, tmp, proc in procs:
+        for src, path, tmp, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"{n}: {out.decode(errors='replace')}")
+                failed.append(f"{src}: {out.decode(errors='replace')}")
                 continue
             os.replace(tmp, path)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))
+        loaded = {}
         for n in todo:
-            lib = ctypes.CDLL(_lib_path(n))
+            path = _lib_path(KERNELS[n][0])
+            if path not in loaded:
+                loaded[path] = ctypes.CDLL(path)
+            lib = loaded[path]
             fn = getattr(lib, KERNELS[n][1])
             fn.argtypes = KERNELS[n][2]
             fn.restype = ctypes.c_int
@@ -266,6 +286,97 @@ def unpack_bits(buf: torch.Tensor, width: int, count: int) -> torch.Tensor:
     n = min(buf.numel(), need)
     padded[:n] = buf[:n]
     return unpack_bp_groups(padded, 0, width, gpad)[:count]
+
+
+# ---------------------------------------------------------------------------
+# K1 fused with the run-table combine: one hybrid stream in stream order
+# ---------------------------------------------------------------------------
+
+_I32_MAX = (1 << 31) - 1
+HYBRID_TABLE_BYTES = 13  # ends i32 + is_rle u8 + values u32 + bp_idx_base i32
+
+
+def hybrid_combine_plain(vals: torch.Tensor, buf: torch.Tensor, tbase: int,
+                         n_valid: int, *, count: int, rp: int) -> torch.Tensor:
+    """Combine unpacked BP values ``vals`` with the RLE runs into stream
+    order: the counterpart of the reference's ``_hybrid_combine_staged_jit``.
+
+    Every output position finds its run with one searchsorted, then either
+    broadcasts the RLE value or picks its BP element at
+    ``bp_idx_base[run] + pos``.  The run table rides the staged buffer at
+    ``tbase`` (layout [ends i32 | is_rle u8 | values u32 | bp_idx_base i32]
+    x rp); the index math is int32 like the reference's.  Lanes at or past
+    ``n_valid`` are zeroed."""
+    tab = buf[tbase : tbase + HYBRID_TABLE_BYTES * rp]
+    ends = tab[: 4 * rp].view(torch.int32)
+    isr = tab[4 * rp : 5 * rp] != 0
+    rvals = tab[5 * rp : 9 * rp].view(torch.int32)
+    bib = tab[9 * rp :].view(torch.int32)
+    pos = torch.arange(count, dtype=torch.int32, device=buf.device)
+    r = torch.searchsorted(ends, pos, right=True)
+    r = torch.clamp(r, max=rp - 1)
+    bp_idx = torch.clamp(bib[r] + pos, 0, vals.shape[0] - 1)
+    out = torch.where(isr[r], rvals[r], vals[bp_idx.long()])
+    return torch.where(pos < n_valid, out, torch.zeros_like(out))
+
+
+def hybrid_unpack_combine_plain(buf: torch.Tensor, bp_base: int, tbase: int,
+                                n_valid: int, *, width: int, gpad: int,
+                                count: int, rp: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused K1 (same arguments and result):
+    the unfused chain, K1's plain version then the combine."""
+    vals = unpack_bp_groups_plain(buf, bp_base, width, gpad)
+    return hybrid_combine_plain(vals, buf, tbase, n_valid, count=count,
+                                rp=rp)
+
+
+def hybrid_unpack_combine(buf: torch.Tensor, bp_base: int, tbase: int,
+                          n_valid: int, *, width: int, gpad: int, count: int,
+                          rp: int) -> torch.Tensor:
+    """Decode one RLE/bit-packed hybrid stream in ONE pass: K1's unpack of
+    the bit-packed runs fused with the run-table combine.
+
+    The staged buffer ``buf`` holds the stream's bit-packed payload,
+    contiguous in stream order, at ``bp_base`` (any byte offset;
+    ``gpad`` 8-value groups of ``width`` bits are readable from there) and
+    its run table at ``tbase`` (4-byte aligned, ``rp`` rows of [ends i32 |
+    is_rle u8 | values u32 | bp_idx_base i32], ``ends`` non-decreasing).
+    Position ``pos < count`` takes its run's RLE value or the bit-packed
+    value at ``clamp(bp_idx_base[run] + pos, 0, gpad * 8 - 1)``; positions
+    at or past ``n_valid`` are 0.  Returns ``int32[count]`` holding the
+    ``uint32`` values.  ``gpad`` must come from :func:`bp_groups_pad`."""
+    _check_buf(buf)
+    if not 1 <= width <= 32:
+        raise ValueError(f"hybrid_unpack_combine supports widths 1..32, got "
+                         f"{width}")
+    if rp < 8 or rp & (rp - 1):
+        raise ValueError(f"rp {rp} is not a power of two >= 8")
+    if gpad <= 0 or gpad % _GROUPS_PER_TILE or gpad * 8 > _I32_MAX + 1:
+        raise ValueError(f"gpad {gpad} not a positive multiple of "
+                         f"{_GROUPS_PER_TILE} within int32 positions")
+    if not 0 < count <= _I32_MAX - HYBRID_TILE:
+        raise ValueError(f"count {count} outside 1..2**31 - 1 - "
+                         f"{HYBRID_TILE} (int32 positions)")
+    bp_base, tbase, n_valid = int(bp_base), int(tbase), int(n_valid)
+    tend = tbase + HYBRID_TABLE_BYTES * rp
+    if tbase < 0 or tend > buf.numel():
+        raise ValueError(f"hybrid_unpack_combine tables [{tbase}, {tend}) "
+                         f"past a {buf.numel()}-byte buffer")
+    if (buf.data_ptr() + tbase) % 4:
+        raise ValueError(f"hybrid_unpack_combine tables at {tbase} are not "
+                         f"4-byte aligned")
+    if bp_base < 0 or bp_base + gpad * width > buf.numel():
+        raise ValueError(
+            f"hybrid_unpack_combine reads [{bp_base}, "
+            f"{bp_base + gpad * width}) past a {buf.numel()}-byte buffer")
+    if _device_kind(buf) == "cpu":
+        return hybrid_unpack_combine_plain(buf, bp_base, tbase, n_valid,
+                                           width=width, gpad=gpad,
+                                           count=count, rp=rp)
+    out = torch.empty(count, dtype=torch.int32, device=buf.device)
+    _launch("hybrid_unpack_combine", buf, bp_base, tbase, n_valid,
+            int(width), int(gpad), int(count), int(rp), out.data_ptr())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ columns.  Per row group:
 3. the stager fills one pinned host buffer and copies it to the device in
    one ``non_blocking`` transfer;
 4. ``_run_plans`` runs every chunk's decode over that one buffer: the
-   hand-written CUDA kernels of ``cuda_kernels`` (K1 for dictionary indices
-   and def levels, K2 for ``fused_plain``, K3 for ``fused_narrow_snappy``)
+   hand-written CUDA kernels of ``cuda_kernels`` (the fused K1 unpack +
+   run-table combine for dictionary indices and def levels, K2 for
+   ``fused_plain``, K3 for ``fused_narrow_snappy``)
    and the tensor code of ``torch_kernels`` (the snappy resolve of the
    staged chains, gathers, widening);
 5. the output is one :class:`DeviceColumnData` per column.
@@ -34,6 +35,7 @@ walk is unavailable is the check deferred to one device read in
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -49,7 +51,7 @@ from .compress import decompress_block
 from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
                            SNAPPY_OPS_BYTES, bp_groups_pad, fused_count_pad,
                            fused_narrow_count_pad, fused_narrow_words,
-                           fused_plain_words, unpack_bp_groups)
+                           fused_plain_words, hybrid_unpack_combine)
 from .footer import ParquetError, read_file_metadata
 from .format import CompressionCodec, Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack
@@ -392,31 +394,10 @@ def _snappy_gather_staged(buf, tbase: int, *, n_ops: int, out_pad: int,
 _PALLAS_MAX_SEGS = 4096
 
 
-def _hybrid_combine_staged(vals, buf, tbase: int, n_valid: int, *,
-                           count: int, rp: int):
-    """Combine K1-unpacked BP values with RLE runs into stream order.
-
-    Every output position finds its run with one searchsorted, then either
-    broadcasts the RLE value or picks its BP element at
-    ``bp_idx_base[run] + pos``.  Run tables ride the staged buffer at
-    ``tbase`` (layout [ends i32 | is_rle u8 | values u32 | bp_idx_base i32]
-    x rp); the index math is int32 like the reference's.  Lanes at or past
-    ``n_valid`` are zeroed."""
-    ends = _tslice(buf, tbase, 0, rp, torch.int32)
-    isr = _tslice(buf, tbase, rp * 4, rp, torch.uint8) != 0
-    rvals = _tslice(buf, tbase, rp * 5, rp, torch.int32)
-    bib = _tslice(buf, tbase, rp * 9, rp, torch.int32)
-    pos = torch.arange(count, dtype=torch.int32, device=buf.device)
-    r = torch.searchsorted(ends, pos, right=True)
-    r = torch.clamp(r, max=rp - 1)
-    bp_idx = torch.clamp(bib[r] + pos, 0, vals.shape[0] - 1)
-    out = torch.where(isr[r], rvals[r], vals[bp_idx.long()])
-    return torch.where(pos < n_valid, out, torch.zeros_like(out))
-
-
 def _plan_hybrid_pallas(stager: _RowGroupStager, pages_info, width: int,
                         total: int, count_pad: int):
-    """Plan a hybrid expansion through K1 plus the run-table combine.
+    """Plan a hybrid expansion through the fused K1 (unpack + run-table
+    combine, ``cuda_kernels.hybrid_unpack_combine``).
 
     ``pages_info``: [(HybridMeta, source_buffer, page_value_count)] in
     stream order.  Registers each bit-packed run's payload with the stager
@@ -479,15 +460,11 @@ def _plan_hybrid_pallas(stager: _RowGroupStager, pages_info, width: int,
     tbase = _pack_tables(stager, [ends, isr.astype(np.uint8), rvals, bib])
     bases = stager.add_segments(segs)
     bp_base = int(bases[0])
-    # K1 reads gpad*width bytes from bp_base: past the real payload it sees
-    # later regions' bytes — values the combine never selects
+    # K1 may read gpad*width bytes from bp_base: past the real payload it
+    # sees later regions' bytes — values the combine never selects
     stager.note_read_extent(bp_base, gpad * width)
-
-    def fn(buf, bp_base_d, tbase_d, total_d):
-        vals = unpack_bp_groups(buf, bp_base_d, width, gpad)
-        return _hybrid_combine_staged(vals, buf, tbase_d, total_d,
-                                      count=count_pad, rp=rp)
-
+    fn = functools.partial(hybrid_unpack_combine, width=width, gpad=gpad,
+                           count=count_pad, rp=rp)
     return _Plan(fn, (bp_base, tbase, total), None)
 
 
@@ -1007,9 +984,9 @@ class _ChunkAssembler:
     def _plan_levels(self, stager: _RowGroupStager, streams, width: int,
                      slots: int, slots_pad: int, metas=None):
         """Stage the pages' raw RLE level streams and expand them on the
-        device: through K1 where the stream has bit-packed runs, else the
-        run-table expand.  The plan yields ``int32[slots_pad]`` (tail past
-        ``slots`` zeroed)."""
+        device: through the fused K1 where the stream has bit-packed runs,
+        else the run-table expand.  The plan yields ``int32[slots_pad]``
+        (tail past ``slots`` zeroed)."""
         if metas is None:
             metas = [None] * len(self.pages)
         if any(s is None for s in streams):
@@ -1390,10 +1367,10 @@ class _ChunkAssembler:
             )
 
     def _finish_dict(self, common, stager):
-        """Dictionary-encoded chunk: the index stream through K1 and the
-        staged run-table combine (one uniform index width), or the run-table
-        expand (per-page widths, or too many runs); then a dictionary
-        gather on the device."""
+        """Dictionary-encoded chunk: the index stream through the fused K1
+        (unpack + run-table combine; one uniform index width), or the
+        run-table expand (per-page widths, or too many runs); then a
+        dictionary gather on the device."""
         if self.dict_u8 is None:
             raise ParquetError("dictionary-encoded page but no dictionary page seen")
         parsed = []  # (page, stream, meta)
