@@ -42,7 +42,21 @@ Phases:
    dictionary off, chunk statistics on), read unforced on the card and
    checked bit for bit; K3 must run twice per row group.  Then the same
    read forced to ``plain`` and to ``fused_plain``, for their rows/s;
-6. one JSON line listing every ported kernel, then the result line.
+6. the whole 16-column table of ``bench.py`` ``gen_lineitem16`` at SF1
+   (its schema, generator, seed and writer settings: SNAPPY, dictionary on,
+   DELTA_BINARY_PACKED as the non-dictionary encoding of ``l_orderkey``
+   and the three dates, page CRCs) written with the port's writer, read on
+   the card and checked column by column against the generator, strings
+   included; the fused K1 must run for the five string dictionaries'
+   index streams of every row group; a warm pass, a profiled pass and a
+   cProfile'd pass;
+7. the five string columns of the first two row groups written PLAIN
+   (dictionary off), SNAPPY and GZIP: each read unforced (on SNAPPY the four
+   short-string columns must keep their pages compressed,
+   ``device_snappy``; ``l_comment``'s pages hold more snappy ops than the
+   staged chain takes and ship plain, as in the reference) and forced to
+   ``plain``, checked, timed, profiled and cProfile'd;
+8. one JSON line listing every ported kernel, then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -70,6 +84,17 @@ COLUMNS = ["l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
 K3_ROWS = 6_000_000
 K3_GROUP = 65_536
 K3_COLUMNS = ["dates", "wide", "cnt", "rate", "dbl", "dates32"]
+L16_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+               "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+               "l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate",
+               "l_receiptdate", "l_shipinstruct", "l_shipmode", "l_comment"]
+STRING_COLUMNS = ["l_returnflag", "l_linestatus", "l_shipinstruct",
+                  "l_shipmode", "l_comment"]
+# bench.py gen_lineitem16's column_encodings: the encoding of these columns
+# when the writer declines a dictionary (over 32,767 distinct values)
+DELTA_COLUMNS = ["l_orderkey", "l_shipdate", "l_commitdate",
+                 "l_receiptdate"]
+PLAIN_STRING_GROUPS = 2
 
 
 def log(msg: str) -> None:
@@ -827,18 +852,29 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
 # phases 3-4: the main path over TPC-H lineitem
 # ---------------------------------------------------------------------------
 
-def gen_lineitem(rows: int, rows_per_group: int = ROWS_PER_GROUP):
-    """Yield per-row-group dicts of the seven fixed-width, non-delta
-    lineitem columns, drawn exactly as ``bench.py`` ``gen_lineitem16`` draws
-    them (seed 4; the draws of the other nine columns are made and dropped
-    so that the random stream stays the same)."""
+def draw_lineitem16(rows: int, rows_per_group: int = ROWS_PER_GROUP):
+    """Yield per-row-group dicts of ``bench.py`` ``gen_lineitem16``'s 16
+    columns, drawn exactly as it draws them (seed 4): the integer and float
+    columns as arrays, each STRING column as ``(pool, indices)`` (the strings
+    are ``pool[indices]``; :func:`lineitem_strings` builds them)."""
     import numpy as np
 
+    flags = [b"A", b"N", b"R"]
+    status = [b"F", b"O"]
+    instr = [b"DELIVER IN PERSON", b"COLLECT COD", b"NONE",
+             b"TAKE BACK RETURN"]
+    modes = [b"AIR", b"FOB", b"MAIL", b"RAIL", b"REG AIR", b"SHIP", b"TRUCK"]
+    words = [f"word{i}".encode() for i in range(64)]
+    comment_pool = [b" ".join(words[j % 64] for j in range(i, i + 5))
+                    for i in range(256)]
     rng = np.random.default_rng(4)
+    key = 0
     for lo in range(0, rows, rows_per_group):
         n = min(rows_per_group, rows - lo)
-        rng.integers(1, 5, n)                     # l_orderkey deltas
-        cols = {
+        keys = key + np.cumsum(rng.integers(1, 5, n))
+        key = int(keys[-1])
+        yield {
+            "l_orderkey": keys.astype(np.int64),
             "l_partkey": rng.integers(1, 200_000, n),
             "l_suppkey": rng.integers(1, 10_000, n),
             "l_linenumber": rng.integers(1, 8, n).astype(np.int32),
@@ -846,15 +882,27 @@ def gen_lineitem(rows: int, rows_per_group: int = ROWS_PER_GROUP):
             "l_extendedprice": rng.uniform(900, 105_000, n),
             "l_discount": rng.uniform(0, 0.1, n).round(2),
             "l_tax": rng.uniform(0, 0.08, n).round(2),
+            "l_returnflag": (flags, rng.integers(0, len(flags), n)),
+            "l_linestatus": (status, rng.integers(0, len(status), n)),
+            "l_shipdate": (8035 + rng.integers(0, 2526, n)).astype(np.int32),
+            "l_commitdate": (8035 + rng.integers(0, 2526, n)).astype(
+                np.int32),
+            "l_receiptdate": (8035 + rng.integers(0, 2526, n)).astype(
+                np.int32),
+            "l_shipinstruct": (instr, rng.integers(0, len(instr), n)),
+            "l_shipmode": (modes, rng.integers(0, len(modes), n)),
+            "l_comment": (comment_pool,
+                          rng.integers(0, len(comment_pool), n)),
         }
-        rng.integers(0, 3, n)                     # l_returnflag
-        rng.integers(0, 2, n)                     # l_linestatus
-        for _ in range(3):                        # ship/commit/receipt dates
-            rng.integers(0, 2526, n)
-        rng.integers(0, 4, n)                     # l_shipinstruct
-        rng.integers(0, 7, n)                     # l_shipmode
-        rng.integers(0, 256, n)                   # l_comment
-        yield cols
+
+
+def lineitem_strings(group: dict) -> dict:
+    """The group with each ``(pool, indices)`` STRING column built into its
+    ``ByteArrayData`` (the bytes ``bench.py`` writes)."""
+    from tpu_parquet_torch.column import ByteArrayData
+
+    return {c: (ByteArrayData.from_list(v[0]).take(v[1])
+                if isinstance(v, tuple) else v) for c, v in group.items()}
 
 
 def write_lineitem(path: str, groups, optional: bool) -> float:
@@ -895,9 +943,11 @@ def check_route_launches(counts: dict, st: dict, label: str) -> None:
 
 
 def check_groups(outs, groups, columns, label: str) -> tuple:
-    """Every column of every row group bit for bit against the generator;
-    returns (rows, decoded bytes)."""
+    """Every column of every row group bit for bit against the generator
+    (a STRING column's offsets and heap); returns (rows, decoded bytes)."""
     import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
 
     rows = 0
     decoded = 0
@@ -906,15 +956,23 @@ def check_groups(outs, groups, columns, label: str) -> tuple:
             col = rg[name]
             got = col.to_host()
             exp = want[name]
-            if got.dtype != exp.dtype or not np.array_equal(
-                    got.view(np.uint8), exp.view(np.uint8)):
+            if isinstance(exp, ByteArrayData):
+                same = (isinstance(got, ByteArrayData)
+                        and np.array_equal(got.offsets, exp.offsets)
+                        and np.array_equal(got.heap, exp.heap))
+                nbytes = got.offsets.nbytes + got.heap.nbytes if same else 0
+            else:
+                same = got.dtype == exp.dtype and np.array_equal(
+                    got.view(np.uint8), exp.view(np.uint8))
+                nbytes = got.nbytes
+            if not same:
                 raise fail(f"{label}: column {name} differs from the "
                            f"generator")
             if col.max_def:
                 d, _ = col.levels_to_host()
                 if d is None or len(d) != len(exp) or not (d == 1).all():
                     raise fail(f"{label}: def levels of {name} are wrong")
-            decoded += got.nbytes
+            decoded += nbytes
         rows += len(want[columns[0]])
     return rows, decoded
 
@@ -949,26 +1007,38 @@ def read_main_path(torch, ck, path: str, groups, label: str,
                    columns=COLUMNS) -> dict:
     """Read ``path`` on the card through the public entry point and the full
     ship planner (unforced), check every column bit for bit, and time a
-    warm second pass."""
+    warm second pass.  The first pass also counts the planned hybrid
+    streams, and among them the string dictionaries' index streams
+    (``ragged_fused``)."""
     from tpu_parquet_torch import device_reader as DR
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     planned = [0]
+    ragged_fused = [0]
     real = DR._plan_hybrid_pallas
+    real_ragged = DR._ChunkAssembler._finish_dict_ragged
 
     def count_plans(*args):
         plan = real(*args)
         planned[0] += plan is not None
         return plan
 
+    def count_ragged(self, common, stager, idx_fn, *args):
+        # the index stream's plan is the fused K1's wrapper
+        if getattr(idx_fn, "func", None) is DR.hybrid_unpack_combine:
+            ragged_fused[0] += 1
+        return real_ragged(self, common, stager, idx_fn, *args)
+
     DR._plan_hybrid_pallas = count_plans
+    DR._ChunkAssembler._finish_dict_ragged = count_ragged
     try:
         ck.reset_launches()
         outs, _, st = timed_pass(torch, path, columns)
         counts = dict(ck.launches)
     finally:
         DR._plan_hybrid_pallas = real
+        DR._ChunkAssembler._finish_dict_ragged = real_ragged
     check_route_launches(counts, st, label)
     # each planned hybrid stream is one launch of the fused K1, and the
     # standalone unpack is off the path
@@ -999,7 +1069,8 @@ def read_main_path(torch, ck, path: str, groups, label: str,
         f"max_memory_allocated {peak} bytes")
     return dict(counts=counts, rows=rows, seconds=seconds,
                 rows_per_s=rows / seconds, staged=st["staged_bytes"],
-                decoded=decoded, peak=peak, stats=st)
+                decoded=decoded, peak=peak, stats=st, warm=st2,
+                ragged_fused=ragged_fused[0])
 
 
 def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
@@ -1045,7 +1116,8 @@ def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
     else:
         log(f"{label}: device time not measured (the profiler recorded no "
             f"device events)")
-    return dict(wall=wall, busy=busy_s)
+    return dict(wall=wall, busy=busy_s, launches=n_device,
+                idle=1 - busy_s / wall if busy_s else None)
 
 
 def unfused_yardstick(torch, ck, path: str, groups, label: str,
@@ -1228,6 +1300,165 @@ def read_k3_path(torch, ck, path: str, groups, smi: str) -> dict:
     return main
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: the whole 16-column lineitem, and PLAIN strings
+# ---------------------------------------------------------------------------
+
+def write_lineitem16(path: str, groups, columns=L16_COLUMNS, codec=None,
+                     dictionary: bool = True) -> float:
+    """``bench.py`` ``gen_lineitem16``'s writer settings with the port's
+    writer: the STRING columns UTF8, SNAPPY unless ``codec`` says
+    otherwise, dictionary on unless ``dictionary`` is false, DELTA for the
+    four DELTA columns, page CRCs, one row group per generated group."""
+    from tpu_parquet_torch.column import ByteArrayData, ColumnData
+    from tpu_parquet_torch.format import (CompressionCodec, ConvertedType,
+                                          Encoding,
+                                          FieldRepetitionType as FRT,
+                                          LogicalType, StringType, Type)
+    from tpu_parquet_torch.schema.core import (ColumnParameters,
+                                               build_schema, data_column)
+    from tpu_parquet_torch.writer import FileWriter
+
+    types = {"l_linenumber": Type.INT32, "l_extendedprice": Type.DOUBLE,
+             "l_discount": Type.DOUBLE, "l_tax": Type.DOUBLE,
+             "l_shipdate": Type.INT32, "l_commitdate": Type.INT32,
+             "l_receiptdate": Type.INT32}
+
+    def column(c):
+        if c in STRING_COLUMNS:
+            return data_column(c, Type.BYTE_ARRAY, FRT.REQUIRED,
+                               ColumnParameters(
+                                   logical_type=LogicalType(
+                                       STRING=StringType()),
+                                   converted_type=ConvertedType.UTF8))
+        return data_column(c, types.get(c, Type.INT64), FRT.REQUIRED)
+
+    schema = build_schema([column(c) for c in columns])
+    t0 = time.perf_counter()
+    with FileWriter(path, schema,
+                    codec=CompressionCodec.SNAPPY if codec is None else codec,
+                    use_dictionary=dictionary, write_crc=True,
+                    row_group_size=128 << 20,
+                    column_encodings={c: Encoding.DELTA_BINARY_PACKED
+                                      for c in DELTA_COLUMNS
+                                      if c in columns}) as w:
+        for g in groups:
+            w.write_columns({
+                c: ColumnData(values=g[c])
+                if isinstance(g[c], ByteArrayData) else g[c]
+                for c in columns})
+            w.flush_row_group()
+    return time.perf_counter() - t0
+
+
+def chunk_encodings(path: str) -> dict:
+    """{column: sorted encoding names over the file's chunks}, from the
+    port's own footer parse."""
+    from tpu_parquet_torch.footer import read_file_metadata
+    from tpu_parquet_torch.format import Encoding
+
+    with open(path, "rb") as f:
+        meta = read_file_metadata(f)
+    out: dict = {}
+    for rg in meta.row_groups:
+        for chunk in rg.columns:
+            name = ".".join(chunk.meta_data.path_in_schema)
+            out.setdefault(name, set()).update(
+                Encoding(e).name for e in chunk.meta_data.encodings)
+    return {c: sorted(v) for c, v in out.items()}
+
+
+def summary(main: dict, dev: dict, label: str, smi: str) -> None:
+    """The phase's numbers on one line, beside the card."""
+    st, warm = main["stats"], main["warm"]
+    idle = ("not measured" if dev["idle"] is None
+            else f"{dev['idle']:.4f}")
+    log(f"{label} summary ({smi}): warm pass {main['rows_per_s']:.1f} rows/s "
+        f"({main['seconds']:.4f} s); host_seconds {warm['host_seconds']:.4f} "
+        f"s; device busy {dev['busy']:.6f} s in {dev['launches']} kernels "
+        f"and copies, idle share {idle}; kernel launches "
+        f"{ {k: v for k, v in main['counts'].items() if v} }; routes "
+        f"{route_table(st)}; link_bytes_logical {st['link_bytes_logical']}, "
+        f"link_bytes_shipped {st['link_bytes_shipped']}; "
+        f"max_memory_allocated {main['peak']} bytes")
+
+
+def read_lineitem16(torch, ck, path: str, groups, smi: str) -> dict:
+    """Phase 6: all 16 columns on the card, checked against the generator
+    (strings included), with the fused K1 launched for the string
+    dictionaries' index streams."""
+    label = "lineitem16 SF1"
+    encs = chunk_encodings(path)
+    log(f"{label}: chunk encodings {encs}")
+    main = read_main_path(torch, ck, path, groups, label,
+                          columns=L16_COLUMNS)
+    n_groups = len(groups)
+    want = len(STRING_COLUMNS) * n_groups
+    if main["ragged_fused"] != want:
+        raise fail(f"{label}: {main['ragged_fused']} string index streams "
+                   f"planned through hybrid_unpack_combine, want {want}")
+    # each planned stream is one launch (read_main_path checks the total)
+    log(f"{label}: hybrid_unpack_combine launched "
+        f"{main['counts']['hybrid_unpack_combine']} times, "
+        f"{main['ragged_fused']} of them for the {len(STRING_COLUMNS)} "
+        f"string dictionaries' index streams of {n_groups} row groups")
+    if not any("DELTA_BINARY_PACKED" in v for v in encs.values()):
+        raise fail(f"{label}: no DELTA_BINARY_PACKED chunk in the file")
+    dev = device_breakdown(torch, path, label, columns=L16_COLUMNS)
+    summary(main, dev, label, smi)
+    host_breakdown(torch, path, label, L16_COLUMNS)
+    main["device"] = dev
+    return main
+
+
+def read_plain_strings(torch, ck, groups, work: str, smi: str) -> dict:
+    """Phase 7: the five string columns written PLAIN (dictionary off),
+    SNAPPY and GZIP, read unforced (SNAPPY keeps the short-string columns'
+    pages compressed: ``device_snappy``) and forced to ``plain``, each
+    checked."""
+    from tpu_parquet_torch.format import CompressionCodec
+
+    out = {}
+    for codec in (CompressionCodec.SNAPPY, CompressionCodec.GZIP):
+        name = codec.name.lower()
+        label = f"PLAIN strings {name}"
+        path = os.path.join(work, f"strings_plain_{name}.parquet")
+        secs = write_lineitem16(path, groups, columns=STRING_COLUMNS,
+                                codec=codec, dictionary=False)
+        log(f"wrote {path}: {sum(len(g['l_comment']) for g in groups)} "
+            f"rows, {len(groups)} row groups, {os.path.getsize(path)} "
+            f"bytes in {secs:.2f} s; encodings {chunk_encodings(path)}")
+        main = read_main_path(torch, ck, path, groups, label,
+                              columns=STRING_COLUMNS)
+        routes = main["stats"]["ship_routes"]
+        # on SNAPPY every stream keeps the file's pages, except a stream
+        # whose pages hold more snappy ops than the staged chain takes
+        # (l_comment: device_reader._SNAPPY_MAX_OPS), which ships plain
+        small = (len(STRING_COLUMNS) - 1) * len(groups)
+        if (codec == CompressionCodec.SNAPPY and routes.get(
+                "device_snappy", {}).get("streams", 0) < small):
+            raise fail(f"{label}: routes {route_table(main['stats'])}, "
+                       f"want device_snappy for at least {small} streams")
+        dev = device_breakdown(torch, path, label, columns=STRING_COLUMNS)
+        summary(main, dev, label, smi)
+        host_breakdown(torch, path, label, STRING_COLUMNS)
+        torch.cuda.reset_peak_memory_stats()
+        outs, seconds, fst = timed_pass(torch, path, STRING_COLUMNS, "plain")
+        check_groups(outs, groups, STRING_COLUMNS, f"{label} forced plain")
+        del outs
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{label} forced plain ({smi}): {seconds:.4f} s = "
+            f"{main['rows'] / seconds:.1f} rows/s; host "
+            f"{fst['host_seconds']:.4f} s, dispatch enqueue "
+            f"{fst['dispatch_seconds']:.4f} s; routes {route_table(fst)}; "
+            f"link_bytes_shipped {fst['link_bytes_shipped']}; "
+            f"max_memory_allocated {peak} bytes")
+        main["device"] = dev
+        main["forced_plain"] = main["rows"] / seconds
+        out[name] = main
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -1273,7 +1504,8 @@ def main() -> int:
     # main-path shapes
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    groups = list(gen_lineitem(SF1_ROWS))
+    draws = list(draw_lineitem16(SF1_ROWS))
+    groups = [{c: g[c] for c in COLUMNS} for g in draws]
     req_path = os.path.join(work, "lineitem_sf1_required.parquet")
     secs = write_lineitem(req_path, groups, optional=False)
     log(f"wrote {req_path}: {SF1_ROWS} rows, {len(groups)} row groups, "
@@ -1313,7 +1545,23 @@ def main() -> int:
     device_breakdown(torch, k3_path, "K3 file", columns=K3_COLUMNS)
     host_breakdown(torch, k3_path, "K3 file", K3_COLUMNS)
 
-    # phase 6: the kernels line and the result line
+    # phase 6: the whole 16-column lineitem, SF1, strings and delta included
+    l16_groups = [lineitem_strings(g) for g in draws]
+    del draws
+    l16_path = os.path.join(work, "lineitem16_sf1.parquet")
+    secs = write_lineitem16(l16_path, l16_groups)
+    log(f"wrote {l16_path}: {SF1_ROWS} rows x {len(L16_COLUMNS)} columns, "
+        f"{len(l16_groups)} row groups, {os.path.getsize(l16_path)} bytes "
+        f"in {secs:.2f} s")
+    l16 = read_lineitem16(torch, ck, l16_path, l16_groups, smi)
+
+    # phase 7: the string columns written PLAIN, SNAPPY and GZIP
+    strings = read_plain_strings(
+        torch, ck, [{c: g[c] for c in STRING_COLUMNS}
+                    for g in l16_groups[:PLAIN_STRING_GROUPS]], work, smi)
+    del l16_groups
+
+    # phase 8: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "hybrid_unpack_combine", "route": "cuda",
@@ -1347,7 +1595,13 @@ def main() -> int:
     ]
     log(f"main path rows/s: REQUIRED {main['rows_per_s']:.1f}, "
         f"OPTIONAL {opt['rows_per_s']:.1f}, K3 file unforced "
-        f"{k3_main['rows_per_s']:.1f} ({smi})")
+        f"{k3_main['rows_per_s']:.1f}, lineitem16 {l16['rows_per_s']:.1f}, "
+        f"PLAIN strings snappy {strings['snappy']['rows_per_s']:.1f} "
+        f"(forced plain {strings['snappy']['forced_plain']:.1f}), gzip "
+        f"{strings['gzip']['rows_per_s']:.1f} (forced plain "
+        f"{strings['gzip']['forced_plain']:.1f}); hybrid_unpack_combine "
+        f"launches on the lineitem16 read "
+        f"{l16['counts']['hybrid_unpack_combine']} ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -279,19 +279,27 @@ def test_default_device_is_cuda_and_raises_without_it(files):
 
 def test_columns_outside_the_slice_raise(tmp_path):
     path = str(tmp_path / "other.parquet")
-    pq.write_table(pa.table({"s": pa.array(["x", "y"] * 50),
+    pq.write_table(pa.table({"b": pa.array([True, False] * 50),
                              "n": pa.array(np.arange(100))}), path)
     with pytest.raises(NotImplementedError, match="flat-column slice"):
         DeviceFileReader(path, device="cpu")
     with DeviceFileReader(path, columns=["n"], device="cpu") as r:
         assert np.array_equal(r.read_row_group(0)["n"].to_host(),
                               np.arange(100))
+    # DELTA_BINARY_PACKED integers are in the slice; delta byte arrays are
+    # not
     delta = str(tmp_path / "delta.parquet")
-    pq.write_table(pa.table({"d": pa.array(np.arange(100))}), delta,
+    pq.write_table(pa.table({"d": pa.array(np.arange(100)),
+                             "s": pa.array(["x", "yy"] * 50)}), delta,
                    use_dictionary=False,
-                   column_encoding={"d": "DELTA_BINARY_PACKED"})
+                   column_encoding={"d": "DELTA_BINARY_PACKED",
+                                    "s": "DELTA_LENGTH_BYTE_ARRAY"})
+    with DeviceFileReader(delta, columns=["d"], device="cpu") as r:
+        assert np.array_equal(r.read_row_group(0)["d"].to_host(),
+                              np.arange(100))
     with DeviceFileReader(delta, device="cpu") as r:
-        with pytest.raises(NotImplementedError, match="DELTA_BINARY_PACKED"):
+        with pytest.raises(NotImplementedError,
+                           match="DELTA_LENGTH_BYTE_ARRAY"):
             r.read_row_group(0)
     # dictionary overflow: early pages dictionary-encoded, later pages PLAIN
     mixed = str(tmp_path / "mixed.parquet")

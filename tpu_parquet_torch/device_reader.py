@@ -18,14 +18,18 @@ columns.  Per row group:
    run-table combine for dictionary indices and def levels, K2 for
    ``fused_plain``, K3 for ``fused_narrow_snappy``)
    and the tensor code of ``torch_kernels`` (the snappy resolve of the
-   staged chains, gathers, widening);
-5. the output is one :class:`DeviceColumnData` per column.
+   staged chains, gathers, widening, the delta reconstruction, the
+   byte-array heap compaction);
+5. the output is one :class:`DeviceColumnData` per column, or a
+   :class:`DeviceDictColumn` (indices + the ragged dictionary) for a
+   dictionary-encoded BYTE_ARRAY column.
 
 The slice: flat columns (REQUIRED or OPTIONAL, no repetition) of physical
-type INT32, INT64, FLOAT and DOUBLE; PLAIN and RLE_DICTIONARY /
-PLAIN_DICTIONARY pages; UNCOMPRESSED, SNAPPY and GZIP; data pages v1 and v2;
-page CRCs.  Anything else raises ``NotImplementedError`` naming the slice —
-there is no host-decode fallback.
+type INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY; PLAIN and RLE_DICTIONARY /
+PLAIN_DICTIONARY pages, and DELTA_BINARY_PACKED pages of INT32/INT64;
+UNCOMPRESSED, SNAPPY and GZIP; data pages v1 and v2; page CRCs.  Anything
+else raises ``NotImplementedError`` naming the slice — there is no
+host-decode fallback.
 
 Nothing on the decode path waits for the device: the dictionary-index range
 check runs on the host (``_check_dict_range``).  Only when the native run
@@ -47,6 +51,7 @@ import torch
 from . import native
 from . import torch_kernels as K
 from .chunk_decode import _check_crc, validate_chunk_meta, walk_pages
+from .column import ByteArrayData
 from .compress import decompress_block
 from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
                            SNAPPY_OPS_BYTES, bp_groups_pad, fused_count_pad,
@@ -55,6 +60,7 @@ from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
 from .footer import ParquetError, read_file_metadata
 from .format import CompressionCodec, Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack
+from .kernels.delta import _read_uvarint
 from .schema.core import Schema, SchemaNode
 from .ship import (
     ChunkFacts, FUSED_ROUTES, ROUTE_DEVICE_SNAPPY, ROUTE_FUSED_NARROW_SNAPPY,
@@ -64,13 +70,14 @@ from .ship import (
 from .torch_decode import (
     DeviceColumnData, ParsedDataPage, _bucket, _bucket_bytes, _bucket_count,
     _SLACK, _PTYPE_TO_NAME, _hybrid, _hybrid_vw, host_decode_dictionary,
-    parse_data_page, parse_hybrid_meta,
+    parse_data_page, parse_delta_meta, parse_hybrid_meta,
 )
 
-__all__ = ["DeviceFileReader", "ReaderStats"]
+__all__ = ["DeviceDictColumn", "DeviceFileReader", "ReaderStats"]
 
-SLICE = ("flat INT32/INT64/FLOAT/DOUBLE columns with PLAIN or dictionary "
-         "pages (the tpu_parquet_torch flat-column slice)")
+SLICE = ("flat INT32/INT64/FLOAT/DOUBLE/BYTE_ARRAY columns with PLAIN, "
+         "dictionary or DELTA_BINARY_PACKED pages (the tpu_parquet_torch "
+         "flat-column slice)")
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -143,6 +150,57 @@ def _int_stats_span(statistics, leaf) -> "tuple[int, int] | None":
     if lo_v > hi_v:
         return None
     return lo_v, hi_v
+
+
+@dataclass
+class DeviceDictColumn(DeviceColumnData):
+    """A dictionary-encoded BYTE_ARRAY column on the device: the values stay
+    as (dictionary, indices), like an Arrow DictionaryArray, because the
+    size of the gathered heap depends on the data.
+
+    ``indices`` ``int32`` holding the ``uint32`` index bits (bucket-padded;
+    the tail is zero); ``dict_offsets`` ``int64`` and ``dict_heap``
+    ``uint8``, both padded past the dictionary's real rows (no valid index
+    reads the padding).  ``materialize()`` and ``to_host()`` gather on the
+    host with ``ByteArrayData.take``, as the reference's do."""
+
+    indices: Optional[torch.Tensor] = None
+    dict_offsets: Optional[torch.Tensor] = None
+    dict_heap: Optional[torch.Tensor] = None
+
+    @property
+    def num_values(self) -> int:
+        if self.n_values is not None:
+            return self.n_values
+        return int(self.indices.shape[0]) if self.indices is not None else 0
+
+    def validity(self) -> torch.Tensor:
+        if self.def_levels is None:
+            return torch.ones(self.num_leaf_slots, dtype=torch.bool,
+                              device=self.indices.device)
+        return super().validity()
+
+    def _take(self) -> ByteArrayData:
+        # the padded tables, as the reference's take reads them
+        idx = (self.indices[: self.num_values].to(torch.int64)
+               & 0xFFFFFFFF).cpu().numpy()
+        return ByteArrayData(offsets=self.dict_offsets.cpu().numpy(),
+                             heap=self.dict_heap.cpu().numpy()).take(idx)
+
+    def materialize(self) -> DeviceColumnData:
+        """The gathered ragged column, back on the indices' device."""
+        host = self._take()
+        dev = self.indices.device
+        return DeviceColumnData(
+            offsets=torch.from_numpy(host.offsets).to(dev),
+            heap=torch.from_numpy(host.heap).to(dev),
+            def_levels=self.def_levels, rep_levels=self.rep_levels,
+            max_def=self.max_def, max_rep=self.max_rep,
+            num_leaf_slots=self.num_leaf_slots,
+        )
+
+    def to_host(self) -> ByteArrayData:
+        return self._take()
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +440,158 @@ def _snappy_gather_staged(buf, tbase: int, *, n_ops: int, out_pad: int,
                                iters=iters)
     idx = torch.arange(nbytes, dtype=torch.int32, device=buf.device)
     return _clamped(buf, _clamped(S, idx))
+
+
+# ---------------------------------------------------------------------------
+# DELTA_BINARY_PACKED pages
+# ---------------------------------------------------------------------------
+
+def _delta_pages_staged(buf, tbase: int, *, values_per_mini: int, mb: int,
+                        count: int, bits: int, max_width: int, total: int,
+                        n_pages: int, n_real: int, m_max: int):
+    """Decode a chunk's DELTA pages from COMPACT tables staged at ``tbase``.
+
+    The format carries one min delta and one payload position per BLOCK of
+    ``mb`` miniblocks, and a block's miniblock payloads are contiguous, so
+    the tables hold per-block starts and mins plus one width byte per
+    miniblock (layout: firsts i64[P] | block_starts i32[P, B] | widths
+    u8[P, M] | block_mins i64[P, B] (``uint64`` bits) | page_starts
+    i64[P + 1], B = M / mb).  The per-miniblock starts and mins expand here:
+    a within-block exclusive cumsum of the widths, and a repeat.  Only the
+    ``n_real`` real pages of the ``P`` padded rows are decoded."""
+    P, M = n_pages, m_max
+    B = M // mb
+    o = 0
+    firsts = _tslice(buf, tbase, o, P, torch.int64)
+    o += P * 8
+    bstarts = _tslice(buf, tbase, o, P * B, torch.int32).reshape(P, B)
+    o += P * B * 4
+    widths = _tslice(buf, tbase, o, P * M, torch.uint8).reshape(P, M)
+    o += P * M
+    bmins = _tslice(buf, tbase, o, P * B, torch.int64).reshape(P, B)
+    o += P * B * 8
+    page_starts = _tslice(buf, tbase, o, P + 1, torch.int64)
+    R = n_real
+    w = widths[:R].to(torch.int64)
+    bpm = (w * (values_per_mini // 8)).reshape(R, B, mb)
+    excl = torch.cumsum(bpm, dim=-1) - bpm  # within-block byte offsets
+    # bit starts (miniblocks are byte-aligned)
+    starts = (bstarts[:R].to(torch.int64)[:, :, None] + excl).reshape(R, M) * 8
+    mins = torch.repeat_interleave(bmins[:R], mb, dim=1)
+    return _delta_pages(buf, firsts[:R], starts, w, mins, page_starts,
+                        values_per_mini=values_per_mini, count=count,
+                        bits=bits, max_width=max_width, total=total)
+
+
+def _delta_pages(buf, firsts, starts, widths, mins, page_starts, *,
+                 values_per_mini: int, count: int, bits: int, max_width: int,
+                 total: int):
+    """Decode R delta pages in one batched expression ([R, count], the
+    reference's ``vmap``) and flatten them to the real per-page extents:
+    ``page_starts`` holds the cumulative defined counts (the last real entry
+    is the real total).  Lanes past the real total are garbage that callers
+    slice off by ``n_values``."""
+    vals = K.delta_reconstruct(buf, firsts, starts, widths, mins,
+                               values_per_mini, count, bits, max_width)
+    i = torch.arange(total, dtype=torch.int64, device=buf.device)
+    p = torch.searchsorted(page_starts, i, right=True) - 1
+    p = torch.clamp(p, 0, vals.shape[0] - 1)
+    within = torch.clamp(i - page_starts[p], 0, count - 1)
+    return vals[p, within]
+
+
+# ---------------------------------------------------------------------------
+# BYTE_ARRAY value streams: lengths -> offsets -> heap compaction
+# ---------------------------------------------------------------------------
+
+def _bytes_heap_src(buf, lens_base: int, page_base, page_val_start, *,
+                    count_pad: int, heap_pad: int):
+    """Shared front half of the BYTE_ARRAY routes: the staged ``uint32``
+    lengths -> offsets, and each heap byte's source position in PAGE-STREAM
+    coordinates:
+
+      offsets  = cumsum(lens)                               (int64[count+1])
+      value r of heap byte j by a scatter of value ends + cumsum
+      src[j]   = page_base[p] + (data bytes before r in its page)
+                 + 4 * (prefixes up to and including r) + (byte j within r)
+
+    which is ``page_base[p] - offsets[first value of p] + 4 * (r - first +
+    1) + j``: a per-value constant plus ``j``, so each heap byte costs one
+    gather.  ``page_base`` is in staged-buffer coordinates on the plain
+    route and in OUTPUT-SPACE coordinates on the compressed routes (the
+    caller picks the last indirection).  Gathers are clamped where the
+    reference clamps.  Returns (offsets, src)."""
+    dev = buf.device
+    lens = buf[lens_base : lens_base + count_pad * 4].view(torch.int32)
+    offsets = torch.cat([
+        torch.zeros(1, dtype=torch.int64, device=dev),
+        torch.cumsum(lens.to(torch.int64) & 0xFFFFFFFF, 0)])
+    ends = torch.clamp(offsets[1:], 0, heap_pad)
+    # several values end on one byte when lengths are zero: an add, not a set
+    marks = torch.zeros(heap_pad + 1, dtype=torch.int32, device=dev)
+    marks.index_add_(0, ends, torch.ones(count_pad, dtype=torch.int32,
+                                         device=dev))
+    r = torch.cumsum(marks[:heap_pad], 0).clamp_(0, count_pad - 1)
+    del marks
+    v = torch.arange(count_pad, dtype=torch.int64, device=dev)
+    pvs_all = page_val_start.to(torch.int64)
+    p = torch.searchsorted(pvs_all, v, right=True) - 1
+    p = torch.clamp(p, 0, page_base.shape[0] - 1)
+    pvs = pvs_all[p]
+    per_value = page_base[p] - offsets[pvs] + 4 * (v - pvs + 1)
+    src = per_value[r]
+    del r
+    src += torch.arange(heap_pad, dtype=torch.int64, device=dev)
+    return offsets, src
+
+
+def _plain_bytes_pages(buf, lens_base: int, page_byte_base, page_val_start,
+                       *, count_pad: int, heap_pad: int):
+    """PLAIN BYTE_ARRAY decode on the device: lengths -> offsets -> heap.
+
+    The host walked only the ``u32`` length prefixes (native
+    ``bytearray_lengths``, no copies) and staged the RAW value streams plus
+    the lengths (zero past the real count, so pad values are empty); here
+    the offsets are one cumsum and the heap compaction one gather
+    (:func:`_bytes_heap_src`).  ``page_val_start`` int32[P+1] cumulative
+    value counts, ``page_byte_base`` int64[P] each page stream's staged
+    base.  Returns (offsets int64[count_pad+1], heap uint8[heap_pad]);
+    callers slice by the real counts."""
+    offsets, src = _bytes_heap_src(
+        buf, lens_base, page_byte_base, page_val_start,
+        count_pad=count_pad, heap_pad=heap_pad)
+    return offsets, buf[src.clamp_(0, buf.shape[0] - 1)]
+
+
+def _plain_bytes_staged(buf, lens_base: int, tbase: int, *, count_pad: int,
+                        heap_pad: int, n_pages: int):
+    """:func:`_plain_bytes_pages` with the page tables read from the staged
+    buffer (layout: page_byte_base i64[P] | page_val_start i32[P+1])."""
+    page_byte_base = _tslice(buf, tbase, 0, n_pages, torch.int64)
+    page_val_start = _tslice(buf, tbase, n_pages * 8, n_pages + 1,
+                             torch.int32)
+    return _plain_bytes_pages(buf, lens_base, page_byte_base, page_val_start,
+                              count_pad=count_pad, heap_pad=heap_pad)
+
+
+def _snappy_bytes_staged(buf, lens_base: int, tbase: int, *, count_pad: int,
+                         heap_pad: int, n_ops: int, out_pad: int, iters: int,
+                         n_pages: int):
+    """BYTE_ARRAY heap compaction with the value streams shipped COMPRESSED
+    (``device_snappy`` / ``recompress``): as :func:`_plain_bytes_pages`,
+    except that each heap byte's page-stream position is an OUTPUT-SPACE
+    coordinate resolved through the snappy source map — one more gather.
+
+    Layout at ``tbase``: op tables (``SNAPPY_OPS_BYTES * n_ops``) |
+    page_out_base i64[P] | page_val_start i32[P+1]."""
+    S = _resolve_snappy_staged(buf, tbase, n_ops=n_ops, out_pad=out_pad,
+                               iters=iters)
+    o = SNAPPY_OPS_BYTES * n_ops
+    page_out = _tslice(buf, tbase, o, n_pages, torch.int64)
+    pvs = _tslice(buf, tbase, o + 8 * n_pages, n_pages + 1, torch.int32)
+    offsets, src = _bytes_heap_src(buf, lens_base, page_out, pvs,
+                                   count_pad=count_pad, heap_pad=heap_pad)
+    return offsets, _clamped(buf, S[src.clamp_(0, out_pad - 1)])
 
 
 # ---------------------------------------------------------------------------
@@ -731,6 +941,7 @@ class _ChunkAssembler:
         self.pages: list[ParsedDataPage] = []
         self.dict_u8: Optional[np.ndarray] = None
         self.dict_dtype: Optional[str] = None
+        self.dict_ragged: Optional[ByteArrayData] = None
         self.dict_len = 0
         self._deferred = deferred_checks  # (device max, dict_len, path)
         # the dictionary page's snappy payload: (payload, ulen)
@@ -742,6 +953,8 @@ class _ChunkAssembler:
         # is memoized as None so no plan function repeats it
         self._ship: dict = {}
         self._dict_ship: "tuple | None" = None  # (route, payload, out_len)
+        # PLAIN BYTE_ARRAY length walk from preship: (lens_l, span_l)
+        self._bytes_walk: "tuple | None" = None
         # pages whose compressed payload shipped (device-side expansion)
         self.pages_kept_compressed = 0
         # fused routes that degraded to their unfused twin (kernel caps,
@@ -752,13 +965,27 @@ class _ChunkAssembler:
     def _record_ship(self, route: str, logical: int, shipped: int) -> None:
         self.ship_records.append((route, int(logical), int(shipped)))
 
+    def _route_enabled(self, route: str) -> bool:
+        """Whether the planner ranked ``route`` ahead of the plain tail
+        (True when preship planned nothing)."""
+        if self._ship_pref is None:
+            return True
+        for r in self._ship_pref:
+            if r == route:
+                return True
+            if r == ROUTE_PLAIN:
+                return False
+        return False
+
     # -- dictionary ----------------------------------------------------------
 
     def set_dictionary(self, raw: bytes, encoding: int, count: int) -> None:
         decoded = host_decode_dictionary(raw, self.leaf, encoding, count)
-        if not isinstance(decoded, tuple):
-            raise _out_of_slice("byte-array dictionary")
-        self.dict_u8, self.dict_dtype, self.dict_len = decoded
+        if isinstance(decoded, ByteArrayData):
+            self.dict_ragged = decoded
+            self.dict_len = len(decoded)
+        else:
+            self.dict_u8, self.dict_dtype, self.dict_len = decoded
 
     # -- ship planning (host half; see ship.py) -------------------------------
 
@@ -846,7 +1073,10 @@ class _ChunkAssembler:
             return
         if {parse_encoding(p.encoding) for p in self.pages} != {Encoding.PLAIN}:
             return
-        self._preship_fixed(planner)
+        if self.leaf.physical_type == Type.BYTE_ARRAY:
+            self._preship_bytes(planner)
+        else:
+            self._preship_fixed(planner)
 
     def _preship_fixed(self, planner: ShipPlanner) -> None:
         leaf = self.leaf
@@ -905,15 +1135,69 @@ class _ChunkAssembler:
             if route in (ROUTE_PLAIN, ROUTE_FUSED_PLAIN):
                 return  # no host artifacts to prepare for either
 
+    def _preship_bytes(self, planner: ShipPlanner) -> None:
+        """PLAIN BYTE_ARRAY: walk the length prefixes (native, no copies),
+        rank the routes on the walked span, and snappy-compress the spans
+        when ``recompress`` leads.  Returns without a plan when a walk
+        fails: ``finish`` walks again and raises (or takes the host path)
+        with the diagnostics."""
+        if not native.available():
+            return
+        lens_l, span_l = [], []
+        for p in self.pages:
+            p.peek()
+            res = native.bytearray_lengths(p.raw, p.defined, pos=p.value_pos)
+            if res is None or isinstance(res, int):
+                return
+            lens, end = res
+            lens_l.append(lens)
+            span_l.append(end - p.value_pos)
+        self._bytes_walk = (lens_l, span_l)
+        logical = sum(span_l)
+        comp_bytes = sum(len(p.comp[0]) for p in self.pages
+                         if p.comp is not None)
+        facts = ChunkFacts(logical=logical, width=0, comp_bytes=comp_bytes,
+                           native=True)
+        self._ship_pref = planner.routes(facts)
+        for route in self._ship_pref:
+            if route == ROUTE_DEVICE_SNAPPY:
+                if comp_bytes:
+                    return  # planned at finish
+                continue
+            if route == ROUTE_RECOMPRESS:
+                if comp_bytes or logical == 0:
+                    continue
+                payloads = self._recompress_streams(
+                    [(p.raw, p.value_pos, s)
+                     for p, s in zip(self.pages, span_l)])
+                # a failure is memoized (None): finish does not compress
+                # again
+                self._ship["recompress_bytes"] = payloads
+                if payloads is None:
+                    continue
+                return
+            if route == ROUTE_PLAIN:
+                return
+
     def _preship_dict(self, planner: ShipPlanner) -> None:
         """Dictionary VALUE TABLE shipping: a fixed-width dictionary whose
         snappy page payload is exactly the rows keeps that payload;
-        otherwise the table may recompress.  Only the link bytes change."""
-        if self.dict_len == 0 or self.dict_u8 is None:
+        otherwise the table (for a ragged dictionary, its heap) may
+        recompress.  Only the link bytes change."""
+        if self.dict_len == 0:
             return
-        nbytes = self.dict_u8.nbytes
+        if self.dict_u8 is not None:
+            src = self.dict_u8
+        elif self.dict_ragged is not None:
+            src = self.dict_ragged.heap
+        else:
+            return
+        nbytes = src.nbytes
+        # the snappy page payload covers the rows only for fixed-width
+        # dictionaries (a ragged payload interleaves u32 length prefixes)
         comp0 = None
-        if self.dict_comp is not None and self.dict_comp[1] >= nbytes:
+        if (self.dict_u8 is not None and self.dict_comp is not None
+                and self.dict_comp[1] >= nbytes):
             comp0 = self.dict_comp
         facts = ChunkFacts(
             logical=nbytes, width=0,
@@ -926,11 +1210,12 @@ class _ChunkAssembler:
                 self._dict_ship = (route, comp0[0], comp0[1])
                 return
             if route == ROUTE_RECOMPRESS and comp0 is None:
-                # as in the reference, the 2-D table goes to snappy_compress,
-                # which takes len() — the row count — as its byte count; the
-                # payload then fails the tag walk at finish and the table
-                # ships plain, unrecorded (kept for route parity; ROADMAP)
-                comp = self._try_snappy(np.ascontiguousarray(self.dict_u8))
+                # as in the reference, a fixed-width table goes to
+                # snappy_compress 2-D, which takes len() — the row count —
+                # as its byte count; the payload then fails the tag walk at
+                # finish and the table ships plain, unrecorded (kept for
+                # route parity; ROADMAP)
+                comp = self._try_snappy(np.ascontiguousarray(src))
                 if comp is None:
                     continue
                 self._dict_ship = (route, comp, nbytes)
@@ -950,8 +1235,8 @@ class _ChunkAssembler:
             Encoding.RLE_DICTIONARY if e == Encoding.PLAIN_DICTIONARY else e
             for e in encs
         }
-        # lazily-compressed pages are consumed only by the PLAIN fixed-width
-        # routes; every other path gets host bytes
+        # lazily-compressed pages are consumed only by the PLAIN routes
+        # (fixed-width and BYTE_ARRAY); every other path gets host bytes
         if encs != {Encoding.PLAIN}:
             for p in self.pages:
                 p.materialize()
@@ -971,8 +1256,12 @@ class _ChunkAssembler:
         )
         if encs == {Encoding.RLE_DICTIONARY}:
             value_plan = self._finish_dict(common, stager)
+        elif encs == {Encoding.PLAIN} and leaf.physical_type == Type.BYTE_ARRAY:
+            value_plan = self._finish_plain_bytes(common, stager)
         elif encs == {Encoding.PLAIN}:
             value_plan = self._finish_plain_fixed(common, stager)
+        elif encs == {Encoding.DELTA_BINARY_PACKED}:
+            value_plan = self._finish_delta(common, stager)
         else:
             names = sorted(e.name for e in encs)
             raise _out_of_slice(
@@ -1324,6 +1613,165 @@ class _ChunkAssembler:
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
         )
 
+    def _finish_plain_bytes(self, common, stager):
+        """PLAIN BYTE_ARRAY chunk: the host walks only the length prefixes
+        (native, no copies); the value streams and the lengths are staged,
+        and the offsets and the heap compaction run on the device.
+
+        The streams ship by the planner's route (``ship.py``): the file's own
+        snappy payloads (``device_snappy``), a host snappy recompression of
+        the walked spans (``recompress``, prepared by preship), or the raw
+        spans (``plain``).  Without the native length walk, the chunk takes
+        :meth:`_finish_plain_bytes_host`."""
+        if self._bytes_walk is not None:
+            lens_l, span_l = self._bytes_walk
+        else:
+            lens_l, span_l = [], []
+            for p in self.pages:
+                # whole page buffer + offset: no host copy of the stream
+                p.peek()
+                res = native.bytearray_lengths(p.raw, p.defined,
+                                               pos=p.value_pos)
+                if res is None:
+                    return self._finish_plain_bytes_host(common, stager)
+                if isinstance(res, int):
+                    if res == -20:
+                        raise ParquetError(
+                            "byte array: truncated length prefix")
+                    raise ParquetError("byte array: length exceeds buffer")
+                lens, end = res
+                lens_l.append(lens)
+                span_l.append(end - p.value_pos)
+        n = sum(p.defined for p in self.pages)
+        logical = sum(span_l)
+        count_pad = _bucket_count(n)
+        lens_all = (np.concatenate(lens_l) if lens_l
+                    else np.zeros(0, np.uint32))
+        total_heap = int(lens_all.astype(np.int64).sum())
+        heap_pad = _bucket_bytes(max(total_heap, 1), 64)
+        n_pages = _bucket(len(self.pages))
+        pvs = np.full(n_pages + 1, n, dtype=np.int32)
+        pvs[0] = 0
+        np.cumsum([p.defined for p in self.pages],
+                  out=pvs[1 : len(self.pages) + 1])
+
+        def build(res):
+            offsets, heap = res
+            return DeviceColumnData(offsets=offsets, heap=heap, n_values=n,
+                                    **common)
+
+        plan = self._plan_snappy_bytes(
+            stager, span_l, pvs, count_pad, heap_pad, n_pages, lens_all,
+            logical, build)
+        if plan is not None:
+            return plan
+        # plain route: stage exactly the walked stream spans, back to back
+        for p in self.pages:
+            p.materialize()
+        bases = stager.add_segments([
+            (p.raw, p.value_pos, c) for p, c in zip(self.pages, span_l)
+        ])
+        # zero-filled reserve: pad values past n must read length 0
+        lens_base = stager.add(lens_all, reserve=count_pad * 4)
+        page_base = np.zeros(n_pages, dtype=np.int64)
+        page_base[: len(bases)] = bases
+        tbase = _pack_tables(stager, [page_base, pvs])
+        self._record_ship(ROUTE_PLAIN, logical, logical)
+        return _Plan(
+            lambda buf, lb_d, tb_d: _plain_bytes_staged(
+                buf, lb_d, tb_d, count_pad=count_pad, heap_pad=heap_pad,
+                n_pages=n_pages),
+            (lens_base, tbase), build)
+
+    def _plan_snappy_bytes(self, stager, span_l, pvs, count_pad, heap_pad,
+                           n_pages, lens_all, logical, build):
+        """The compressed half of :meth:`_finish_plain_bytes`: op tables for
+        whichever compressed payloads exist (the file's own, or preship's
+        recompression) and the staged chain over them.  Returns None when
+        no compressed route applies or planning falls through — the caller
+        stages the raw spans."""
+        route = specs = None
+        if (any(p.comp is not None for p in self.pages)
+                and self._route_enabled(ROUTE_DEVICE_SNAPPY)):
+            comp_total = sum(len(p.comp[0]) for p in self.pages
+                             if p.comp is not None)
+            # ratio ~1: the op tables + resolve buy nothing — ship raw
+            if comp_total <= SNAPPY_WORTH_RATIO * max(logical, 1):
+                route = ROUTE_DEVICE_SNAPPY
+                specs = [
+                    ("comp", p.comp[0], p.comp[2], None)
+                    if p.comp is not None
+                    else ("raw", p.raw, p.value_pos, span)
+                    for p, span in zip(self.pages, span_l)
+                ]
+        elif self._ship.get("recompress_bytes") is not None:
+            route = ROUTE_RECOMPRESS
+            specs = [("comp", c, span, None)
+                     for c, span in zip(self._ship["recompress_bytes"],
+                                        span_l)]
+        if specs is None:
+            return None
+        out_lens = [s[2] if s[0] == "comp" else s[3] for s in specs]
+        page_out = np.zeros(n_pages, dtype=np.int64)
+        page_out[: len(specs)] = np.concatenate(
+            [[0], np.cumsum(out_lens)[:-1]])
+        info = _plan_snappy_ops(stager, specs, extra_tables=[page_out, pvs])
+        if info is None:
+            return None
+        # zero-filled reserve: pad values past n must read length 0
+        lens_base = stager.add(lens_all, reserve=count_pad * 4)
+        self.pages_kept_compressed = len([1 for s in specs if s[0] == "comp"])
+        self._record_ship(route, logical, info.shipped)
+        n_ops, out_pad, iters = info.n_ops, info.out_pad, info.iters
+        return _Plan(
+            lambda buf, lb_d, tb_d: _snappy_bytes_staged(
+                buf, lb_d, tb_d, count_pad=count_pad, heap_pad=heap_pad,
+                n_ops=n_ops, out_pad=out_pad, iters=iters, n_pages=n_pages),
+            (lens_base, info.tbase), build)
+
+    def _finish_plain_bytes_host(self, common, stager):
+        """PLAIN BYTE_ARRAY without the native length walk: the host
+        decodes each page (``kernels.plain``), the merged offsets and heap
+        ride the row group's buffer, and the device only slices them."""
+        from .kernels import plain as plain_host
+
+        offs_parts, heap_parts = [], []
+        for p in self.pages:
+            # host bytes even for a page a lazy route kept compressed
+            raw = p.materialize()
+            ba = plain_host.decode_byte_array(raw[p.value_pos :], p.defined)
+            offs_parts.append(ba.offsets)
+            heap_parts.append(ba.heap)
+        n = sum(len(o) - 1 for o in offs_parts)
+        offsets = np.empty(n + 1, dtype=np.int64)
+        offsets[0] = 0
+        pos = hbase = 0
+        for o, h in zip(offs_parts, heap_parts):
+            k = len(o) - 1
+            offsets[pos + 1 : pos + 1 + k] = o[1:] + hbase
+            pos += k
+            hbase += h.nbytes
+        heap = (np.concatenate(heap_parts) if len(heap_parts) > 1
+                else heap_parts[0])
+        heap_room = _bucket_bytes(max(heap.nbytes, 1), 64)
+        heap_base = stager.add(heap, reserve=heap_room)
+        off_base = stager.add(offsets)
+        n_off = _bucket_count(n + 1)
+        stager.note_read_extent(off_base, n_off * 8)
+
+        def fn(buf, off_d, heap_d):
+            # bucketed offset count (tail garbage past n + 1) and heap room
+            # (zero padding past offsets[n]), both trimmed by to_host
+            return (_plain(buf, off_d, dtype="int64", count=n_off),
+                    buf[heap_d : heap_d + heap_room].clone())
+
+        def build(res):
+            offsets_d, heap_d = res
+            return DeviceColumnData(offsets=offsets_d, heap=heap_d,
+                                    n_values=n, **common)
+
+        return _Plan(fn, (off_base, heap_base), build)
+
     def _parse_dict_index_page(self, p, host_max):
         """Parse one RLE_DICTIONARY page's index stream; folds the host-side
         max (None = unknown, defer the check to the device).
@@ -1370,8 +1818,10 @@ class _ChunkAssembler:
         """Dictionary-encoded chunk: the index stream through the fused K1
         (unpack + run-table combine; one uniform index width), or the
         run-table expand (per-page widths, or too many runs); then a
-        dictionary gather on the device."""
-        if self.dict_u8 is None:
+        dictionary gather on the device (fixed-width), or the indices and
+        the ragged dictionary kept as a :class:`DeviceDictColumn`
+        (BYTE_ARRAY)."""
+        if self.dict_u8 is None and self.dict_ragged is None:
             raise ParquetError("dictionary-encoded page but no dictionary page seen")
         parsed = []  # (page, stream, meta)
         page_widths = []
@@ -1434,6 +1884,9 @@ class _ChunkAssembler:
         # maxima at finalize); tail lanes are zeroed, so the max reflects
         # only real indices
         need_max = bool(prefix) and host_max is None
+        if self.dict_ragged is not None:
+            return self._finish_dict_ragged(common, stager, idx_fn, idx_dyn,
+                                            prefix, need_max)
         name = self.dict_dtype
         if name not in _TORCH_DTYPES:
             raise _out_of_slice(f"dictionary of {name} values")
@@ -1485,6 +1938,143 @@ class _ChunkAssembler:
 
         return _Plan(fn, tuple(idx_dyn) + (table_dyn,), build)
 
+    def _finish_dict_ragged(self, common, stager, idx_fn, idx_dyn,
+                            prefix: int, need_max: bool):
+        """The ragged (string) dictionary rides the row group's buffer: its
+        offsets plain (tiny), its heap plain or, when preship recompressed
+        it, resolved on the device through the snappy source map.  Bytes
+        past the real heap are padding or resolve through padded ops —
+        garbage that no valid index reads."""
+        roff = np.ascontiguousarray(self.dict_ragged.offsets, dtype=np.int64)
+        roff_n = _bucket_count(len(roff))
+        roff_base = stager.add(roff, reserve=roff_n * 8)
+        rheap = np.ascontiguousarray(self.dict_ragged.heap)
+        rheap_room = _bucket_bytes(max(rheap.nbytes, 1), 64)
+        heap_fn = None
+        ship = self._dict_ship  # (route, payload, out_len) or None: ship.py
+        if ship is not None:
+            info = _plan_snappy_ops(stager, [("comp", ship[1], ship[2], None)])
+            if info is not None:
+                self._record_ship(ship[0], rheap.nbytes, info.shipped)
+                heap_dyn = info.tbase
+
+                def heap_fn(buf, hb):
+                    return _snappy_gather_staged(
+                        buf, hb, n_ops=info.n_ops, out_pad=info.out_pad,
+                        iters=info.iters, nbytes=rheap_room)
+        if heap_fn is None:
+            heap_dyn = stager.add(rheap, reserve=rheap_room)
+
+            def heap_fn(buf, hb):
+                return buf[hb : hb + rheap_room].clone()
+        n_idx = len(idx_dyn)
+        deferred = self._deferred
+        dict_len = self.dict_len
+        path_name = ".".join(self.leaf.path)
+
+        def fn(buf, *d):
+            idx = idx_fn(buf, *d[:n_idx])
+            doff = _plain(buf, d[n_idx], dtype="int64", count=roff_n)
+            dheap = heap_fn(buf, d[n_idx + 1])
+            mx = (idx.to(torch.int64) & 0xFFFFFFFF).max() if need_max else None
+            return idx, doff, dheap, mx
+
+        def build(res):
+            idx, doff, dheap, mx = res
+            if mx is not None:
+                deferred.append((mx, dict_len, path_name))
+            return DeviceDictColumn(indices=idx, dict_offsets=doff,
+                                    dict_heap=dheap, n_values=prefix,
+                                    **common)
+
+        return _Plan(fn, tuple(idx_dyn) + (roff_base, heap_dyn), build)
+
+    def _delta_host_only(self, what: str) -> NotImplementedError:
+        """A DELTA chunk the reference decodes page by page on the host
+        (its ``_finish_host``; the host decode path is not in the slice)."""
+        return _out_of_slice(
+            f"column {'.'.join(self.leaf.path)}: DELTA_BINARY_PACKED pages "
+            f"with {what} take the reference's host decode path")
+
+    def _finish_delta(self, common, stager):
+        """DELTA_BINARY_PACKED chunk: the host walks the block headers only;
+        the page payloads and compact per-block tables are staged, and the
+        device extracts, offsets and prefix-sums the deltas of every page in
+        one batched pass (:func:`_delta_pages_staged`)."""
+        ptype = self.leaf.physical_type
+        if ptype not in (Type.INT32, Type.INT64):
+            raise ParquetError(f"DELTA_BINARY_PACKED invalid for {ptype!r}")
+        bits = 32 if ptype == Type.INT32 else 64
+        metas = []
+        for p in self.pages:
+            m = parse_delta_meta(p.raw[p.value_pos :], bits)
+            if m.count < p.defined:
+                raise ParquetError(
+                    f"delta stream yielded {m.count} of {p.defined} values"
+                )
+            metas.append(m)
+        if any(m.values_per_mini != metas[0].values_per_mini for m in metas):
+            raise self._delta_host_only("block geometry differing by page")
+        # miniblocks per block from the streams' own header varints
+        mbs = set()
+        for p in self.pages:
+            _, p2 = _read_uvarint(p.raw, p.value_pos)
+            mpb, _ = _read_uvarint(p.raw, p2)
+            mbs.add(mpb)
+        if len(mbs) != 1:
+            raise self._delta_host_only("miniblock counts differing by page")
+        mb = mbs.pop()
+        if any((m.mini_bit_starts & 7).any() for m in metas):
+            # miniblocks are byte-aligned by construction
+            raise self._delta_host_only("a miniblock off a byte boundary")
+        if (stager.total + sum(len(p.raw) - p.value_pos for p in self.pages)
+                > _I32_MAX):
+            # block byte starts are staged as int32, as in the reference
+            raise self._delta_host_only("staged offsets past int32")
+        bases = stager.add_segments([
+            (p.raw, p.value_pos, len(p.raw) - p.value_pos)
+            for p in self.pages])
+        # every shape bucketed; the real geometry rides the staged tables
+        n_pages = _bucket(len(metas))
+        count = _bucket_count(max(m.count for m in metas))
+        m_max = _bucket(max(m.mini_bit_starts.shape[0] for m in metas))
+        m_max = -(-m_max // mb) * mb  # a multiple of mb for the block reshape
+        n_blocks = m_max // mb
+        bstarts = np.zeros((n_pages, n_blocks), dtype=np.int32)
+        widths = np.zeros((n_pages, m_max), dtype=np.uint8)
+        bmins = np.zeros((n_pages, n_blocks), dtype=np.uint64)
+        firsts = np.zeros(n_pages, dtype=np.int64)
+        for i, (m, base) in enumerate(zip(metas, bases)):
+            kk = m.mini_bit_starts.shape[0]
+            kb = -(-kk // mb)
+            bs = (m.mini_bit_starts[::mb] >> 3) + base
+            bstarts[i, :kb] = bs
+            bstarts[i, kb:] = bs[-1] if kb else 0
+            widths[i, :kk] = m.mini_widths
+            bmins[i, :kb] = m.mini_min_delta[::mb]
+            firsts[i] = m.first_value
+        total_real = sum(p.defined for p in self.pages)
+        page_starts = np.full(n_pages + 1, total_real, dtype=np.int64)
+        page_starts[0] = 0
+        np.cumsum([p.defined for p in self.pages],
+                  out=page_starts[1 : len(metas) + 1])
+        max_width = max(1, int(widths.max(initial=0)))
+        max_width = min((max_width + 7) // 8 * 8, 64)  # byte-rounded
+        tbase = _pack_tables(stager, [firsts, bstarts, widths, bmins,
+                                      page_starts])
+        vpm = metas[0].values_per_mini
+        total_b = _bucket_count(total_real)
+        n_real = len(metas)
+        return _Plan(
+            lambda buf, tb_d: _delta_pages_staged(
+                buf, tb_d, values_per_mini=vpm, mb=mb, count=count,
+                bits=bits, max_width=max_width, total=total_b,
+                n_pages=n_pages, n_real=n_real, m_max=m_max),
+            (tbase,),
+            lambda v: DeviceColumnData(values=v, n_values=total_real,
+                                       **common),
+        )
+
 
 def _collect_chunk(buf: bytes, codec: int, total_values: int,
                    leaf: SchemaNode, deferred_checks: list,
@@ -1499,7 +2089,8 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
     # parse_data_page applies the per-page conditions (PLAIN encoding,
     # levels outside the compressed region)
     lazy = (codec == CompressionCodec.SNAPPY
-            and leaf.physical_type in _PTYPE_TO_NAME
+            and (leaf.physical_type in _PTYPE_TO_NAME
+                 or leaf.physical_type == Type.BYTE_ARRAY)
             and native.available())
     for ps in walk_pages(buf, total_values):
         header = ps.header
@@ -1638,7 +2229,8 @@ def _check_leaf(leaf: SchemaNode) -> None:
     path = ".".join(leaf.path)
     if leaf.max_rep > 0:
         raise _out_of_slice(f"repeated column {path}")
-    if leaf.physical_type not in _PTYPE_TO_NAME:
+    if (leaf.physical_type not in _PTYPE_TO_NAME
+            and leaf.physical_type != Type.BYTE_ARRAY):
         raise _out_of_slice(
             f"column {path} of physical type {leaf.physical_type!r}")
 
@@ -1760,8 +2352,9 @@ class DeviceFileReader:
             if not asm.pages:
                 out[name] = DeviceColumnData(
                     values=torch.zeros(
-                        0, dtype=_TORCH_DTYPES[_PTYPE_TO_NAME[
-                            leaf.physical_type]], device=self.device),
+                        0, dtype=_TORCH_DTYPES[_PTYPE_TO_NAME.get(
+                            leaf.physical_type, "int64")],
+                        device=self.device),
                     max_def=leaf.max_def, max_rep=leaf.max_rep,
                     num_leaf_slots=0,
                 )
@@ -1831,7 +2424,10 @@ class DeviceFileReader:
         """Yield fixed-size device batches ``{column: tensor[batch_size]}``.
 
         Rows flow across row-group boundaries; the final short remainder is
-        NOT yielded (drop_remainder semantics).  Null-free columns only."""
+        NOT yielded (drop_remainder semantics).  Fixed-width, null-free
+        columns only: a ragged BYTE_ARRAY column has no fixed row shape and
+        raises ``TypeError``; a string dictionary column is materialized
+        first, and raises too."""
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         want = None if columns is None else set(columns)
@@ -1841,6 +2437,13 @@ class DeviceFileReader:
             for name, col in cols.items():
                 if want is not None and name not in want:
                     continue
+                if isinstance(col, DeviceDictColumn):
+                    col = col.materialize()
+                if col.values is None:
+                    raise TypeError(
+                        f"iter_batches needs fixed-width columns; "
+                        f"{name!r} is ragged (offsets/heap)"
+                    )
                 if col.num_values != col.num_leaf_slots:
                     raise TypeError(
                         f"iter_batches needs null-free columns; {name!r} has "

@@ -28,16 +28,19 @@ from .compress import decompress_block
 from .footer import ParquetError
 from .format import Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack, rle
+from .kernels import delta as delta_host
 from .kernels.rle import RLEError, _read_uvarint
 from .chunk_decode import PageSlice, _check_crc
 from .native import NATIVE_ERRORS as _NATIVE_ERRORS
 from .schema.core import SchemaNode
 
 __all__ = [
+    "DeltaMeta",
     "DeviceColumnData",
     "HybridMeta",
     "ParsedDataPage",
     "parse_hybrid_meta",
+    "parse_delta_meta",
     "parse_data_page",
     "host_decode_dictionary",
 ]
@@ -240,6 +243,49 @@ def _hybrid_vw(buf, run_ends, run_is_rle, run_values, run_bit_starts,
         buf, run_ends, run_is_rle, run_values, run_bit_starts, run_widths,
         max_width, count, n_valid=n_valid,
     )
+
+
+# ---------------------------------------------------------------------------
+# DELTA_BINARY_PACKED: host block-header parse -> device extract + cumsum
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DeltaMeta:
+    first_value: int
+    mini_bit_starts: np.ndarray  # int64[M] (padded: repeat last with width 0)
+    mini_widths: np.ndarray      # int32[M]
+    mini_min_delta: np.ndarray   # uint64[M] per-miniblock (block min repeated)
+    values_per_mini: int
+    count: int
+    consumed: int
+
+
+def _meta_from_headers(hdrs) -> DeltaMeta:
+    """Bucket-pad a ``kernels.delta.parse_headers`` result into a
+    DeltaMeta."""
+    first, starts, widths, mins, values_per_mini, total, consumed = hdrs
+    n = len(starts)
+    mp = _bucket(max(n, 1))
+    bs = np.zeros(mp, dtype=np.int64)
+    ws = np.zeros(mp, dtype=np.int32)
+    md = np.zeros(mp, dtype=np.uint64)
+    if n:
+        bs[:n] = starts
+        ws[:n] = widths
+        md[:n] = mins
+        bs[n:] = starts[-1]
+    return DeltaMeta(first, bs, ws, md, values_per_mini, total, consumed)
+
+
+def parse_delta_meta(buf: bytes, bits: int, pos: int = 0) -> DeltaMeta:
+    """Walk DELTA_BINARY_PACKED headers, recording per-miniblock geometry.
+
+    Only the varint headers and the bit-width byte vectors are read, never
+    the payload (``kernels.delta.parse_headers``: the native walk, or its
+    Python twin).  ``bits`` is kept for the reference's signature: widths up
+    to 64 are accepted even for 32-bit columns (values wrap modulo 2**32).
+    """
+    return _meta_from_headers(delta_host.parse_headers(buf, pos))
 
 
 # ---------------------------------------------------------------------------
@@ -496,14 +542,18 @@ def host_decode_dictionary(raw: bytes, leaf: SchemaNode, encoding: int, count: i
 class DeviceColumnData:
     """Decoded column chunk resident on the reader's device.
 
-    ``values`` is a tensor of the defined values: ``int32``, ``int64``,
-    ``float32`` or ``float64`` (DOUBLE stays ``float64`` on the card; the
-    reference's ``u32[n, 2]`` form is a TPU workaround).  Levels (when
-    present) are ``int32`` tensors holding the reference's ``uint32`` level
-    bits, one per leaf slot.
+    Fixed-width: ``values`` is a tensor of the defined values: ``int32``,
+    ``int64``, ``float32`` or ``float64`` (DOUBLE stays ``float64`` on the
+    card; the reference's ``u32[n, 2]`` form is a TPU workaround).
+    BYTE_ARRAY: ``offsets`` (``int64[n + 1]``) and ``heap`` (``uint8``)
+    hold the ragged form instead.  Levels (when present) are ``int32``
+    tensors holding the reference's ``uint32`` level bits, one per leaf
+    slot.
     """
 
     values: Optional[torch.Tensor] = None
+    offsets: Optional[torch.Tensor] = None
+    heap: Optional[torch.Tensor] = None
     def_levels: Optional[torch.Tensor] = None
     rep_levels: Optional[torch.Tensor] = None
     max_def: int = 0
@@ -525,13 +575,15 @@ class DeviceColumnData:
             return self.n_values
         if self.values is not None:
             return int(self.values.shape[0])
+        if self.offsets is not None:
+            return max(int(self.offsets.shape[0]) - 1, 0)
         return 0
 
     def validity(self) -> torch.Tensor:
         if self.def_levels is None:
-            dev = self.values.device if self.values is not None else None
+            t = self.values if self.values is not None else self.offsets
             return torch.ones(self.num_leaf_slots, dtype=torch.bool,
-                              device=dev)
+                              device=None if t is None else t.device)
         # def_levels may be bucket-padded; tail lanes are zero, so the mask
         # must stop at the real slot count
         return K.levels_to_validity(
@@ -549,8 +601,14 @@ class DeviceColumnData:
 
         return host(self.def_levels), host(self.rep_levels)
 
-    def to_host(self) -> np.ndarray:
+    def to_host(self) -> "ByteArrayData | np.ndarray":
         n = self.num_values
+        if self.offsets is not None:
+            off = self.offsets[: n + 1].cpu().numpy()
+            heap = self.heap.cpu().numpy()
+            if len(off) and heap.nbytes > off[-1]:
+                heap = heap[: off[-1]]  # drop the bucketed staging padding
+            return ByteArrayData(offsets=off, heap=heap)
         if self.values is None:
             return np.zeros(0, dtype=np.int64)
         return self.values[:n].cpu().numpy()

@@ -1,6 +1,6 @@
 """Device decode transforms in plain PyTorch — the tensor half of the decode.
 
-The counterpart of ``tpu_parquet.jax_kernels`` for the fixed-width slices.
+The counterpart of ``tpu_parquet.jax_kernels`` for the port's flat-column slices.
 None of these is a hand-written kernel: they are tensor code, as XLA ran
 their JAX counterparts, and run on whatever device their inputs live on.
 The hand-written CUDA kernels (the Pallas kernels' counterparts) are in
@@ -28,8 +28,10 @@ import torch
 __all__ = [
     "u32_bits",
     "extract_bits",
+    "extract_bits64",
     "expand_rle_hybrid",
     "expand_rle_hybrid_vw",
+    "delta_reconstruct",
     "dict_gather",
     "levels_to_validity",
     "plain_decode_fixed",
@@ -50,33 +52,79 @@ def u32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
-def _extract_bits64(buf: torch.Tensor, bit_pos: torch.Tensor, width,
-                    max_width: int) -> torch.Tensor:
-    """``extract_bits`` as ``int64`` values (the shared body)."""
-    if not 0 <= max_width <= 32:
-        raise ValueError(f"extract_bits supports widths up to 32, "
+def _low_mask(width, cap: int = 64):
+    """All ones in the low ``min(width, cap)`` bits (all 64 bits at 64 and
+    over), as ``int64`` lanes; ``width`` is an int or an integer tensor."""
+    if not isinstance(width, torch.Tensor):
+        w = min(int(width), cap)
+        return -1 if w >= 64 else (1 << w) - 1
+    w = width.to(torch.int64)
+    if cap < 64:
+        return torch.bitwise_left_shift(torch.ones_like(w),
+                                        w.clamp(max=cap)) - 1
+    m = ~torch.bitwise_left_shift(torch.full_like(w, -1), w.clamp(0, 63))
+    return torch.where(w >= 64, torch.full_like(m, -1), m)
+
+
+def _lsr(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Logical right shift of ``int64`` lanes holding ``uint64`` bits by
+    ``s`` in ``[0, 63]`` (torch's ``>>`` on ``int64`` is arithmetic)."""
+    return (x >> s) & _low_mask(64 - s)
+
+
+def extract_bits64(buf: torch.Tensor, bit_pos: torch.Tensor, width,
+                   max_width: int) -> torch.Tensor:
+    """Extract unsigned bit fields of up to 64 bits from an LSB-first byte
+    stream: the reference's ``extract_bits`` at every width.
+
+    ``buf``       uint8[n]
+    ``bit_pos``   integer[count] — starting bit of each field.
+    ``width``     int or per-value tensor — field width in bits (<= max_width).
+    ``max_width`` upper bound on width (0..64); selects the gather footprint
+                  and, as in the reference, one of three regimes: <= 25 bits
+                  (one 32-bit accumulation), <= 57 (one 64-bit accumulation
+                  of up to 8 bytes), 58..64 (8 bytes plus a 9th straggler
+                  byte shifted up by ``64 - shift``).
+
+    Returns ``int64[count]`` holding the reference's result bits: its
+    ``uint32`` values when ``max_width <= 32``, else its ``uint64`` bits
+    (``.numpy().view(np.uint64)`` on the host restores them)."""
+    if not 0 <= max_width <= 64:
+        raise ValueError(f"extract_bits supports widths up to 64, "
                          f"got {max_width}")
     bit_pos = bit_pos.to(torch.int64)
-    byte0 = bit_pos >> 3
     shift = bit_pos & 7
-    nbytes = (max_width + 7 + 7) // 8  # widest field + worst-case 7-bit shift
     n = buf.shape[0]
     # bucketed decode shapes may carry tail positions past the real stream;
     # clamp the gather base (and each byte, which JAX's gather clamps
     # implicitly) so every lane stays in bounds
-    byte0 = torch.clamp(byte0, max=max(n - 9, 0))
+    byte0 = torch.clamp(bit_pos >> 3, max=max(n - 9, 0))
     last = max(n - 1, 0)
+
+    def byte(k):
+        return buf[torch.clamp(byte0 + k, max=last)].to(torch.int64)
+
+    if max_width <= 57:
+        nbytes = (max_width + 7 + 7) // 8  # + worst-case 7-bit shift
+        acc = torch.zeros_like(bit_pos)
+        for k in range(nbytes):
+            acc = acc | (byte(k) << (8 * k))
+        if nbytes < 8:
+            # acc < 2**56: the arithmetic shift is the logical one, and a
+            # mask past 56 bits (past 32: the reference's uint32 result)
+            # clears nothing more
+            cap = 32 if max_width <= 32 else 56
+            return (acc >> shift) & _low_mask(width, cap)
+        return _lsr(acc, shift) & _low_mask(width)
+    mask = _low_mask(width)
     acc = torch.zeros_like(bit_pos)
-    for k in range(nbytes):
-        b = buf[torch.clamp(byte0 + k, max=last)].to(torch.int64)
-        acc = acc | (b << (8 * k))
-    out = acc >> shift
-    if isinstance(width, torch.Tensor):
-        w = width.to(torch.int64).clamp(max=32)
-        mask = torch.bitwise_left_shift(torch.ones_like(w), w) - 1
-    else:
-        mask = (1 << int(width)) - 1 if width < 32 else (1 << 32) - 1
-    return out & mask
+    for k in range(8):
+        acc = acc | (byte(k) << (8 * k))
+    # the field may span 9 bytes: the straggler's bits go above 64 - shift
+    # (nothing when shift == 0, where that shift would be 64)
+    high = torch.bitwise_left_shift(byte(8), (64 - shift).clamp(max=63))
+    high = torch.where(shift > 0, high, torch.zeros_like(high))
+    return (_lsr(acc, shift) | high) & mask
 
 
 def extract_bits(buf: torch.Tensor, bit_pos: torch.Tensor, width,
@@ -89,9 +137,13 @@ def extract_bits(buf: torch.Tensor, bit_pos: torch.Tensor, width,
     ``width``     int or per-value tensor — field width in bits (<= max_width).
     ``max_width`` upper bound on width; selects the gather footprint.
 
-    Returns ``int32[count]`` holding the reference's ``uint32`` bits.
+    Returns ``int32[count]`` holding the reference's ``uint32`` bits (wider
+    fields: :func:`extract_bits64`).
     """
-    return u32_bits(_extract_bits64(buf, bit_pos, width, max_width))
+    if not 0 <= max_width <= 32:
+        raise ValueError(f"extract_bits supports widths up to 32, "
+                         f"got {max_width}; use extract_bits64")
+    return u32_bits(extract_bits64(buf, bit_pos, width, max_width))
 
 
 def _tail_zero(out: torch.Tensor, pos: torch.Tensor, n_valid) -> torch.Tensor:
@@ -124,7 +176,7 @@ def expand_rle_hybrid(buf, run_ends, run_is_rle, run_values, run_bit_starts,
     bit_pos = run_bit_starts[r] + pos * width
     # clamp BP gathers for RLE positions to 0 so they stay in bounds
     bit_pos = torch.where(is_rle, torch.zeros_like(bit_pos), bit_pos)
-    bp_val = _extract_bits64(buf, bit_pos, width, width)
+    bp_val = extract_bits64(buf, bit_pos, width, width)
     out = torch.where(is_rle, rle_val, bp_val)
     return u32_bits(_tail_zero(out, pos, n_valid))
 
@@ -144,9 +196,58 @@ def expand_rle_hybrid_vw(buf, run_ends, run_is_rle, run_values,
     w = run_widths[r].to(torch.int64)
     bit_pos = run_bit_starts[r] + pos * w
     bit_pos = torch.where(is_rle, torch.zeros_like(bit_pos), bit_pos)
-    bp_val = _extract_bits64(buf, bit_pos, w, max_width)
+    bp_val = extract_bits64(buf, bit_pos, w, max_width)
     out = torch.where(is_rle, rle_val, bp_val)
     return u32_bits(_tail_zero(out, pos, n_valid))
+
+
+def delta_reconstruct(buf, first_value, mini_bit_starts, mini_widths,
+                      mini_min_delta, values_per_mini: int, count: int,
+                      bits: int, max_width: "int | None" = None):
+    """Reconstruct DELTA_BINARY_PACKED values from packed miniblock bytes.
+
+    The host walked the block headers (``torch_decode.parse_delta_meta``)
+    into per-miniblock tables: ``mini_bit_starts`` int64[M] bit offset of
+    each miniblock's packed deltas, ``mini_widths`` integer[M] their bit
+    widths (<= 64), ``mini_min_delta`` int64[M] the block's min delta
+    (``uint64`` bits), ``first_value`` the stream's first value.  Every
+    table may carry a leading page axis (``first_value`` [P], tables
+    [P, M]): the pages decode in one batched expression, the reference's
+    ``vmap``.  Per delta: extract its bits, add the min delta, then a
+    cumulative sum seeded with the first value.  ``count`` values per page
+    (the bucketed count; lanes past a page's real count are garbage).
+
+    Arithmetic wraps modulo ``2**bits`` as in the reference's unsigned
+    lanes: ``int64`` sums wrap modulo 2**64, and for ``bits == 32`` the low
+    32 bits are folded back into ``int32`` explicitly.  Returns ``int32``
+    or ``int64`` ``[..., count]``."""
+    first = torch.as_tensor(first_value, dtype=torch.int64,
+                            device=buf.device)
+    batched = first.dim() > 0
+    if not batched:
+        first = first[None]
+        mini_bit_starts, mini_widths, mini_min_delta = (
+            t[None] for t in (mini_bit_starts, mini_widths, mini_min_delta))
+    n_deltas = count - 1
+    if n_deltas <= 0:
+        vals = first[:, None].expand(-1, max(count, 0))
+    else:
+        i = torch.arange(n_deltas, dtype=torch.int64, device=buf.device)
+        # bucketed counts run past the real miniblocks: JAX clamps the
+        # table gathers, so do the same
+        m = torch.clamp(i // values_per_mini, max=mini_widths.shape[-1] - 1)
+        within = i % values_per_mini
+        w = mini_widths[:, m].to(torch.int64)
+        bit_pos = mini_bit_starts[:, m] + within * w
+        mw = bits if max_width is None else max(int(max_width), 1)
+        raw = extract_bits64(buf, bit_pos.reshape(-1), w.reshape(-1),
+                             mw).reshape(w.shape)
+        deltas = raw + mini_min_delta[:, m].to(torch.int64)
+        vals = torch.cat([first[:, None],
+                          first[:, None] + torch.cumsum(deltas, dim=1)], 1)
+    if bits == 32:
+        vals = u32_bits(vals & 0xFFFFFFFF)
+    return vals if batched else vals[0]
 
 
 def dict_gather(dictionary: torch.Tensor, indices: torch.Tensor):
