@@ -56,7 +56,24 @@ Phases:
    ``device_snappy``; ``l_comment``'s pages hold more snappy ops than the
    staged chain takes and ship plain, as in the reference) and forced to
    ``plain``, checked, timed, profiled and cProfile'd;
-8. one JSON line listing every ported kernel, then the result line.
+8. lineitem as pyarrow writes it: the 16 columns of phase 6 in pyarrow's
+   dictionary-on layout (a helper here on the port's encoders: the index
+   width of each page is the bit width of the dictionary size when the
+   page is written; a dictionary over 1 MiB, or 1 KiB for ``l_comment``,
+   falls back to PLAIN pages), SNAPPY, 1 MiB pages.  ``l_orderkey``,
+   ``l_partkey``, ``l_extendedprice`` and ``l_comment`` become
+   dictionary-prefix-then-PLAIN chunks; the fused K1 must take the
+   equal-width page groups of the fixed-width prefixes.  Checked column by
+   column, profiled and cProfile'd;
+9. the value shapes at SF1 from the same draw, with the port's writer
+   (dictionary off, SNAPPY): BOOLEAN PLAIN and RLE, INT96 timestamps,
+   decimal(15,2) in a 7-byte FIXED_LEN_BYTE_ARRAY, DOUBLE
+   BYTE_STREAM_SPLIT, DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY strings;
+   the boolean RLE pages must go through the fused K1; then an INT96
+   column with the dictionary on.  Phases 3, 4, 6, 8 and 9 check a
+   fixed-width dictionary column's ``DeviceDictColumn``: its device
+   ``materialize()`` against its ``to_host()``;
+10. one JSON line listing every ported kernel, then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -977,6 +994,33 @@ def check_groups(outs, groups, columns, label: str) -> tuple:
     return rows, decoded
 
 
+def check_dict_column(outs, name: str, label: str) -> None:
+    """``name`` is a fixed-width ``DeviceDictColumn`` in every row group:
+    indices and byte rows on the card, its device gather
+    (``materialize()``) equal to the host gather (``to_host()``)."""
+    import numpy as np
+
+    from tpu_parquet_torch.device_reader import DeviceDictColumn
+
+    for i, rg in enumerate(outs):
+        col = rg[name]
+        if not isinstance(col, DeviceDictColumn) or col.dict_u8 is None:
+            raise fail(f"{label}: {name} of row group {i} is a "
+                       f"{type(col).__name__}, not a fixed-width "
+                       f"DeviceDictColumn")
+        if col.dict_u8.device.type != "cuda":
+            raise fail(f"{label}: {name}'s dictionary is not on the card")
+        got = col.materialize().to_host()
+        want = col.to_host()
+        if got.dtype != want.dtype or not np.array_equal(
+                got.view(np.uint8), want.view(np.uint8)):
+            raise fail(f"{label}: {name}'s materialize() differs from its "
+                       f"to_host() in row group {i}")
+    log(f"{label}: {name} is a DeviceDictColumn ({col.dict_dtype}, "
+        f"{tuple(col.dict_u8.shape)} byte rows) in all {len(outs)} row "
+        f"groups; materialize() on the card equals to_host()")
+
+
 def timed_pass(torch, path: str, columns, force: "str | None" = None):
     """One read of ``path`` through the public entry point, timed end to
     end (host parse + staging + decode, ending in a synchronize); under
@@ -1004,12 +1048,14 @@ def timed_pass(torch, path: str, columns, force: "str | None" = None):
 
 
 def read_main_path(torch, ck, path: str, groups, label: str,
-                   columns=COLUMNS) -> dict:
+                   columns=COLUMNS, dict_column: "str | None" = None) -> dict:
     """Read ``path`` on the card through the public entry point and the full
     ship planner (unforced), check every column bit for bit, and time a
     warm second pass.  The first pass also counts the planned hybrid
     streams, and among them the string dictionaries' index streams
-    (``ragged_fused``)."""
+    (``ragged_fused``).  ``dict_column`` names a fixed-width dictionary
+    column that must come back as a ``DeviceDictColumn`` whose device
+    ``materialize()`` equals its ``to_host()`` in every row group."""
     from tpu_parquet_torch import device_reader as DR
 
     torch.cuda.synchronize()
@@ -1048,6 +1094,8 @@ def read_main_path(torch, ck, path: str, groups, label: str,
                    f"hybrid_unpack_combine and {counts['unpack_bp_groups']} "
                    f"of unpack_bp_groups for {planned[0]} hybrid streams")
     rows, decoded = check_groups(outs, groups, columns, label)
+    if dict_column is not None:
+        check_dict_column(outs, dict_column, label)
     del outs
     # warm second pass, timed end to end (host parse + staging + decode)
     keep, seconds, st2 = timed_pass(torch, path, columns)
@@ -1391,7 +1439,7 @@ def read_lineitem16(torch, ck, path: str, groups, smi: str) -> dict:
     encs = chunk_encodings(path)
     log(f"{label}: chunk encodings {encs}")
     main = read_main_path(torch, ck, path, groups, label,
-                          columns=L16_COLUMNS)
+                          columns=L16_COLUMNS, dict_column="l_suppkey")
     n_groups = len(groups)
     want = len(STRING_COLUMNS) * n_groups
     if main["ragged_fused"] != want:
@@ -1459,6 +1507,491 @@ def read_plain_strings(torch, ck, groups, work: str, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: lineitem as pyarrow writes it, and the remaining value shapes
+# ---------------------------------------------------------------------------
+
+# pyarrow's defaults: the dictionary page limit, the data page size, the
+# batch after which it checks both, and the rows per data page
+PYARROW_DICT_LIMIT = 1 << 20
+PYARROW_PAGE_SIZE = 1 << 20
+PYARROW_BATCH = 1024
+PYARROW_PAGE_ROWS = 20_000
+# l_comment's dictionary limit: its 64 distinct comments take about 2.4 KB
+# of PLAIN dictionary, so a limit under that makes the string chunk fall
+# back too
+COMMENT_DICT_LIMIT = 1 << 10
+JULIAN_EPOCH = 2_440_588  # Julian day of 1970-01-01
+MIXED_COLUMNS = ["l_orderkey", "l_partkey", "l_extendedprice", "l_comment"]
+
+
+def _first_seen_dictionary(values):
+    """(firsts, ids): the distinct values' first positions in order of
+    first appearance, and each value's dictionary id (the port's native
+    dictionary build, uncapped)."""
+    import numpy as np
+
+    from tpu_parquet_torch import native
+    from tpu_parquet_torch.column import ByteArrayData
+
+    n = len(values)
+    if isinstance(values, ByteArrayData):
+        res = native.dict_build(
+            n, n + 1, offsets=np.ascontiguousarray(values.offsets,
+                                                   dtype=np.int64),
+            heap=np.ascontiguousarray(values.heap))
+    else:
+        rows = np.ascontiguousarray(values)
+        res = native.dict_build(n, n + 1, data=rows,
+                                width=rows.nbytes // max(n, 1))
+    if res is None or isinstance(res, int):
+        raise fail("the native dictionary build is unavailable")
+    firsts, inverse = res
+    return firsts, inverse.astype(np.int64)
+
+
+def fallback_layout(values, dict_limit: int, page_size: "int | None" = None):
+    """pyarrow's page layout for one dictionary-on REQUIRED column chunk.
+
+    A data page holds at most 20,000 rows (or ``page_size`` encoded bytes)
+    and is filled in batches of 1,024 rows.  After each batch the
+    dictionary's PLAIN size is checked against ``dict_limit``: once it is
+    over, the page in progress is flushed and the rest of the chunk is
+    written PLAIN.  A dictionary page is flushed at the bit width of the
+    dictionary size at that moment (at least 1), so widths grow page to
+    page.  Returns (firsts, ids, dict_len, [(lo, hi, width)] dictionary
+    pages, [(lo, hi)] PLAIN pages)."""
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    page_size = PYARROW_PAGE_SIZE if page_size is None else page_size
+    n = len(values)
+    firsts, ids = _first_seen_dictionary(values)
+    if isinstance(values, ByteArrayData):
+        lens = np.diff(np.asarray(values.offsets))
+        entry = 4 + lens[firsts]
+        value_bytes = np.concatenate([[0], np.cumsum(4 + lens)])
+    else:
+        row = np.asarray(values).nbytes // max(n, 1)
+        entry = np.full(len(firsts), row, dtype=np.int64)
+        value_bytes = np.arange(n + 1, dtype=np.int64) * row
+    dict_bytes = np.concatenate([[0], np.cumsum(entry)])
+
+    def dict_size(k):  # distinct values among the first k
+        return int(np.searchsorted(firsts, k, side="left"))
+
+    def width(k):
+        return max(1, int(np.ceil(np.log2(max(dict_size(k), 1)))))
+
+    dict_pages, plain_pages = [], []
+    lo, fallen = 0, False
+    while lo < n:
+        hi = lo
+        while hi < n:
+            hi = min(hi + PYARROW_BATCH, lo + PYARROW_PAGE_ROWS, n)
+            if not fallen and dict_bytes[dict_size(hi)] > dict_limit:
+                fallen = "now"
+                break
+            size = ((hi - lo) * width(hi) // 8 if not fallen
+                    else value_bytes[hi] - value_bytes[lo])
+            if hi - lo >= PYARROW_PAGE_ROWS or size >= page_size:
+                break
+        if fallen == "now" or not fallen:
+            dict_pages.append((lo, hi, width(hi)))
+            if fallen:
+                fallen, dict_end = True, hi
+        else:
+            plain_pages.append((lo, hi))
+        lo = hi
+    dict_len = dict_size(dict_end if fallen else n)
+    return firsts, ids, dict_len, dict_pages, plain_pages
+
+
+def _fallback_encoder_class():
+    """A ``ChunkEncoder`` that lays a REQUIRED chunk out as pyarrow does
+    (:func:`fallback_layout`), on the port's own encoders: ``plain`` for
+    the dictionary page and the PLAIN suffix, ``rle`` for the index pages,
+    the encoder's page writer (compression, headers, CRCs).  Per-column
+    dictionary limits in ``limits`` (dotted name -> bytes)."""
+    import numpy as np
+
+    from tpu_parquet_torch.chunk_encode import (ChunkEncoder,
+                                                ChunkWriteResult, _crc_i32)
+    from tpu_parquet_torch.column import ByteArrayData
+    from tpu_parquet_torch.format import (ColumnChunk, ColumnMetaData,
+                                          DictionaryPageHeader, Encoding,
+                                          PageHeader, PageType)
+    from tpu_parquet_torch.kernels import plain, rle
+    from tpu_parquet_torch.thrift import serialize
+
+    class FallbackEncoder(ChunkEncoder):
+        limits: dict = {}
+        layouts: dict = {}
+
+        def write(self, cd, sink, offset):
+            leaf = self.leaf
+            if cd.max_def or cd.max_rep:
+                raise fail("the pyarrow-layout writer takes REQUIRED flat "
+                           "columns")
+            self.write_statistics = False
+            values = cd.values
+            name = ".".join(leaf.path)
+            firsts, ids, dict_len, dpages, ppages = fallback_layout(
+                values, self.limits.get(name, PYARROW_DICT_LIMIT))
+            self.layouts.setdefault(name, []).append(
+                [w for _, _, w in dpages] + ["PLAIN"] * len(ppages))
+            ptype = leaf.physical_type
+            dict_vals = (values.take(firsts[:dict_len])
+                         if isinstance(values, ByteArrayData)
+                         else values[firsts[:dict_len]])
+            raw = plain.encode(dict_vals, ptype, leaf.type_length)
+            comp = self._compress(raw)
+            ph = PageHeader(
+                type=int(PageType.DICTIONARY_PAGE),
+                uncompressed_page_size=len(raw),
+                compressed_page_size=len(comp),
+                dictionary_page_header=DictionaryPageHeader(
+                    num_values=dict_len, encoding=int(Encoding.PLAIN)))
+            if self.write_crc:
+                ph.crc = _crc_i32(comp)
+            hdr = serialize(ph)
+            parts = [hdr, comp]
+            pos = len(hdr) + len(comp)
+            total_unc = len(hdr) + len(raw)
+            data_off = None
+            pages = ([(lo, hi, Encoding.RLE_DICTIONARY,
+                       bytes([w]) + rle.encode(ids[lo:hi].astype(np.uint64),
+                                               w))
+                      for lo, hi, w in dpages]
+                     + [(lo, hi, Encoding.PLAIN, None) for lo, hi in ppages])
+            for lo, hi, enc, payload in pages:
+                if payload is None:
+                    sl = (ByteArrayData(
+                        offsets=values.offsets[lo : hi + 1]
+                        - values.offsets[lo],
+                        heap=values.heap[values.offsets[lo]:
+                                         values.offsets[hi]])
+                          if isinstance(values, ByteArrayData)
+                          else values[lo:hi])
+                    payload = plain.encode(sl, ptype, leaf.type_length)
+                page_parts, hdr_len, raw_len, _ = self._write_data_page(
+                    cd, lo, hi, lo, hi, payload, enc)
+                if data_off is None:
+                    data_off = offset + pos
+                parts.extend(page_parts)
+                pos += sum(len(p) for p in page_parts)
+                total_unc += raw_len + hdr_len
+            for part in parts:
+                sink.write(part)
+            encodings = {Encoding.PLAIN, Encoding.RLE}
+            if dpages:
+                encodings.add(Encoding.RLE_DICTIONARY)
+            md = ColumnMetaData(
+                type=int(ptype), encodings=sorted(int(e) for e in encodings),
+                path_in_schema=list(leaf.path), codec=int(self.codec),
+                num_values=cd.num_leaf_slots,
+                total_uncompressed_size=total_unc,
+                total_compressed_size=pos, data_page_offset=data_off,
+                dictionary_page_offset=offset)
+            return ChunkWriteResult(
+                chunk=ColumnChunk(file_offset=offset, meta_data=md),
+                total_compressed=pos, total_uncompressed=total_unc)
+
+    return FallbackEncoder
+
+
+def write_pyarrow_layout(path: str, schema, groups, limits=None) -> dict:
+    """Write ``groups`` (one row group each, REQUIRED columns) SNAPPY with
+    page CRCs in pyarrow's dictionary-on layout (:func:`fallback_layout`)
+    with the port's writer and encoders; returns each column's page layout
+    per row group: the index widths of its dictionary pages, then "PLAIN"
+    per PLAIN page."""
+    from tpu_parquet_torch import writer as W
+    from tpu_parquet_torch.format import CompressionCodec
+
+    enc = _fallback_encoder_class()
+    enc.limits = dict(limits or {})
+    enc.layouts = {}
+    real = W.ChunkEncoder
+    W.ChunkEncoder = enc
+    try:
+        with W.FileWriter(path, schema, codec=CompressionCodec.SNAPPY,
+                          use_dictionary=True, write_crc=True,
+                          row_group_size=128 << 20,
+                          page_size=PYARROW_PAGE_SIZE) as w:
+            for g in groups:
+                w.write_columns(g)
+                w.flush_row_group()
+    finally:
+        W.ChunkEncoder = real
+    return enc.layouts
+
+
+def lineitem16_schema(columns=L16_COLUMNS):
+    """``bench.py`` ``gen_lineitem16``'s schema (REQUIRED; STRING columns
+    UTF8), through the port's schema builder."""
+    from tpu_parquet_torch.format import (ConvertedType,
+                                          FieldRepetitionType as FRT,
+                                          LogicalType, StringType, Type)
+    from tpu_parquet_torch.schema.core import (ColumnParameters,
+                                               build_schema, data_column)
+
+    types = {"l_linenumber": Type.INT32, "l_extendedprice": Type.DOUBLE,
+             "l_discount": Type.DOUBLE, "l_tax": Type.DOUBLE,
+             "l_shipdate": Type.INT32, "l_commitdate": Type.INT32,
+             "l_receiptdate": Type.INT32}
+
+    def column(c):
+        if c in STRING_COLUMNS:
+            return data_column(c, Type.BYTE_ARRAY, FRT.REQUIRED,
+                               ColumnParameters(
+                                   logical_type=LogicalType(
+                                       STRING=StringType()),
+                                   converted_type=ConvertedType.UTF8))
+        return data_column(c, types.get(c, Type.INT64), FRT.REQUIRED)
+
+    return build_schema([column(c) for c in columns])
+
+
+def width_groups(layout) -> int:
+    """Runs of consecutive dictionary pages of one index width."""
+    widths = [w for w in layout if w != "PLAIN"]
+    return sum(1 for i, w in enumerate(widths) if i == 0 or widths[i - 1] != w)
+
+
+def read_pyarrow_layout(torch, ck, groups, work: str, smi: str) -> dict:
+    """Phase 8: the 16 lineitem16 columns in pyarrow's dictionary-on layout
+    (1 MiB dictionary limit; ``l_comment`` 1 KiB), read unforced on the
+    card and checked column by column.  ``l_orderkey``, ``l_partkey`` and
+    ``l_extendedprice`` overflow their dictionaries: dictionary-encoded
+    prefixes whose index widths grow page to page, then PLAIN pages, read by
+    ``_finish_mixed_dict_plain`` (its equal-width page groups through the
+    fused K1); ``l_comment`` takes the host path (``_finish_host``, its
+    dictionary pages through the fused K1 page by page)."""
+    from tpu_parquet_torch import device_reader as DR
+
+    label = "lineitem16 pyarrow layout"
+    path = os.path.join(work, "lineitem16_pyarrow_layout.parquet")
+    t0 = time.perf_counter()
+    layouts = write_pyarrow_layout(path, lineitem16_schema(), groups,
+                                   {"l_comment": COMMENT_DICT_LIMIT})
+    secs = time.perf_counter() - t0
+    log(f"wrote {path}: {SF1_ROWS} rows x {len(L16_COLUMNS)} columns, "
+        f"{len(groups)} row groups, {os.path.getsize(path)} bytes in "
+        f"{secs:.2f} s")
+    for c in MIXED_COLUMNS:
+        log(f"{label}: {c} pages per row group (index widths, then PLAIN): "
+            f"{[sorted(set(map(str, l))) + [len(l)] for l in layouts[c]]}")
+        # every full row group falls back (the last, of 1,215 rows, only
+        # l_comment: its dictionary limit is 1 KiB)
+        full = layouts[c] if c == "l_comment" else layouts[c][:-1]
+        if not all("PLAIN" in l and l[0] != "PLAIN" for l in full):
+            raise fail(f"{label}: {c} did not fall back to PLAIN in every "
+                       f"full row group")
+    mixed_plans = []  # (column, accepted) of each mixed-prefix group plan
+    in_mixed = [None]
+    real_plan = DR._plan_hybrid_pallas
+    real_mixed = DR._ChunkAssembler._finish_mixed_dict_plain
+
+    def plan_spy(*args):
+        plan = real_plan(*args)
+        if in_mixed[0] is not None:
+            mixed_plans.append((in_mixed[0], plan is not None))
+        return plan
+
+    def mixed_spy(self, common, stager):
+        in_mixed[0] = ".".join(self.leaf.path)
+        try:
+            return real_mixed(self, common, stager)
+        finally:
+            in_mixed[0] = None
+
+    DR._plan_hybrid_pallas = plan_spy
+    DR._ChunkAssembler._finish_mixed_dict_plain = mixed_spy
+    try:
+        main = read_main_path(torch, ck, path, groups, label,
+                              columns=L16_COLUMNS, dict_column="l_suppkey")
+    finally:
+        DR._plan_hybrid_pallas = real_plan
+        DR._ChunkAssembler._finish_mixed_dict_plain = real_mixed
+    want_groups = sum(width_groups(l) for c in MIXED_COLUMNS[:3]
+                      for l in layouts[c] if "PLAIN" in l)
+    # read_main_path reads twice (checked, then warm): the first read's
+    first = mixed_plans[: len(mixed_plans) // 2]
+    accepted = sum(ok for _, ok in first)
+    if len(mixed_plans) != 2 * want_groups or not accepted:
+        raise fail(f"{label}: {len(first)} mixed-prefix group plans "
+                   f"({accepted} through the fused K1), want {want_groups} "
+                   f"equal-width page groups")
+    log(f"{label}: hybrid_unpack_combine launched "
+        f"{main['counts']['hybrid_unpack_combine']} times (the accepted "
+        f"plans: {accepted} of the {want_groups} equal-width page groups of "
+        f"the dictionary-fallback prefixes, plus the dictionary chunks' "
+        f"streams and l_comment's dictionary pages)")
+    dev = device_breakdown(torch, path, label, columns=L16_COLUMNS)
+    summary(main, dev, label, smi)
+    host_breakdown(torch, path, label, L16_COLUMNS)
+    main["device"] = dev
+    main["mixed_groups"] = (accepted, want_groups)
+    return main
+
+
+def value_shape_groups(draws) -> list:
+    """Phase 9's columns from the lineitem16 draw: ``l_returnflag == "R"``
+    and ``l_linestatus == "O"`` as booleans, ``l_shipdate`` and
+    ``l_commitdate`` as INT96 timestamps (Julian day, zero nanoseconds, as
+    Spark and Impala write them), ``l_extendedprice`` as decimal(15,2) in a
+    7-byte big-endian FIXED_LEN_BYTE_ARRAY (Spark's legacy format), and
+    ``l_discount``, ``l_tax``, ``l_comment``, ``l_shipmode`` and
+    ``l_shipinstruct`` as drawn."""
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    out = []
+    for g in draws:
+        n = len(g["l_orderkey"])
+
+        def int96(days):
+            words = np.zeros((n, 3), dtype=np.uint32)
+            words[:, 2] = days.astype(np.int64) + JULIAN_EPOCH
+            return words
+
+        cents = np.round(g["l_extendedprice"] * 100).astype(np.int64)
+        dec = ((cents[:, None] >> (8 * np.arange(6, -1, -1))) & 0xFF).astype(
+            np.uint8)
+        out.append({
+            "l_returnflag_r": g["l_returnflag"][1] == 2,
+            "l_linestatus_o": g["l_linestatus"][1] == 1,
+            "l_shipdate_int96": int96(g["l_shipdate"]),
+            "l_extendedprice_dec": ByteArrayData(
+                offsets=np.arange(n + 1, dtype=np.int64) * 7,
+                heap=dec.reshape(-1)),
+            "l_discount": g["l_discount"],
+            "l_tax": g["l_tax"],
+            "l_comment": ByteArrayData.from_list(
+                g["l_comment"][0]).take(g["l_comment"][1]),
+            "l_shipmode": ByteArrayData.from_list(
+                g["l_shipmode"][0]).take(g["l_shipmode"][1]),
+            "l_shipinstruct": ByteArrayData.from_list(
+                g["l_shipinstruct"][0]).take(g["l_shipinstruct"][1]),
+            "l_commitdate_int96": int96(g["l_commitdate"]),
+        })
+    return out
+
+
+VALUE_SHAPE_ENCODINGS = {
+    "l_returnflag_r": "PLAIN", "l_linestatus_o": "RLE",
+    "l_shipdate_int96": "PLAIN", "l_extendedprice_dec": "PLAIN",
+    "l_discount": "BYTE_STREAM_SPLIT", "l_tax": "BYTE_STREAM_SPLIT",
+    "l_comment": "DELTA_LENGTH_BYTE_ARRAY",
+    "l_shipmode": "DELTA_BYTE_ARRAY", "l_shipinstruct": "DELTA_BYTE_ARRAY",
+}
+
+
+def write_value_shapes(path: str, groups) -> float:
+    """Phase 9's file: the port's writer, dictionary off, SNAPPY, page CRCs,
+    each column in its ``VALUE_SHAPE_ENCODINGS`` encoding."""
+    from tpu_parquet_torch.format import (CompressionCodec, ConvertedType,
+                                          DecimalType, Encoding,
+                                          FieldRepetitionType as FRT,
+                                          LogicalType, StringType, Type)
+    from tpu_parquet_torch.schema.core import (ColumnParameters,
+                                               build_schema, data_column)
+    from tpu_parquet_torch.writer import FileWriter
+
+    utf8 = ColumnParameters(logical_type=LogicalType(STRING=StringType()),
+                            converted_type=ConvertedType.UTF8)
+    types = {
+        "l_returnflag_r": (Type.BOOLEAN, None),
+        "l_linestatus_o": (Type.BOOLEAN, None),
+        "l_shipdate_int96": (Type.INT96, None),
+        "l_extendedprice_dec": (Type.FIXED_LEN_BYTE_ARRAY, ColumnParameters(
+            logical_type=LogicalType(DECIMAL=DecimalType(scale=2,
+                                                         precision=15)),
+            converted_type=ConvertedType.DECIMAL, type_length=7, scale=2,
+            precision=15)),
+        "l_discount": (Type.DOUBLE, None), "l_tax": (Type.DOUBLE, None),
+        "l_comment": (Type.BYTE_ARRAY, utf8),
+        "l_shipmode": (Type.BYTE_ARRAY, utf8),
+        "l_shipinstruct": (Type.BYTE_ARRAY, utf8),
+    }
+    schema = build_schema([data_column(c, t, FRT.REQUIRED, p)
+                           for c, (t, p) in types.items()])
+    t0 = time.perf_counter()
+    with FileWriter(path, schema, codec=CompressionCodec.SNAPPY,
+                    use_dictionary=False, write_crc=True,
+                    row_group_size=128 << 20,
+                    column_encodings={c: Encoding[e] for c, e in
+                                      VALUE_SHAPE_ENCODINGS.items()}) as w:
+        for g in groups:
+            w.write_columns({c: g[c] for c in types})
+            w.flush_row_group()
+    return time.perf_counter() - t0
+
+
+def read_value_shapes(torch, ck, groups, work: str, smi: str) -> dict:
+    """Phase 9: BOOLEAN PLAIN and RLE, INT96, decimal FLBA,
+    BYTE_STREAM_SPLIT, DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY columns
+    at SF1, read on the card and checked bit for bit against the draw; the
+    boolean RLE pages go through the fused K1 (width 1); then an INT96
+    column with the dictionary on, whose ``DeviceDictColumn`` is checked
+    (``materialize()`` on the card against ``to_host()``)."""
+    from tpu_parquet_torch import device_reader as DR
+
+    label = "value shapes"
+    cols = list(VALUE_SHAPE_ENCODINGS)
+    path = os.path.join(work, "value_shapes_sf1.parquet")
+    secs = write_value_shapes(path, groups)
+    log(f"wrote {path}: {SF1_ROWS} rows x {len(cols)} columns, "
+        f"{len(groups)} row groups, {os.path.getsize(path)} bytes in "
+        f"{secs:.2f} s; encodings {chunk_encodings(path)}")
+    bool_plans = []
+    real_plan = DR._plan_hybrid_pallas
+
+    def plan_spy(stager, pages_info, width, total, count_pad):
+        plan = real_plan(stager, pages_info, width, total, count_pad)
+        if width == 1:
+            bool_plans.append(plan is not None)
+        return plan
+
+    DR._plan_hybrid_pallas = plan_spy
+    try:
+        main = read_main_path(torch, ck, path, groups, label, columns=cols)
+    finally:
+        DR._plan_hybrid_pallas = real_plan
+    # read_main_path reads twice (checked, then warm): the first read's
+    first = bool_plans[: len(bool_plans) // 2]
+    if not any(first):
+        raise fail(f"{label}: no boolean RLE page went through "
+                   f"hybrid_unpack_combine ({len(first)} planned)")
+    if main["counts"]["hybrid_unpack_combine"] != sum(first):
+        raise fail(f"{label}: {main['counts']['hybrid_unpack_combine']} "
+                   f"fused K1 launches for {sum(first)} boolean RLE pages")
+    log(f"{label}: hybrid_unpack_combine launched "
+        f"{main['counts']['hybrid_unpack_combine']} times for the "
+        f"{len(first)} boolean RLE pages of l_linestatus_o")
+    dev = device_breakdown(torch, path, label, columns=cols)
+    summary(main, dev, label, smi)
+    host_breakdown(torch, path, label, cols)
+    main["device"] = dev
+    # an INT96 column with the dictionary on
+    dict_label = "INT96 dictionary"
+    dict_path = os.path.join(work, "int96_dict_sf1.parquet")
+    from tpu_parquet_torch.format import FieldRepetitionType as FRT, Type
+    from tpu_parquet_torch.schema.core import build_schema, data_column
+
+    write_pyarrow_layout(
+        dict_path, build_schema([data_column("l_commitdate_int96",
+                                             Type.INT96, FRT.REQUIRED)]),
+        [{"l_commitdate_int96": g["l_commitdate_int96"]} for g in groups])
+    main["int96_dict"] = read_main_path(
+        torch, ck, dict_path, groups, dict_label,
+        columns=["l_commitdate_int96"], dict_column="l_commitdate_int96")
+    return main
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -1517,7 +2050,8 @@ def main() -> int:
     del flush
 
     # phase 3: main path, REQUIRED lineitem SF1
-    main = read_main_path(torch, ck, req_path, groups, "REQUIRED lineitem")
+    main = read_main_path(torch, ck, req_path, groups, "REQUIRED lineitem",
+                          dict_column="l_suppkey")
     for name in ("hybrid_unpack_combine", "fused_plain_words"):
         if main["counts"][name] <= 0:
             raise fail(f"main path never launched {name}")
@@ -1529,7 +2063,8 @@ def main() -> int:
     opt_path = os.path.join(work, "lineitem_1m_optional.parquet")
     secs = write_lineitem(opt_path, opt_groups, optional=True)
     log(f"wrote {opt_path}: {ROWS_PER_GROUP} rows in {secs:.2f} s")
-    opt = read_main_path(torch, ck, opt_path, opt_groups, "OPTIONAL lineitem")
+    opt = read_main_path(torch, ck, opt_path, opt_groups, "OPTIONAL lineitem",
+                         dict_column="l_suppkey")
     if opt["counts"]["hybrid_unpack_combine"] <= 0:
         raise fail("OPTIONAL path never launched hybrid_unpack_combine")
     device_breakdown(torch, opt_path, "OPTIONAL lineitem")
@@ -1547,7 +2082,6 @@ def main() -> int:
 
     # phase 6: the whole 16-column lineitem, SF1, strings and delta included
     l16_groups = [lineitem_strings(g) for g in draws]
-    del draws
     l16_path = os.path.join(work, "lineitem16_sf1.parquet")
     secs = write_lineitem16(l16_path, l16_groups)
     log(f"wrote {l16_path}: {SF1_ROWS} rows x {len(L16_COLUMNS)} columns, "
@@ -1559,9 +2093,17 @@ def main() -> int:
     strings = read_plain_strings(
         torch, ck, [{c: g[c] for c in STRING_COLUMNS}
                     for g in l16_groups[:PLAIN_STRING_GROUPS]], work, smi)
+
+    # phase 8: the 16 columns in pyarrow's layout (dictionary fallback)
+    pa_layout = read_pyarrow_layout(torch, ck, l16_groups, work, smi)
     del l16_groups
 
-    # phase 8: the kernels line and the result line
+    # phase 9: the remaining value shapes
+    shapes = read_value_shapes(torch, ck, value_shape_groups(draws), work,
+                               smi)
+    del draws
+
+    # the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "hybrid_unpack_combine", "route": "cuda",
@@ -1599,9 +2141,15 @@ def main() -> int:
         f"PLAIN strings snappy {strings['snappy']['rows_per_s']:.1f} "
         f"(forced plain {strings['snappy']['forced_plain']:.1f}), gzip "
         f"{strings['gzip']['rows_per_s']:.1f} (forced plain "
-        f"{strings['gzip']['forced_plain']:.1f}); hybrid_unpack_combine "
-        f"launches on the lineitem16 read "
-        f"{l16['counts']['hybrid_unpack_combine']} ({smi})")
+        f"{strings['gzip']['forced_plain']:.1f}), lineitem16 pyarrow layout "
+        f"{pa_layout['rows_per_s']:.1f}, value shapes "
+        f"{shapes['rows_per_s']:.1f}, INT96 dictionary "
+        f"{shapes['int96_dict']['rows_per_s']:.1f}; hybrid_unpack_combine "
+        f"launches: lineitem16 {l16['counts']['hybrid_unpack_combine']}, "
+        f"pyarrow layout {pa_layout['counts']['hybrid_unpack_combine']} "
+        f"(mixed-prefix groups through it {pa_layout['mixed_groups'][0]} of "
+        f"{pa_layout['mixed_groups'][1]}), value shapes "
+        f"{shapes['counts']['hybrid_unpack_combine']} ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

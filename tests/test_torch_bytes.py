@@ -374,9 +374,14 @@ def test_slice_names_byte_arrays():
 
     assert "BYTE_ARRAY" in DR.SLICE and "DELTA_BINARY_PACKED" in DR.SLICE
     assert "BYTE_ARRAY" in DR.__doc__ and "DeviceDictColumn" in DR.__doc__
+    from tpu_parquet_torch.schema.core import list_column
+
     schema = p_build([p_column("s", PType.BYTE_ARRAY, PFRT.OPTIONAL),
-                      p_column("b", PType.BOOLEAN, PFRT.REQUIRED)])
-    strings, flags = schema.leaves
+                      p_column("b", PType.BOOLEAN, PFRT.REQUIRED),
+                      list_column("r", p_column("element", PType.BYTE_ARRAY,
+                                                PFRT.REQUIRED))])
+    strings, flags, repeated = schema.leaves
     DR._check_leaf(strings)  # in the slice
+    DR._check_leaf(flags)  # every flat leaf is, BOOLEAN included
     with pytest.raises(NotImplementedError, match="BYTE_ARRAY"):
-        DR._check_leaf(flags)  # the refusal names the slice's types
+        DR._check_leaf(repeated)  # the refusal names the slice's types

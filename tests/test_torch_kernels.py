@@ -278,9 +278,10 @@ def test_dict_gather_matches_jax(dtype):
         want = np.asarray(JK.dict_gather(jnp.asarray(dictionary),
                                          jnp.asarray(idx)))
     assert want.dtype == dtype
-    tdict = torch.from_numpy(dictionary.view(np.int32)
-                             if dtype == np.uint32 else dictionary)
-    got = TK.dict_gather(tdict, torch.from_numpy(idx.view(np.int32)))
+    # the port gathers every dictionary as byte rows
+    rows = torch.from_numpy(dictionary.view(np.uint8).reshape(37, -1))
+    got = TK.dict_gather_bytes(rows, torch.from_numpy(idx.view(np.int32)),
+                               np.dtype(dtype).name)
     np.testing.assert_array_equal(got.numpy().view(dtype), want)
 
 
@@ -291,8 +292,10 @@ def test_dict_gather_float_bits_survive():
     want = np.asarray(JK.dict_gather_bytes(
         jnp.asarray(vals.view(np.uint8).reshape(5, 8)), jnp.asarray(idx),
         "float64")).view("<f8").reshape(-1)
-    got = TK.dict_gather(torch.from_numpy(vals.view(np.int64)),
-                         torch.from_numpy(idx.view(np.int32)))
+    got = TK.dict_gather_bytes(
+        torch.from_numpy(vals.view(np.uint8).reshape(5, 8)),
+        torch.from_numpy(idx.view(np.int32)), "float64")
+    assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy().view(np.uint64),
                                   want.view(np.uint64))
 

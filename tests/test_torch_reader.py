@@ -33,6 +33,7 @@ from tpu_parquet.format import (CompressionCodec, FieldRepetitionType as FRT,
 from tpu_parquet.schema.core import build_schema, data_column
 from tpu_parquet.writer import FileWriter, corrupt_page
 from tpu_parquet_torch import cuda_kernels as CK
+from tpu_parquet_torch import device_reader as DR
 from tpu_parquet_torch.device_reader import DeviceFileReader
 from tpu_parquet_torch.errors import ParquetError as PortParquetError
 
@@ -277,17 +278,20 @@ def test_default_device_is_cuda_and_raises_without_it(files):
         DeviceFileReader(files["tpq_required_plain_snappy_v1"])
 
 
-def test_columns_outside_the_slice_raise(tmp_path):
+def test_columns_outside_the_slice_raise(tmp_path, reference_env):
+    """Once outside the slice, now read equal to the reference: BOOLEAN
+    columns, DELTA_LENGTH_BYTE_ARRAY strings beside DELTA_BINARY_PACKED
+    integers, and a dictionary-overflow chunk (early pages dictionary
+    encoded, later pages PLAIN).  A repeated leaf is still refused."""
     path = str(tmp_path / "other.parquet")
     pq.write_table(pa.table({"b": pa.array([True, False] * 50),
                              "n": pa.array(np.arange(100))}), path)
-    with pytest.raises(NotImplementedError, match="flat-column slice"):
-        DeviceFileReader(path, device="cpu")
+    ref, got, _, _ = _read_both(path)
+    _assert_same(ref, got)
+    assert got[0]["b"][0].dtype == np.bool_
     with DeviceFileReader(path, columns=["n"], device="cpu") as r:
         assert np.array_equal(r.read_row_group(0)["n"].to_host(),
                               np.arange(100))
-    # DELTA_BINARY_PACKED integers are in the slice; delta byte arrays are
-    # not
     delta = str(tmp_path / "delta.parquet")
     pq.write_table(pa.table({"d": pa.array(np.arange(100)),
                              "s": pa.array(["x", "yy"] * 50)}), delta,
@@ -297,17 +301,29 @@ def test_columns_outside_the_slice_raise(tmp_path):
     with DeviceFileReader(delta, columns=["d"], device="cpu") as r:
         assert np.array_equal(r.read_row_group(0)["d"].to_host(),
                               np.arange(100))
+    with RefReader(delta) as r:
+        want = r.read_row_group(0)["s"].to_host()
     with DeviceFileReader(delta, device="cpu") as r:
-        with pytest.raises(NotImplementedError,
-                           match="DELTA_LENGTH_BYTE_ARRAY"):
-            r.read_row_group(0)
-    # dictionary overflow: early pages dictionary-encoded, later pages PLAIN
+        strings = r.read_row_group(0)["s"].to_host()
+    assert np.array_equal(strings.offsets, want.offsets)
+    assert np.array_equal(strings.heap, want.heap)
+    assert strings.to_list() == [b"x", b"yy"] * 50
     mixed = str(tmp_path / "mixed.parquet")
     pq.write_table(pa.table({"m": pa.array(np.arange(5000))}), mixed,
                    dictionary_pagesize_limit=256, data_page_size=512)
-    with DeviceFileReader(mixed, device="cpu") as r:
-        with pytest.raises(NotImplementedError, match="PLAIN"):
-            r.read_row_group(0)
+    ref, got, ref_stats, got_stats = _read_both(mixed)
+    _assert_same(ref, got)
+    assert np.array_equal(got[0]["m"][0], np.arange(5000))
+    assert _routes(got_stats) == _routes(ref_stats)
+    from tpu_parquet_torch.format import (FieldRepetitionType as PFRT,
+                                          Type as PType)
+    from tpu_parquet_torch.schema.core import (build_schema as p_build,
+                                               data_column as p_column,
+                                               list_column)
+    leaf = p_build([list_column("l", p_column("element", PType.INT64,
+                                              PFRT.REQUIRED))]).leaves[0]
+    with pytest.raises(NotImplementedError, match="repeated column l"):
+        DR._check_leaf(leaf)
 
 
 def test_corrupt_page_crc_raises(files, tmp_path):

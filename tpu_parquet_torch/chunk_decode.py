@@ -1,8 +1,10 @@
 """Column-chunk page walk: page headers, CRC checks and chunk-metadata checks.
 
 The host half of the device reader's chunk walk (the counterpart of
-``tpu_parquet.chunk_decode``, cut to ``walk_pages``, ``_check_crc`` and
-``validate_chunk_meta``; the host value decoders are not part of this package).
+``tpu_parquet.chunk_decode``, cut to ``walk_pages``, ``_check_crc``,
+``validate_chunk_meta`` and the host BYTE_STREAM_SPLIT decode that the
+device path's FIXED_LEN_BYTE_ARRAY pages take; the other host value
+decoders are not part of this package).
 Mirrors readChunk/readPages of the reference (chunk_reader.go:182-330).
 """
 
@@ -11,8 +13,11 @@ from __future__ import annotations
 import zlib
 from dataclasses import dataclass
 
+import numpy as np
+
+from .column import ByteArrayData
 from .footer import ParquetError
-from .format import PageHeader, PageType
+from .format import PageHeader, PageType, Type
 from .schema.core import SchemaNode
 from .thrift import ThriftError, read_struct
 
@@ -148,3 +153,28 @@ def validate_chunk_meta(chunk, leaf: SchemaNode):
     if md.num_values is None or md.num_values < 0:
         raise ParquetError(f"invalid chunk value count {md.num_values}")
     return md, offset
+
+
+def _byte_stream_split_decode(raw: bytes, ptype: Type, count: int,
+                              type_length: int):
+    """BYTE_STREAM_SPLIT: K per-byte streams concatenated; de-interleave."""
+    width = {
+        Type.FLOAT: 4, Type.DOUBLE: 8, Type.INT32: 4, Type.INT64: 8,
+    }.get(ptype, type_length)
+    if width <= 0:
+        raise ParquetError(f"BYTE_STREAM_SPLIT unsupported for {ptype!r}")
+    need = count * width
+    if len(raw) < need:
+        raise ParquetError("BYTE_STREAM_SPLIT: truncated data")
+    mat = np.frombuffer(raw, np.uint8, need).reshape(width, count).T.copy()
+    flat = mat.reshape(-1)
+    if ptype == Type.FLOAT:
+        return flat.view("<f4").copy()
+    if ptype == Type.DOUBLE:
+        return flat.view("<f8").copy()
+    if ptype == Type.INT32:
+        return flat.view("<i4").copy()
+    if ptype == Type.INT64:
+        return flat.view("<i8").copy()
+    offsets = np.arange(count + 1, dtype=np.int64) * width
+    return ByteArrayData(offsets=offsets, heap=flat)

@@ -21,15 +21,24 @@ columns.  Per row group:
    staged chains, gathers, widening, the delta reconstruction, the
    byte-array heap compaction);
 5. the output is one :class:`DeviceColumnData` per column, or a
-   :class:`DeviceDictColumn` (indices + the ragged dictionary) for a
-   dictionary-encoded BYTE_ARRAY column.
+   :class:`DeviceDictColumn` (``uint32`` indices plus the dictionary:
+   fixed-width byte rows, or the ragged offsets and heap) for a
+   dictionary-encoded chunk, as the reference returns them.
 
-The slice: flat columns (REQUIRED or OPTIONAL, no repetition) of physical
-type INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY; PLAIN and RLE_DICTIONARY /
-PLAIN_DICTIONARY pages, and DELTA_BINARY_PACKED pages of INT32/INT64;
-UNCOMPRESSED, SNAPPY and GZIP; data pages v1 and v2; page CRCs.  Anything
-else raises ``NotImplementedError`` naming the slice — there is no
-host-decode fallback.
+The slice: every flat column (REQUIRED or OPTIONAL, no repetition) the
+reference reads — BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY
+and FIXED_LEN_BYTE_ARRAY; UNCOMPRESSED, SNAPPY, GZIP and ZSTD; data pages
+v1 and v2; page CRCs.  Batched on the row group's buffer: PLAIN,
+dictionary and DELTA_BINARY_PACKED chunks, PLAIN BOOLEAN, INT96 and FLBA,
+and the dictionary fallback (a dictionary-encoded prefix of pages, then
+PLAIN pages) of a fixed-width column.  Every other chunk (BYTE_STREAM_SPLIT,
+DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY, boolean RLE, other mixes of
+encodings) takes the host-decode path, ``_finish_host``: page by page
+through ``torch_decode.DeviceChunkDecoder``, staged per page.  A repeated
+leaf raises ``NotImplementedError`` naming the slice.
+
+Every raise of the chunk walk carries the decode site
+(``errors.error_context``: file, column, row group, page, byte offset).
 
 Nothing on the decode path waits for the device: the dictionary-index range
 check runs on the host (``_check_dict_range``).  Only when the native run
@@ -51,6 +60,7 @@ import torch
 from . import native
 from . import torch_kernels as K
 from .chunk_decode import _check_crc, validate_chunk_meta, walk_pages
+from .errors import error_context
 from .column import ByteArrayData
 from .compress import decompress_block
 from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
@@ -69,22 +79,22 @@ from .ship import (
 )
 from .torch_decode import (
     DeviceColumnData, ParsedDataPage, _bucket, _bucket_bytes, _bucket_count,
-    _SLACK, _PTYPE_TO_NAME, _hybrid, _hybrid_vw, host_decode_dictionary,
-    parse_data_page, parse_delta_meta, parse_hybrid_meta,
+    _SLACK, _PTYPE_TO_NAME, _concat_ragged, _hybrid, _hybrid_vw,
+    _max_index, _plain, _plain_flba, _plain_rows,
+    _resolve_device, host_decode_dictionary, parse_data_page,
+    parse_delta_meta, parse_hybrid_meta,
 )
 
 __all__ = ["DeviceDictColumn", "DeviceFileReader", "ReaderStats"]
 
-SLICE = ("flat INT32/INT64/FLOAT/DOUBLE/BYTE_ARRAY columns with PLAIN, "
-         "dictionary or DELTA_BINARY_PACKED pages (the tpu_parquet_torch "
-         "flat-column slice)")
+SLICE = ("flat columns of every physical type (BYTE_ARRAY and "
+         "FIXED_LEN_BYTE_ARRAY included) with PLAIN, dictionary, "
+         "DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT, delta byte-array or boolean "
+         "RLE pages (the tpu_parquet_torch flat-column slice)")
 
 _I32_MAX = np.iinfo(np.int32).max
 
 _TORCH_DTYPES = K._TORCH_DTYPES
-# same-width integer view used to move float bits through gathers
-_INT_OF = {"int32": torch.int32, "int64": torch.int64,
-           "float32": torch.int32, "float64": torch.int64}
 
 
 def _out_of_slice(what: str) -> NotImplementedError:
@@ -154,17 +164,22 @@ def _int_stats_span(statistics, leaf) -> "tuple[int, int] | None":
 
 @dataclass
 class DeviceDictColumn(DeviceColumnData):
-    """A dictionary-encoded BYTE_ARRAY column on the device: the values stay
-    as (dictionary, indices), like an Arrow DictionaryArray, because the
-    size of the gathered heap depends on the data.
+    """A dictionary-encoded column on the device: the values stay as
+    (dictionary, indices), like an Arrow DictionaryArray.
 
     ``indices`` ``int32`` holding the ``uint32`` index bits (bucket-padded;
-    the tail is zero); ``dict_offsets`` ``int64`` and ``dict_heap``
-    ``uint8``, both padded past the dictionary's real rows (no valid index
-    reads the padding).  ``materialize()`` and ``to_host()`` gather on the
-    host with ``ByteArrayData.take``, as the reference's do."""
+    the tail is zero).  The dictionary is either fixed-width byte rows,
+    ``dict_u8`` (``uint8[K_pad, itemsize]``, rows past the dictionary's
+    real size are padding) with ``dict_dtype`` the values' dtype name
+    (``"uint32"`` for INT96's 12-byte rows), or ragged: ``dict_offsets``
+    ``int64`` and ``dict_heap`` ``uint8``, both padded past the real rows
+    (no valid index reads the padding).  ``materialize()`` gathers on the
+    device for a fixed-width dictionary and on the host for a ragged one;
+    ``to_host()`` gathers on the host — as the reference's do."""
 
     indices: Optional[torch.Tensor] = None
+    dict_u8: Optional[torch.Tensor] = None
+    dict_dtype: Optional[str] = None
     dict_offsets: Optional[torch.Tensor] = None
     dict_heap: Optional[torch.Tensor] = None
 
@@ -188,7 +203,20 @@ class DeviceDictColumn(DeviceColumnData):
                              heap=self.dict_heap.cpu().numpy()).take(idx)
 
     def materialize(self) -> DeviceColumnData:
-        """The gathered ragged column, back on the indices' device."""
+        """The gathered column on the indices' device: a device gather of
+        the byte rows (``dict_gather_bytes``) for a fixed-width dictionary,
+        the host's ragged gather shipped back for a ragged one."""
+        if self.dict_u8 is not None:
+            # padded tail indices are zeros, so the gather stays in bounds;
+            # n_values carries the real count
+            vals = K.dict_gather_bytes(self.dict_u8, self.indices,
+                                       self.dict_dtype)
+            return DeviceColumnData(
+                values=vals, def_levels=self.def_levels,
+                rep_levels=self.rep_levels, max_def=self.max_def,
+                max_rep=self.max_rep, num_leaf_slots=self.num_leaf_slots,
+                value_dtype=self.value_dtype, n_values=self.n_values,
+            )
         host = self._take()
         dev = self.indices.device
         return DeviceColumnData(
@@ -199,8 +227,17 @@ class DeviceDictColumn(DeviceColumnData):
             num_leaf_slots=self.num_leaf_slots,
         )
 
-    def to_host(self) -> ByteArrayData:
-        return self._take()
+    def to_host(self) -> "ByteArrayData | np.ndarray":
+        if self.dict_u8 is None:
+            return self._take()
+        idx = (self.indices[: self.num_values].to(torch.int64)
+               & 0xFFFFFFFF).cpu().numpy()
+        rows = self.dict_u8.cpu().numpy()
+        n, _ = rows.shape
+        if self.dict_dtype == "uint32":  # INT96
+            return rows.view("<u4").reshape(n, -1)[idx]
+        return rows[idx].copy().view(
+            f"<{np.dtype(self.dict_dtype).str[1:]}").reshape(len(idx))
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +477,17 @@ def _snappy_gather_staged(buf, tbase: int, *, n_ops: int, out_pad: int,
                                iters=iters)
     idx = torch.arange(nbytes, dtype=torch.int32, device=buf.device)
     return _clamped(buf, _clamped(S, idx))
+
+
+def _bool_pages(buf, page_byte_base, page_val_start, *, count: int):
+    """PLAIN booleans across pages: the bit position restarts at each
+    page's staged byte base.  Lanes past the real count are garbage that
+    callers slice off by ``n_values``."""
+    i = torch.arange(count, dtype=torch.int64, device=buf.device)
+    p = torch.searchsorted(page_val_start, i, right=True) - 1
+    p = torch.clamp(p, 0, page_val_start.shape[0] - 1)
+    bit_pos = page_byte_base[p] * 8 + (i - page_val_start[p])
+    return K.extract_bits(buf, bit_pos, 1, 1) != 0
 
 
 # ---------------------------------------------------------------------------
@@ -928,16 +976,15 @@ def _fused_words_cast(words: torch.Tensor, dtype: str) -> torch.Tensor:
     return words.view(_TORCH_DTYPES[dtype]).reshape(-1)
 
 
-def _plain(buf: torch.Tensor, off: int, *, dtype: str, count: int):
-    nbytes = 8 if dtype in ("int64", "float64") else 4
-    return K.plain_decode_fixed(buf[off : off + count * nbytes], dtype, count)
-
-
 class _ChunkAssembler:
     """Collects a chunk's pages, then emits one device decode plan."""
 
-    def __init__(self, leaf: SchemaNode, deferred_checks: list):
+    def __init__(self, leaf: SchemaNode, deferred_checks: list,
+                 device: "torch.device | None" = None):
         self.leaf = leaf
+        # where the host-decode path (_finish_host) puts its tensors; the
+        # batched plans run on the staged buffer's device
+        self.device = torch.device("cpu") if device is None else device
         self.pages: list[ParsedDataPage] = []
         self.dict_u8: Optional[np.ndarray] = None
         self.dict_dtype: Optional[str] = None
@@ -1073,10 +1120,10 @@ class _ChunkAssembler:
             return
         if {parse_encoding(p.encoding) for p in self.pages} != {Encoding.PLAIN}:
             return
-        if self.leaf.physical_type == Type.BYTE_ARRAY:
-            self._preship_bytes(planner)
-        else:
+        if self.leaf.physical_type in _PTYPE_TO_NAME:
             self._preship_fixed(planner)
+        elif self.leaf.physical_type == Type.BYTE_ARRAY:
+            self._preship_bytes(planner)
 
     def _preship_fixed(self, planner: ShipPlanner) -> None:
         leaf = self.leaf
@@ -1235,9 +1282,14 @@ class _ChunkAssembler:
             Encoding.RLE_DICTIONARY if e == Encoding.PLAIN_DICTIONARY else e
             for e in encs
         }
-        # lazily-compressed pages are consumed only by the PLAIN routes
-        # (fixed-width and BYTE_ARRAY); every other path gets host bytes
-        if encs != {Encoding.PLAIN}:
+        # lazily-compressed pages are consumed only by the PLAIN routes of
+        # fixed-width numbers and BYTE_ARRAY; every other path (BOOLEAN,
+        # INT96 and FLBA rows included) gets host bytes
+        lazy_ok = encs == {Encoding.PLAIN} and (
+            leaf.physical_type in _PTYPE_TO_NAME
+            or leaf.physical_type == Type.BYTE_ARRAY
+        )
+        if any(p.comp is not None for p in self.pages) and not lazy_ok:
             for p in self.pages:
                 p.materialize()
         slots_pad = _bucket_count(slots)
@@ -1254,18 +1306,37 @@ class _ChunkAssembler:
                 "float64" if leaf.physical_type == Type.DOUBLE else None
             ),
         )
-        if encs == {Encoding.RLE_DICTIONARY}:
-            value_plan = self._finish_dict(common, stager)
-        elif encs == {Encoding.PLAIN} and leaf.physical_type == Type.BYTE_ARRAY:
-            value_plan = self._finish_plain_bytes(common, stager)
-        elif encs == {Encoding.PLAIN}:
-            value_plan = self._finish_plain_fixed(common, stager)
-        elif encs == {Encoding.DELTA_BINARY_PACKED}:
-            value_plan = self._finish_delta(common, stager)
+        ptype = leaf.physical_type
+        if len(encs) == 1:
+            enc = next(iter(encs))
+            if enc == Encoding.RLE_DICTIONARY:
+                value_plan = self._finish_dict(common, stager)
+            elif enc == Encoding.PLAIN and ptype in _PTYPE_TO_NAME:
+                value_plan = self._finish_plain_fixed(common, stager)
+            elif enc == Encoding.PLAIN and ptype == Type.BOOLEAN:
+                value_plan = self._finish_plain_bool(common, stager)
+            elif enc == Encoding.PLAIN and ptype == Type.BYTE_ARRAY:
+                value_plan = self._finish_plain_bytes(common, stager)
+            elif enc == Encoding.PLAIN and ptype == Type.INT96:
+                value_plan = self._finish_plain_rows(common, stager, 12)
+            elif (enc == Encoding.PLAIN
+                  and ptype == Type.FIXED_LEN_BYTE_ARRAY
+                  and (leaf.type_length or 0) > 0):
+                value_plan = self._finish_plain_rows(
+                    common, stager, leaf.type_length, flba=True)
+            elif enc == Encoding.DELTA_BINARY_PACKED:
+                value_plan = self._finish_delta(common, stager)
+            else:
+                value_plan = self._finish_host(common)
+        elif (encs == {Encoding.RLE_DICTIONARY, Encoding.PLAIN}
+              and ptype in _PTYPE_TO_NAME and self.dict_u8 is not None):
+            # the dictionary fallback: a dictionary-encoded prefix of
+            # pages, then PLAIN pages once the dictionary outgrew its limit
+            value_plan = self._finish_mixed_dict_plain(common, stager)
         else:
-            names = sorted(e.name for e in encs)
-            raise _out_of_slice(
-                f"column {'.'.join(leaf.path)} with encodings {names}")
+            # other mixes, BSS, delta byte arrays, boolean RLE: host decode
+            # page by page
+            value_plan = self._finish_host(common)
         # every plan has captured what it needs: drop the parsed pages
         self.pages = []
         return _compose_column(value_plan, d_plan)
@@ -1817,10 +1888,9 @@ class _ChunkAssembler:
     def _finish_dict(self, common, stager):
         """Dictionary-encoded chunk: the index stream through the fused K1
         (unpack + run-table combine; one uniform index width), or the
-        run-table expand (per-page widths, or too many runs); then a
-        dictionary gather on the device (fixed-width), or the indices and
-        the ragged dictionary kept as a :class:`DeviceDictColumn`
-        (BYTE_ARRAY)."""
+        run-table expand (per-page widths, or too many runs); the indices
+        and the dictionary (fixed-width byte rows, or ragged) stay a
+        :class:`DeviceDictColumn`, gathered only by ``materialize()``."""
         if self.dict_u8 is None and self.dict_ragged is None:
             raise ParquetError("dictionary-encoded page but no dictionary page seen")
         parsed = []  # (page, stream, meta)
@@ -1887,13 +1957,9 @@ class _ChunkAssembler:
         if self.dict_ragged is not None:
             return self._finish_dict_ragged(common, stager, idx_fn, idx_dyn,
                                             prefix, need_max)
-        name = self.dict_dtype
-        if name not in _TORCH_DTYPES:
-            raise _out_of_slice(f"dictionary of {name} values")
         # the dictionary rides the row-group buffer, its row count bucketed
         dict_kp = _bucket(max(self.dict_len, 1))
         itemsize = int(self.dict_u8.shape[1])
-        int_dt, val_dt = _INT_OF[name], _TORCH_DTYPES[name]
         table_fn = None
         ship = self._dict_ship  # (route, payload, out_len) or None: ship.py
         if ship is not None:
@@ -1910,31 +1976,34 @@ class _ChunkAssembler:
                     return _snappy_gather_staged(
                         buf, tb, n_ops=info.n_ops, out_pad=info.out_pad,
                         iters=info.iters, nbytes=dict_kp * itemsize,
-                    ).view(int_dt)
+                    ).reshape(dict_kp, itemsize)
         if table_fn is None:
             # zero-filled past dict_len so clamped tail gathers read zeros
             table_dyn = stager.add(np.ascontiguousarray(self.dict_u8),
                                    reserve=dict_kp * itemsize)
 
             def table_fn(buf, tb):
-                return _tslice(buf, tb, 0, dict_kp, int_dt)
+                # a copy: a view would keep the whole staged buffer alive
+                return buf[tb : tb + dict_kp * itemsize].reshape(
+                    dict_kp, itemsize).clone()
         n_idx = len(idx_dyn)
         deferred = self._deferred
         dict_len = self.dict_len
+        dict_dtype = self.dict_dtype
         path_name = ".".join(self.leaf.path)
 
         def fn(buf, *d):
             idx = idx_fn(buf, *d[:n_idx])
-            table = table_fn(buf, d[n_idx])
-            vals = K.dict_gather(table, idx).view(val_dt)
-            mx = (idx.to(torch.int64) & 0xFFFFFFFF).max() if need_max else None
-            return vals, mx
+            return (idx, table_fn(buf, d[n_idx]),
+                    _max_index(idx) if need_max else None)
 
         def build(res):
-            vals, mx = res
+            idx, table, mx = res
             if mx is not None:
                 deferred.append((mx, dict_len, path_name))
-            return DeviceColumnData(values=vals, n_values=prefix, **common)
+            return DeviceDictColumn(indices=idx, dict_u8=table,
+                                    dict_dtype=dict_dtype, n_values=prefix,
+                                    **common)
 
         return _Plan(fn, tuple(idx_dyn) + (table_dyn,), build)
 
@@ -1976,8 +2045,7 @@ class _ChunkAssembler:
             idx = idx_fn(buf, *d[:n_idx])
             doff = _plain(buf, d[n_idx], dtype="int64", count=roff_n)
             dheap = heap_fn(buf, d[n_idx + 1])
-            mx = (idx.to(torch.int64) & 0xFFFFFFFF).max() if need_max else None
-            return idx, doff, dheap, mx
+            return idx, doff, dheap, _max_index(idx) if need_max else None
 
         def build(res):
             idx, doff, dheap, mx = res
@@ -1989,12 +2057,242 @@ class _ChunkAssembler:
 
         return _Plan(fn, tuple(idx_dyn) + (roff_base, heap_dyn), build)
 
-    def _delta_host_only(self, what: str) -> NotImplementedError:
-        """A DELTA chunk the reference decodes page by page on the host
-        (its ``_finish_host``; the host decode path is not in the slice)."""
-        return _out_of_slice(
-            f"column {'.'.join(self.leaf.path)}: DELTA_BINARY_PACKED pages "
-            f"with {what} take the reference's host decode path")
+    def _value_segments(self, stager: _RowGroupStager) -> np.ndarray:
+        """Register all pages' value streams back to back; returns their
+        absolute byte bases in the staged buffer, int64[P]."""
+        return stager.add_segments([
+            (p.raw, p.value_pos, len(p.raw) - p.value_pos) for p in self.pages
+        ])
+
+    def _finish_plain_rows(self, common, stager, k: int, flba: bool = False):
+        """PLAIN fixed-length rows: exactly the value bytes back to back,
+        one bucketed slice — INT96 as ``int32[n, 3]`` words (the reference's
+        ``uint32[n, 3]``), FLBA as the uniform (offsets, heap) ragged form
+        (the host decoder's)."""
+        base, defined, count = self._stage_fixed_width(stager, k)
+
+        def fn(buf, base_d):
+            if flba:
+                return _plain_flba(buf, base_d, k=k, count=count)
+            return _plain_rows(buf, base_d, k=k, count=count)
+
+        def build(res):
+            col = DeviceColumnData(n_values=defined, **common)
+            if flba:
+                col.offsets, col.heap = res
+            else:
+                col.values = res
+            return col
+
+        return _Plan(fn, (base,), build)
+
+    def _finish_plain_bool(self, common, stager):
+        """PLAIN BOOLEAN: the pages' bit streams staged back to back; one
+        bit extraction whose position restarts at each page's base."""
+        defined = sum(p.defined for p in self.pages)
+        for p in self.pages:
+            need = (p.defined + 7) // 8
+            if len(p.raw) - p.value_pos < need:
+                raise ParquetError(
+                    f"PLAIN BOOLEAN truncated: {len(p.raw) - p.value_pos} "
+                    f"< {need}"
+                )
+        bases = self._value_segments(stager)
+        n_pages = _bucket(len(self.pages))
+        byte_base = np.zeros(n_pages, dtype=np.int64)
+        byte_base[: len(self.pages)] = bases
+        byte_base[len(self.pages):] = bases[-1] if len(self.pages) else 0
+        starts = np.full(n_pages, defined, dtype=np.int64)
+        starts[: len(self.pages)] = np.cumsum(
+            [0] + [p.defined for p in self.pages])[:-1]
+        count = _bucket_count(defined)
+        tables = (_stage_array(stager, byte_base), _stage_array(stager, starts))
+        return _Plan(
+            lambda buf, bb, st: _bool_pages(buf, _staged(buf, bb),
+                                            _staged(buf, st), count=count),
+            tables,
+            lambda v: DeviceColumnData(values=v, n_values=defined, **common),
+        )
+
+    def _finish_mixed_dict_plain(self, common, stager):
+        """Fixed-width chunk whose pages mix RLE_DICTIONARY and PLAIN.
+
+        The writer's dictionary fallback always gives a dictionary-encoded
+        PREFIX of pages followed by a PLAIN suffix.  The prefix's index
+        width grows page to page as the dictionary fills, so its pages go
+        in groups of consecutive pages of one width: each group through the
+        fused K1 (``_plan_hybrid_pallas``), or, where that planner declines
+        the group by shape, the run-table expand page by page.  Then one
+        concat, one device gather (``dict_gather_bytes``), and the suffix:
+        one view when its staged segments are exactly the value bytes, else
+        one per page.  Dictionary pages after PLAIN pages are not the
+        fallback shape and take ``_finish_host``."""
+        name = _PTYPE_TO_NAME[self.leaf.physical_type]
+        itemsize = np.dtype(name).itemsize
+        kinds = []
+        for p in self.pages:
+            enc = Encoding(p.encoding)
+            kinds.append(Encoding.RLE_DICTIONARY
+                         if enc == Encoding.PLAIN_DICTIONARY else enc)
+        n_dict = 0
+        for k in kinds:
+            if k != Encoding.RLE_DICTIONARY:
+                break
+            n_dict += 1
+        if any(k == Encoding.RLE_DICTIONARY for k in kinds[n_dict:]):
+            return self._finish_host(common)
+        dict_pages = self.pages[:n_dict]
+        plain_pages = self.pages[n_dict:]
+
+        # dictionary prefix: parse every page (folding the host max), then
+        # group consecutive live pages of one width
+        parsed = []  # (page, stream, meta, width)
+        prefix = 0
+        host_max = 0
+        for p in dict_pages:
+            meta, width, stream, host_max = self._parse_dict_index_page(
+                p, host_max)
+            parsed.append((p, stream, meta, width))
+            prefix += p.defined
+        self._check_dict_range(prefix, host_max)
+        _check_plain_sizes(plain_pages, itemsize)
+        groups: list[list] = []
+        for entry in parsed:
+            if not entry[0].defined:
+                continue
+            if groups and groups[-1][-1][3] == entry[3]:
+                groups[-1].append(entry)
+            else:
+                groups.append([entry])
+        idx_calls = []  # (fn, dyn, real count)
+        for group in groups:
+            width = group[0][3]
+            total = sum(p.defined for p, _, _, _ in group)
+            plan = _plan_hybrid_pallas(
+                stager, [(m, st, p.defined) for p, st, m, _ in group],
+                width, total, _bucket_count(total))
+            if plan is not None:
+                idx_calls.append((plan.fn, plan.dyn, total))
+                continue
+            for p, _, meta, _ in group:
+                base = int(stager.add_segments(
+                    [(p.raw, p.value_pos, len(p.raw) - p.value_pos)])[0])
+                tables = tuple(_stage_array(stager, t) for t in (
+                    meta.run_ends, meta.run_is_rle, meta.run_values.astype(
+                        np.int64), meta.run_bit_starts + base * 8))
+
+                def run_fn(buf, *specs, _w=width, _c=p.defined):
+                    e, r, v, st = (_staged(buf, t) for t in specs)
+                    return _hybrid(buf, e, r != 0, v, st, _c, width=_w,
+                                   count=_c)
+
+                idx_calls.append((run_fn, tables, p.defined))
+
+        # PLAIN suffix: one view when the segments are exactly the values
+        plain_total = sum(p.defined for p in plain_pages)
+        bases = stager.add_segments([
+            (p.raw, p.value_pos, len(p.raw) - p.value_pos)
+            for p in plain_pages])
+        contiguous = all(
+            len(p.raw) - p.value_pos == p.defined * itemsize
+            for p in plain_pages)
+        plain_calls = ([(int(bases[0]), plain_total)] if contiguous
+                       and plain_pages else
+                       [(int(b), p.defined)
+                        for b, p in zip(bases, plain_pages)])
+        dict_len = self.dict_len
+        table_base = None
+        if prefix:
+            table_base = stager.add(np.ascontiguousarray(self.dict_u8))
+        dict_dtype = self.dict_dtype
+        need_max = bool(prefix) and host_max is None
+        deferred = self._deferred
+        path_name = ".".join(self.leaf.path)
+        dyn = [table_base, *(b for b, _ in plain_calls)]
+        for _, d, _ in idx_calls:
+            dyn.extend(d)
+        n_plain = len(plain_calls)
+        arities = [len(d) for _, d, _ in idx_calls]
+
+        def fn(buf, *d):
+            parts = []
+            mx = None
+            if prefix:
+                j = 1 + n_plain
+                idx_parts = []
+                for (call, _, real), a in zip(idx_calls, arities):
+                    idx_parts.append(call(buf, *d[j : j + a])[:real])
+                    j += a
+                idx = (idx_parts[0] if len(idx_parts) == 1
+                       else torch.cat(idx_parts))
+                if need_max:
+                    mx = _max_index(idx)
+                table = buf[d[0] : d[0] + dict_len * itemsize].reshape(
+                    dict_len, itemsize)
+                parts.append(K.dict_gather_bytes(table, idx, dict_dtype))
+            for (_, c), b in zip(plain_calls, d[1 : 1 + n_plain]):
+                if c:
+                    parts.append(_plain(buf, b, dtype=name, count=c))
+            if not parts:
+                return torch.zeros(0, dtype=_TORCH_DTYPES[name],
+                                   device=buf.device), mx
+            return (parts[0] if len(parts) == 1 else torch.cat(parts)), mx
+
+        def build(res):
+            vals, mx = res
+            if mx is not None:
+                deferred.append((mx, dict_len, path_name))
+            return DeviceColumnData(values=vals, **common)
+
+        return _Plan(fn, tuple(dyn), build)
+
+    def _finish_host(self, common):
+        """Host decode page by page (BYTE_STREAM_SPLIT, delta byte arrays,
+        boolean RLE, the mixes the batched plans do not take) through
+        ``torch_decode.DeviceChunkDecoder``, each page staged on its own,
+        independent of the row group's buffer.  The decode runs here, in
+        the host phase; its deferred index maxima join the reader's."""
+        from .torch_decode import DeviceChunkDecoder
+
+        helper = DeviceChunkDecoder(self.leaf, device=self.device)
+        dev = self.device
+        if self.dict_u8 is not None:
+            helper.dict_u8 = torch.from_numpy(
+                np.ascontiguousarray(self.dict_u8)).to(dev)
+        helper.dict_dtype = self.dict_dtype
+        helper.dict_len = self.dict_len
+        if self.dict_ragged is not None:
+            helper._dict_host_offsets = self.dict_ragged.offsets
+            helper.dict_offsets = torch.from_numpy(np.ascontiguousarray(
+                self.dict_ragged.offsets, dtype=np.int64)).to(dev)
+            helper.dict_heap = torch.from_numpy(
+                np.ascontiguousarray(self.dict_ragged.heap)).to(dev)
+        vals_parts, off_parts, heap_parts = [], [], []
+        for p in self.pages:
+            v, off, heap = helper._decode_values_device(
+                p.encoding, p.raw, p.value_pos, p.defined
+            )
+            if v is not None:
+                vals_parts.append(v)
+            else:
+                off_parts.append(off)
+                heap_parts.append(heap)
+        for mx in helper._idx_maxima:
+            self._deferred.append((mx, self.dict_len,
+                                   ".".join(self.leaf.path)))
+        out = DeviceColumnData(**common)
+        if off_parts:
+            if len(off_parts) == 1:
+                out.offsets, out.heap = off_parts[0], heap_parts[0]
+            else:
+                out.offsets, out.heap = _concat_ragged(off_parts, heap_parts)
+        elif vals_parts:
+            out.values = (vals_parts[0] if len(vals_parts) == 1
+                          else torch.cat(vals_parts))
+        else:
+            out.values = torch.zeros(0, dtype=torch.int64, device=dev)
+        # decoded already: the plan only hands the column over
+        return _Plan(lambda buf: None, (), lambda _res: out)
 
     def _finish_delta(self, common, stager):
         """DELTA_BINARY_PACKED chunk: the host walks the block headers only;
@@ -2014,7 +2312,8 @@ class _ChunkAssembler:
                 )
             metas.append(m)
         if any(m.values_per_mini != metas[0].values_per_mini for m in metas):
-            raise self._delta_host_only("block geometry differing by page")
+            # spec-legal but rare: block geometry differs across pages
+            return self._finish_host(common)
         # miniblocks per block from the streams' own header varints
         mbs = set()
         for p in self.pages:
@@ -2022,15 +2321,17 @@ class _ChunkAssembler:
             mpb, _ = _read_uvarint(p.raw, p2)
             mbs.add(mpb)
         if len(mbs) != 1:
-            raise self._delta_host_only("miniblock counts differing by page")
+            return self._finish_host(common)
         mb = mbs.pop()
         if any((m.mini_bit_starts & 7).any() for m in metas):
-            # miniblocks are byte-aligned by construction
-            raise self._delta_host_only("a miniblock off a byte boundary")
+            # miniblocks are byte-aligned by construction; anything else is
+            # a walker this compact layout no longer matches
+            return self._finish_host(common)
         if (stager.total + sum(len(p.raw) - p.value_pos for p in self.pages)
                 > _I32_MAX):
             # block byte starts are staged as int32, as in the reference
-            raise self._delta_host_only("staged offsets past int32")
+            # (checked before any stager mutation)
+            return self._finish_host(common)
         bases = stager.add_segments([
             (p.raw, p.value_pos, len(p.raw) - p.value_pos)
             for p in self.pages])
@@ -2079,12 +2380,21 @@ class _ChunkAssembler:
 def _collect_chunk(buf: bytes, codec: int, total_values: int,
                    leaf: SchemaNode, deferred_checks: list,
                    validate_crc: bool = False,
-                   statistics=None) -> _ChunkAssembler:
+                   statistics=None, context=None,
+                   device=None) -> _ChunkAssembler:
     """Walk a chunk's pages into an assembler (host phase): CRC checks,
     the dictionary page, and each data page's level and index structure.
     PLAIN pages of a SNAPPY chunk stay compressed (lazy pages) for the
-    compressed-shipping routes; every other page is decompressed here."""
-    asm = _ChunkAssembler(leaf, deferred_checks)
+    compressed-shipping routes; every other page is decompressed here.
+
+    ``context`` ({file, column, row_group, chunk_offset}) is stamped onto
+    every raise (``errors.error_context``), with the failing page's ordinal
+    and absolute byte offset."""
+    ctx = dict(context or {})
+    if "column" not in ctx and leaf.path:
+        ctx["column"] = ".".join(leaf.path)
+    chunk_offset = ctx.pop("chunk_offset", 0) or 0
+    asm = _ChunkAssembler(leaf, deferred_checks, device)
     asm.stats_span = _int_stats_span(statistics, leaf)
     # parse_data_page applies the per-page conditions (PLAIN encoding,
     # levels outside the compressed region)
@@ -2092,16 +2402,20 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
             and (leaf.physical_type in _PTYPE_TO_NAME
                  or leaf.physical_type == Type.BYTE_ARRAY)
             and native.available())
-    for ps in walk_pages(buf, total_values):
+    with error_context(**ctx):
+        pages = walk_pages(buf, total_values)
+    data_ordinal = 0
+    for ps in pages:
         header = ps.header
         pt = header.type
         if pt == PageType.DICTIONARY_PAGE:
-            payload = buf[ps.payload_start : ps.payload_end]
-            _check_crc(header, payload, validate_crc)
-            raw = decompress_block(payload, codec,
-                                   header.uncompressed_page_size)
-            dh = header.dictionary_page_header
-            asm.set_dictionary(raw, dh.encoding, dh.num_values or 0)
+            with error_context(offset=chunk_offset + ps.payload_start, **ctx):
+                payload = buf[ps.payload_start : ps.payload_end]
+                _check_crc(header, payload, validate_crc)
+                raw = decompress_block(payload, codec,
+                                       header.uncompressed_page_size)
+                dh = header.dictionary_page_header
+                asm.set_dictionary(raw, dh.encoding, dh.num_values or 0)
             if codec == CompressionCodec.SNAPPY:
                 # kept: the planner may ship the dictionary VALUE TABLE
                 # compressed (_preship_dict / _finish_dict)
@@ -2109,11 +2423,15 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
                                  max(header.uncompressed_page_size or 0, 0))
             continue
         if pt in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
-            asm.pages.append(
-                parse_data_page(ps, buf, codec, leaf,
-                                validate_crc=validate_crc,
-                                decode_levels=False, lazy_decompress=lazy)
-            )
+            with error_context(page=data_ordinal,
+                               offset=chunk_offset + ps.payload_start, **ctx):
+                asm.pages.append(
+                    parse_data_page(ps, buf, codec, leaf,
+                                    validate_crc=validate_crc,
+                                    decode_levels=False,
+                                    lazy_decompress=lazy)
+                )
+            data_ordinal += 1
         # index/unknown pages: skip
     return asm
 
@@ -2213,26 +2531,10 @@ def _resolve_validate(validate_crc=None) -> bool:
                      f"got {validate_crc!r}")
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "DeviceFileReader decodes on the CUDA device by default and no "
-            "CUDA device is available; pass device='cpu' to decode with the "
-            "kernels' plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def _check_leaf(leaf: SchemaNode) -> None:
-    path = ".".join(leaf.path)
+    """Every flat leaf is in the slice; a repeated one is not yet."""
     if leaf.max_rep > 0:
-        raise _out_of_slice(f"repeated column {path}")
-    if (leaf.physical_type not in _PTYPE_TO_NAME
-            and leaf.physical_type != Type.BYTE_ARRAY):
-        raise _out_of_slice(
-            f"column {path} of physical type {leaf.physical_type!r}")
+        raise _out_of_slice(f"repeated column {'.'.join(leaf.path)}")
 
 
 class DeviceFileReader:
@@ -2253,14 +2555,17 @@ class DeviceFileReader:
         if isinstance(source, (str, os.PathLike)):
             self._f = open(source, "rb")
             self._owns_file = True
+            self._source_name = os.fspath(source)
         elif isinstance(source, (bytes, bytearray, memoryview)):
             import io
 
             self._f = io.BytesIO(bytes(source))
             self._owns_file = False
+            self._source_name = "<memory>"
         else:
             self._f = source
             self._owns_file = False
+            self._source_name = getattr(source, "name", None) or "<stream>"
         try:
             self.validate_crc = _resolve_validate(validate_crc)
             self.metadata = read_file_metadata(self._f)
@@ -2339,13 +2644,17 @@ class DeviceFileReader:
                 raise ParquetError(
                     f"truncated file reading column {'.'.join(path)}: wanted "
                     f"{md.total_compressed_size} bytes at offset {offset}, "
-                    f"got {len(buf)}")
+                    f"got {len(buf)} — the file is shorter than its "
+                    f"metadata claims")
             self._stats.chunks += 1
             self._stats.compressed_bytes += md.total_compressed_size
+            ctx = {"file": self._source_name, "row_group": index,
+                   "column": ".".join(path), "chunk_offset": offset}
             asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
                                  self._deferred,
                                  validate_crc=self.validate_crc,
-                                 statistics=md.statistics)
+                                 statistics=md.statistics, context=ctx,
+                                 device=self.device)
             asm.preship(self._ship_planner)
             self._stats.pages += len(asm.pages)
             name = ".".join(path)

@@ -111,32 +111,36 @@ def decode_delta(buf: bytes, count: int) -> ByteArrayData:
 
 
 def encode_delta(ba: ByteArrayData) -> bytes:
-    """Compute shared prefixes vs the previous value, emit the two delta streams."""
+    """Compute shared prefixes vs the previous value, emit the two delta
+    streams.  Vectorized: one pass per shared-prefix byte position over the
+    values still matching, then one masked gather for the suffix heap."""
     n = len(ba)
+    heap = np.asarray(ba.heap)
+    off = np.asarray(ba.offsets, dtype=np.int64)
+    lens = off[1:] - off[:-1]
     prefix_lens = np.zeros(n, dtype=np.int64)
-    heap = ba.heap
-    off = ba.offsets
-    for i in range(1, n):
-        a0, a1 = int(off[i - 1]), int(off[i])
-        b0, b1 = int(off[i]), int(off[i + 1])
-        max_p = min(a1 - a0, b1 - b0)
-        if max_p:
-            av = heap[a0 : a0 + max_p]
-            bv = heap[b0 : b0 + max_p]
-            neq = np.flatnonzero(av != bv)
-            prefix_lens[i] = int(neq[0]) if len(neq) else max_p
-    # suffixes
-    suf_parts = []
-    suf_lens = np.empty(n, dtype=np.int64)
-    for i in range(n):
-        s0 = int(off[i]) + int(prefix_lens[i])
-        s1 = int(off[i + 1])
-        suf_lens[i] = s1 - s0
-        suf_parts.append(heap[s0:s1])
+    if n > 1:
+        max_p = np.minimum(lens[:-1], lens[1:])  # value i vs value i - 1
+        a0, b0 = off[:-2], off[1:-1]
+        shared = np.zeros(n - 1, dtype=np.int64)
+        cand = np.flatnonzero(max_p > 0)
+        k = 0
+        while cand.size:
+            cand = cand[heap[a0[cand] + k] == heap[b0[cand] + k]]
+            k += 1
+            shared[cand] = k
+            cand = cand[max_p[cand] > k]
+        prefix_lens[1:] = shared
+    # suffixes: every heap byte past its value's shared prefix
+    suf_lens = lens - prefix_lens
     suf_offsets = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(suf_lens, out=suf_offsets[1:])
-    suf_heap = (
-        np.concatenate(suf_parts) if suf_parts else np.zeros(0, dtype=np.uint8)
-    )
+    total = int(off[-1] - off[0]) if n else 0
+    if total:
+        vid = np.repeat(np.arange(n), lens)
+        within = np.arange(total, dtype=np.int64) - (off[vid] - off[0])
+        suf_heap = heap[off[0] : off[-1]][within >= prefix_lens[vid]]
+    else:
+        suf_heap = np.zeros(0, dtype=np.uint8)
     suffixes = ByteArrayData(offsets=suf_offsets, heap=suf_heap)
     return delta.encode(prefix_lens, bits=64) + encode_delta_length(suffixes)

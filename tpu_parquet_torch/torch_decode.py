@@ -7,6 +7,13 @@ device as tensor code (``torch_kernels``) and hand-written CUDA kernels
 (``cuda_kernels``).  Decoded columns are torch tensors that stay on the
 reader's device.
 
+``DeviceChunkDecoder`` (and ``read_chunk_device``) decodes one column chunk
+page by page, staging each page on its own: the reference's page-at-a-time
+decoder, which the batched reader's host path (``_finish_host``) reuses for
+the value shapes it does not batch (BYTE_STREAM_SPLIT, delta byte arrays,
+boolean RLE, mixed encodings).  Its dictionary-index and boolean RLE pages
+go through the fused K1 (``decode_hybrid_device``).
+
 Shapes follow the reference's buckets (``_bucket``, ``_bucket_bytes``,
 ``_bucket_count``): padded output sizes and read extents must match the
 reference's, since the staged buffer layout and every kernel's read extent
@@ -30,22 +37,43 @@ from .format import Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack, rle
 from .kernels import delta as delta_host
 from .kernels.rle import RLEError, _read_uvarint
-from .chunk_decode import PageSlice, _check_crc
+from .chunk_decode import (PageSlice, _byte_stream_split_decode, _check_crc,
+                           validate_chunk_meta, walk_pages)
+from .errors import error_context
 from .native import NATIVE_ERRORS as _NATIVE_ERRORS
 from .schema.core import SchemaNode
 
 __all__ = [
     "DeltaMeta",
+    "DeviceChunkDecoder",
     "DeviceColumnData",
     "HybridMeta",
     "ParsedDataPage",
+    "decode_delta_device",
+    "decode_hybrid_device",
+    "pad_buffer",
     "parse_hybrid_meta",
     "parse_delta_meta",
     "parse_data_page",
     "host_decode_dictionary",
+    "read_chunk_device",
 ]
 
 _SLACK = 16  # extract_bits worst-case gather overrun (9 bytes) + alignment
+
+
+def _resolve_device(device, who: str = "DeviceFileReader") -> torch.device:
+    """The entry points' device: ``cuda`` unless the caller names another;
+    without a CUDA device the default raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} decodes on the CUDA device by default and no "
+            "CUDA device is available; pass device='cpu' to decode with the "
+            "kernels' plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -234,6 +262,38 @@ def _hybrid(buf, run_ends, run_is_rle, run_values, run_bit_starts, n_valid,
     )
 
 
+def decode_hybrid_device(raw, meta: HybridMeta, width: int,
+                         device: torch.device) -> torch.Tensor:
+    """Decode one RLE/bit-packed hybrid stream of host bytes ``raw`` (run
+    headers walked into ``meta``) on ``device``: ``int32[meta.count]``
+    holding the ``uint32`` values.
+
+    The stream is planned through the fused K1
+    (``cuda_kernels.hybrid_unpack_combine``) with its own staged buffer, as
+    the batched reader plans a chunk's streams; where that planner declines
+    by shape (width 0, no bit-packed run, too many runs) the run-table
+    expand decodes the page.  The reference computes the same function with
+    one expand (``_hybrid_jit``)."""
+    # imported here: device_reader imports this module
+    from .device_reader import _RowGroupStager, _plan_hybrid_pallas
+
+    count = meta.count
+    stager = _RowGroupStager()
+    plan = _plan_hybrid_pallas(stager, [(meta, raw, count)], width, count,
+                               _bucket_count(count))
+    if plan is not None:
+        host = torch.empty(stager.size(), dtype=torch.uint8)
+        stager.fill(host.numpy())
+        return plan.fn(host.to(device), *plan.dyn)[:count]
+    buf = pad_buffer(raw, device)
+    return _hybrid(
+        buf, torch.from_numpy(meta.run_ends).to(device),
+        torch.from_numpy(meta.run_is_rle).to(device),
+        torch.from_numpy(meta.run_values.astype(np.int64)).to(device),
+        torch.from_numpy(meta.run_bit_starts).to(device), count,
+        width=width, count=count)
+
+
 def _hybrid_vw(buf, run_ends, run_is_rle, run_values, run_bit_starts,
                run_widths, n_valid, *, max_width, count):
     """Variable-width hybrid expansion (per-run widths — multi-page dict
@@ -275,6 +335,19 @@ def _meta_from_headers(hdrs) -> DeltaMeta:
         md[:n] = mins
         bs[n:] = starts[-1]
     return DeltaMeta(first, bs, ws, md, values_per_mini, total, consumed)
+
+
+def decode_delta_device(buf: torch.Tensor, meta: DeltaMeta, bits: int):
+    """One DELTA_BINARY_PACKED stream staged whole in ``buf``:
+    ``meta.count`` values (``int32`` or ``int64``)."""
+    dev = buf.device
+    return K.delta_reconstruct(
+        buf, meta.first_value,
+        torch.from_numpy(meta.mini_bit_starts).to(dev),
+        torch.from_numpy(meta.mini_widths).to(dev),
+        torch.from_numpy(meta.mini_min_delta.view(np.int64)).to(dev),
+        meta.values_per_mini, meta.count, bits,
+        max_width=max(int(meta.mini_widths.max(initial=0)), 1))
 
 
 def parse_delta_meta(buf: bytes, bits: int, pos: int = 0) -> DeltaMeta:
@@ -511,6 +584,83 @@ def parse_data_page(
     )
 
 
+# ---------------------------------------------------------------------------
+# device value decodes over a staged byte buffer (the reference's jitted
+# helpers; the value stream starts at byte ``off`` of ``buf``)
+# ---------------------------------------------------------------------------
+
+def pad_buffer(raw, device: torch.device) -> torch.Tensor:
+    """Stage a byte buffer on ``device``, padded so bit-extract gathers stay
+    in bounds."""
+    arr = (np.frombuffer(raw, dtype=np.uint8)
+           if isinstance(raw, (bytes, bytearray, memoryview)) else raw)
+    n = len(arr)
+    out = torch.zeros(_bucket_bytes(n + _SLACK, 64), dtype=torch.uint8)
+    out.numpy()[:n] = arr
+    return out.to(device)
+
+
+def _plain(buf: torch.Tensor, off: int, *, dtype: str, count: int):
+    nbytes = 8 if dtype in ("int64", "float64") else 4
+    return K.plain_decode_fixed(buf[off : off + count * nbytes], dtype, count)
+
+
+def _plain_rows(buf: torch.Tensor, off: int, *, k: int, count: int):
+    """PLAIN INT96 rows: ``k``-byte rows as little-endian words,
+    ``int32[count, k // 4]`` holding the reference's ``uint32[count, 3]``
+    (the host decoder's layout)."""
+    raw = buf[off : off + count * k]
+    if raw.storage_offset() % 4:
+        raw = raw.clone()  # a word view needs an aligned start
+    return raw.view(torch.int32).reshape(count, k // 4).clone()
+
+
+def _plain_flba(buf: torch.Tensor, off: int, *, k: int, count: int):
+    """PLAIN FIXED_LEN_BYTE_ARRAY: the uniform (offsets, heap) ragged form,
+    the host decoder's representation."""
+    heap = buf[off : off + count * k].clone()
+    offsets = torch.arange(count + 1, dtype=torch.int64,
+                           device=buf.device) * k
+    return offsets, heap
+
+
+def _bss(buf: torch.Tensor, off: int, *, dtype: str, count: int):
+    nbytes = 8 if dtype in ("int64", "float64") else 4
+    return K.byte_stream_split_decode(buf[off : off + count * nbytes], dtype,
+                                      count)
+
+
+def _bool_plain(buf: torch.Tensor, off: int, *, count: int):
+    bit_pos = int(off) * 8 + torch.arange(count, dtype=torch.int64,
+                                          device=buf.device)
+    return K.extract_bits(buf, bit_pos, 1, 1) != 0
+
+
+def _concat_ragged(offs, heaps):
+    """Concatenate per-page (offsets, heap) pairs into one ragged column;
+    offsets are rebased by the running heap length on the device."""
+    out_offs = [offs[0]]
+    base = offs[0][-1]
+    for o in offs[1:]:
+        out_offs.append(o[1:] + base)
+        base = base + o[-1]
+    return torch.cat(out_offs), torch.cat(heaps)
+
+
+def _max_index(idx: torch.Tensor) -> torch.Tensor:
+    """The largest ``uint32`` index of ``idx`` (a 0-d ``int64`` tensor)."""
+    return (idx.to(torch.int64) & 0xFFFFFFFF).max()
+
+
+def _u32_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A host ``uint32`` array (levels, INT96 words) as the port's ``int32``
+    bits on ``device``."""
+    a = np.ascontiguousarray(arr)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
 def host_decode_dictionary(raw: bytes, leaf: SchemaNode, encoding: int, count: int):
     """Decode a dictionary page's values on host.
 
@@ -611,4 +761,314 @@ class DeviceColumnData:
             return ByteArrayData(offsets=off, heap=heap)
         if self.values is None:
             return np.zeros(0, dtype=np.int64)
-        return self.values[:n].cpu().numpy()
+        vals = self.values[:n].cpu().numpy()
+        if vals.ndim == 2:
+            return vals.view(np.uint32)  # INT96 words, uint32 as the reference's
+        return vals
+
+
+# ---------------------------------------------------------------------------
+# whole-chunk decoder, page by page
+# ---------------------------------------------------------------------------
+
+class DeviceChunkDecoder:
+    """Decode one column chunk into tensors on ``device``, page by page.
+
+    Each page is staged on its own; PLAIN fixed-width, BOOLEAN and
+    BYTE_STREAM_SPLIT values decode on the device, dictionary and boolean
+    RLE pages through :func:`decode_hybrid_device`, DELTA_BINARY_PACKED
+    through the delta reconstruction; the sequential byte-array streams
+    (PLAIN, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY) and INT96 /
+    FIXED_LEN_BYTE_ARRAY values decode on the host and ship their result.
+    ``context`` ({file, column, row_group, chunk_offset}) is stamped onto
+    every raise with the failing page's ordinal and byte offset."""
+
+    def __init__(self, leaf: SchemaNode, validate_crc: bool = False,
+                 context: "dict | None" = None, device=None):
+        self.leaf = leaf
+        self.validate_crc = validate_crc
+        self.context = dict(context or {})
+        self.device = _resolve_device(device, "DeviceChunkDecoder")
+        self.dict_u8: Optional[torch.Tensor] = None       # fixed-width rows
+        self.dict_dtype: Optional[str] = None             # target dtype name
+        self.dict_len: int = 0
+        self.dict_offsets: Optional[torch.Tensor] = None  # ragged dictionary
+        self.dict_heap: Optional[torch.Tensor] = None
+        self._dict_host_offsets: Optional[np.ndarray] = None
+        # per-page device max dictionary index, checked per chunk
+        self._idx_maxima: list = []
+
+    # -- dictionary ----------------------------------------------------------
+
+    def _decode_dict_page(self, ps: PageSlice, buf: bytes, codec: int) -> None:
+        header = ps.header
+        payload = buf[ps.payload_start : ps.payload_end]
+        _check_crc(header, payload, self.validate_crc)
+        raw = decompress_block(payload, codec, header.uncompressed_page_size)
+        dh = header.dictionary_page_header
+        decoded = host_decode_dictionary(
+            raw, self.leaf, dh.encoding, dh.num_values or 0
+        )
+        if isinstance(decoded, ByteArrayData):
+            self._dict_host_offsets = decoded.offsets
+            self.dict_offsets = torch.from_numpy(
+                np.ascontiguousarray(decoded.offsets)).to(self.device)
+            self.dict_heap = torch.from_numpy(
+                np.ascontiguousarray(decoded.heap)).to(self.device)
+            self.dict_len = len(decoded)
+        else:
+            u8, base, n = decoded
+            self.dict_u8 = torch.from_numpy(np.ascontiguousarray(u8)).to(
+                self.device)
+            self.dict_dtype = base
+            self.dict_len = n
+
+    # -- values --------------------------------------------------------------
+
+    def _decode_values_device(self, enc: int, raw: bytes, pos: int,
+                              count: int):
+        """Decode the value stream at byte offset ``pos`` of page bytes
+        ``raw``.  Returns (values, offsets, heap): exactly one
+        representation set."""
+        ptype = self.leaf.physical_type
+        dev = self.device
+        avail = len(raw) - pos
+        enc = parse_encoding(enc)
+        if enc == Encoding.PLAIN_DICTIONARY:
+            enc = Encoding.RLE_DICTIONARY
+
+        if enc == Encoding.PLAIN:
+            if ptype == Type.BOOLEAN:
+                need = (count + 7) // 8
+                if avail < need:
+                    raise ParquetError(
+                        f"PLAIN BOOLEAN truncated: {avail} < {need}")
+                return (_bool_plain(pad_buffer(raw, dev), pos, count=count),
+                        None, None)
+            name = _PTYPE_TO_NAME.get(ptype)
+            if name is not None:
+                need = count * np.dtype(name).itemsize
+                if avail < need:
+                    raise ParquetError(f"PLAIN data truncated: {avail} < {need}")
+                return (_plain(pad_buffer(raw, dev), pos, dtype=name,
+                               count=count), None, None)
+            # INT96 / BYTE_ARRAY / FIXED: host parse, ship the result
+            from .kernels import plain as plain_host
+
+            decoded = plain_host.decode(raw[pos:], ptype, count,
+                                        self.leaf.type_length)
+            if isinstance(decoded, ByteArrayData):
+                return (None, torch.from_numpy(decoded.offsets).to(dev),
+                        torch.from_numpy(decoded.heap).to(dev))
+            return _u32_tensor(decoded, dev), None, None
+
+        if enc == Encoding.RLE_DICTIONARY:
+            if self.dict_u8 is None and self.dict_offsets is None:
+                raise ParquetError(
+                    "dictionary-encoded page but no dictionary page seen")
+            if avail < 1:
+                raise ParquetError(
+                    "dictionary page data truncated (missing width)")
+            width = int(raw[pos])
+            if width > 32:
+                raise ParquetError(f"dictionary index width {width} invalid")
+            meta = parse_hybrid_meta(raw, width, count, pos=pos + 1,
+                                     compute_max=True)
+            idx = decode_hybrid_device(raw, meta, width, dev)
+            if self.dict_u8 is not None:
+                if count and self.dict_len == 0:
+                    raise ParquetError(
+                        "dictionary indices with empty dictionary")
+                # range check on the host when the native walk reported the
+                # max; otherwise one device max per page, read once per
+                # chunk (decode()) or at the reader's finalize()
+                if count and meta.max_value is not None:
+                    if meta.max_value >= self.dict_len:
+                        raise ParquetError(
+                            f"dictionary index {meta.max_value} out of range "
+                            f"({self.dict_len})"
+                        )
+                elif count:
+                    self._idx_maxima.append(_max_index(idx))
+                return (K.dict_gather_bytes(self.dict_u8, idx,
+                                            self.dict_dtype), None, None)
+            # ragged dictionary: the output heap size is needed on the host
+            host_idx = (idx.to(torch.int64) & 0xFFFFFFFF).cpu().numpy()
+            off = self._dict_host_offsets
+            if count and host_idx.max(initial=0) >= len(off) - 1:
+                raise ParquetError(
+                    f"dictionary index {int(host_idx.max())} out of range "
+                    f"({len(off) - 1})"
+                )
+            out_heap = int((off[host_idx + 1] - off[host_idx]).sum())
+            new_off, new_heap = K.ragged_take(
+                self.dict_offsets, self.dict_heap, idx,
+                _bucket_bytes(max(out_heap, 1), 64))
+            if not out_heap:
+                return None, new_off, torch.zeros(0, dtype=torch.uint8,
+                                                  device=dev)
+            return None, new_off, new_heap[:out_heap]
+
+        if enc == Encoding.DELTA_BINARY_PACKED:
+            bits = 32 if ptype == Type.INT32 else 64
+            if ptype not in (Type.INT32, Type.INT64):
+                raise ParquetError(
+                    f"DELTA_BINARY_PACKED invalid for {ptype!r}")
+            meta = parse_delta_meta(raw, bits, pos=pos)
+            if meta.count < count:
+                raise ParquetError(
+                    f"delta stream yielded {meta.count} of {count} values")
+            vals = decode_delta_device(pad_buffer(raw, dev), meta, bits)
+            return vals[:count], None, None
+
+        if enc == Encoding.BYTE_STREAM_SPLIT:
+            name = _PTYPE_TO_NAME.get(ptype)
+            if name is None:
+                # FIXED_LEN_BYTE_ARRAY etc.: host decode, ship the result
+                decoded = _byte_stream_split_decode(
+                    raw[pos:], ptype, count, self.leaf.type_length
+                )
+                if isinstance(decoded, ByteArrayData):
+                    return (None, torch.from_numpy(decoded.offsets).to(dev),
+                            torch.from_numpy(decoded.heap).to(dev))
+                return torch.from_numpy(decoded).to(dev), None, None
+            need = count * np.dtype(name).itemsize
+            if avail < need:
+                raise ParquetError(
+                    f"BYTE_STREAM_SPLIT truncated: {avail} < {need}")
+            return (_bss(pad_buffer(raw, dev), pos, dtype=name, count=count),
+                    None, None)
+
+        if enc == Encoding.RLE:
+            if ptype != Type.BOOLEAN:
+                raise ParquetError(f"RLE value encoding invalid for {ptype!r}")
+            if avail < 4:
+                raise ParquetError("truncated boolean RLE stream")
+            size = int.from_bytes(raw[pos : pos + 4], "little")
+            if pos + 4 + size > len(raw):
+                raise ParquetError(f"boolean RLE length {size} exceeds page")
+            meta = parse_hybrid_meta(raw, 1, count, pos=pos + 4,
+                                     end=pos + 4 + size)
+            vals = decode_hybrid_device(raw, meta, 1, dev)
+            return vals != 0, None, None
+
+        # DELTA_LENGTH_BYTE_ARRAY / DELTA_BYTE_ARRAY: host decode, ship it
+        from .kernels import bytearray as ba_host
+
+        if enc == Encoding.DELTA_LENGTH_BYTE_ARRAY:
+            d = ba_host.decode_delta_length(raw[pos:], count)
+        elif enc == Encoding.DELTA_BYTE_ARRAY:
+            d = ba_host.decode_delta(raw[pos:], count)
+        else:
+            raise ParquetError(
+                f"unsupported value encoding {enc.name} for {ptype!r}")
+        return (None, torch.from_numpy(d.offsets).to(dev),
+                torch.from_numpy(d.heap).to(dev))
+
+    # -- pages ---------------------------------------------------------------
+
+    def _decode_data_page(self, ps: PageSlice, buf: bytes, codec: int):
+        """Shared host parse (parse_data_page) + device value decode."""
+        p = parse_data_page(ps, buf, codec, self.leaf, self.validate_crc)
+        v, off, heap = self._decode_values_device(
+            p.encoding, p.raw, p.value_pos, p.defined
+        )
+        dlv = (_u32_tensor(p.def_levels, self.device)
+               if p.def_levels is not None else None)
+        rlv = (_u32_tensor(p.rep_levels, self.device)
+               if p.rep_levels is not None else None)
+        return v, off, heap, dlv, rlv, p.num_values
+
+    # -- chunk ---------------------------------------------------------------
+
+    def decode(self, buf: bytes, codec: int,
+               total_values: int) -> DeviceColumnData:
+        ctx = dict(self.context)
+        if "column" not in ctx and self.leaf.path:
+            ctx["column"] = ".".join(self.leaf.path)
+        # absolute file offsets in the records, as the host paths report
+        chunk_offset = ctx.pop("chunk_offset", 0) or 0
+        with error_context(**ctx):
+            pages = walk_pages(buf, total_values)
+        vals_parts, off_parts, heap_parts = [], [], []
+        def_parts, rep_parts = [], []
+        slots = 0
+        page_ordinal = 0
+        self._idx_maxima = []
+        for ps in pages:
+            pt = ps.header.type
+            if pt == PageType.DICTIONARY_PAGE:
+                with error_context(offset=chunk_offset + ps.payload_start,
+                                   **ctx):
+                    self._decode_dict_page(ps, buf, codec)
+                continue
+            if pt in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
+                with error_context(page=page_ordinal,
+                                   offset=chunk_offset + ps.payload_start,
+                                   **ctx):
+                    v, off, heap, d, r, n = self._decode_data_page(
+                        ps, buf, codec)
+                page_ordinal += 1
+            else:
+                continue
+            slots += n
+            if v is not None:
+                vals_parts.append(v)
+            else:
+                off_parts.append(off)
+                heap_parts.append(heap)
+            if d is not None:
+                def_parts.append(d)
+            if r is not None:
+                rep_parts.append(r)
+
+        if self._idx_maxima:
+            mx = int(torch.stack(self._idx_maxima).max())
+            if mx >= self.dict_len:
+                raise ParquetError(
+                    f"dictionary index {mx} out of range ({self.dict_len})"
+                )
+
+        out = DeviceColumnData(
+            max_def=self.leaf.max_def,
+            max_rep=self.leaf.max_rep,
+            num_leaf_slots=slots,
+            value_dtype=(
+                "float64" if self.leaf.physical_type == Type.DOUBLE else None
+            ),
+        )
+        if off_parts:
+            if len(off_parts) == 1:
+                out.offsets, out.heap = off_parts[0], heap_parts[0]
+            else:
+                out.offsets, out.heap = _concat_ragged(off_parts, heap_parts)
+        elif vals_parts:
+            out.values = (vals_parts[0] if len(vals_parts) == 1
+                          else torch.cat(vals_parts))
+        else:
+            out.values = torch.zeros(0, dtype=torch.int64, device=self.device)
+        if def_parts:
+            out.def_levels = (def_parts[0] if len(def_parts) == 1
+                              else torch.cat(def_parts))
+        if rep_parts:
+            out.rep_levels = (rep_parts[0] if len(rep_parts) == 1
+                              else torch.cat(rep_parts))
+        return out
+
+
+def read_chunk_device(f, chunk, leaf: SchemaNode, validate_crc: bool = False,
+                      device=None) -> DeviceColumnData:
+    """Read and decode one column chunk from the binary file ``f`` with
+    :class:`DeviceChunkDecoder` (the chunk reader's seek/size/metadata
+    checks)."""
+    md, offset = validate_chunk_meta(chunk, leaf)
+    f.seek(offset)
+    buf = f.read(md.total_compressed_size)
+    if len(buf) != md.total_compressed_size:
+        raise ParquetError(
+            f"chunk truncated: wanted {md.total_compressed_size} bytes at "
+            f"{offset}, got {len(buf)}"
+        )
+    dec = DeviceChunkDecoder(leaf, validate_crc=validate_crc,
+                             context={"chunk_offset": offset}, device=device)
+    return dec.decode(buf, md.codec, md.num_values)

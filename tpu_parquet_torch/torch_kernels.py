@@ -32,9 +32,11 @@ __all__ = [
     "expand_rle_hybrid",
     "expand_rle_hybrid_vw",
     "delta_reconstruct",
-    "dict_gather",
+    "dict_gather_bytes",
+    "ragged_take",
     "levels_to_validity",
     "plain_decode_fixed",
+    "byte_stream_split_decode",
     "snappy_resolve",
     "narrow_widen_words",
 ]
@@ -42,6 +44,8 @@ __all__ = [
 _TORCH_DTYPES = {
     "int32": torch.int32,
     "int64": torch.int64,
+    # INT96 words: uint32 bits in int32 lanes
+    "uint32": torch.int32,
     "float32": torch.float32,
     "float64": torch.float64,
 }
@@ -250,16 +254,65 @@ def delta_reconstruct(buf, first_value, mini_bit_starts, mini_widths,
     return vals if batched else vals[0]
 
 
-def dict_gather(dictionary: torch.Tensor, indices: torch.Tensor):
-    """Fixed-width dictionary expansion: ``dictionary[indices]``.
+def dict_gather_bytes(dict_u8_rows: torch.Tensor, indices: torch.Tensor,
+                      dtype: str):
+    """Gather dictionary rows as raw bytes, then reinterpret them as
+    ``dtype``.
 
-    ``indices`` hold ``uint32`` bits (``int32`` or ``int64``); they are
-    clamped into the dictionary, as JAX clamps the reference's gather.
-    Float dictionaries gather bit for bit (a gather moves bits; NaN
-    payloads and -0.0 survive)."""
+    ``dict_u8_rows`` uint8[K, itemsize]; ``indices`` hold ``uint32`` bits.
+    An index past the table reads a row of ``0xFF`` bytes, as the
+    reference's ``jnp.take`` fills it (only the deferred range check's path
+    can see one, and it raises at finalize).  The byte gather moves bits
+    verbatim (NaN payloads, -0.0 and subnormals survive).
+    ``float64`` comes back as ``float64[n]`` (the reference's ``uint32[n,
+    2]`` word pairs hold the same bytes); a row wider than one ``dtype``
+    item keeps a trailing word axis: INT96 (``dtype`` ``"uint32"``) is
+    ``int32[n, 3]`` holding the reference's ``uint32`` words."""
     idx = indices.to(torch.int64) & 0xFFFFFFFF
-    idx = torch.clamp(idx, max=max(dictionary.shape[0] - 1, 0))
-    return torch.index_select(dictionary, 0, idx)
+    k, total = dict_u8_rows.shape
+    n = idx.shape[0]
+    if k:
+        rows = torch.index_select(dict_u8_rows, 0, torch.clamp(idx, max=k - 1))
+        rows = torch.where((idx < k)[:, None], rows,
+                           torch.full_like(rows, 0xFF))
+    else:
+        rows = torch.full((n, total), 0xFF, dtype=torch.uint8,
+                          device=dict_u8_rows.device)
+    dt = _TORCH_DTYPES[dtype]
+    itemsize = torch.empty((), dtype=dt).element_size()
+    words = rows.view(dt)
+    return words.reshape(n) if total == itemsize else words.reshape(
+        n, total // itemsize)
+
+
+def ragged_take(offsets: torch.Tensor, heap: torch.Tensor,
+                indices: torch.Tensor, out_heap_size: int):
+    """Gather rows of a ragged (offsets, heap) byte column (string
+    dictionary decode).
+
+    ``out_heap_size`` is the host's sum of the selected lengths (or a
+    bucket over it).  Returns (new_offsets int64[m+1], new_heap
+    uint8[out_heap_size]).  Output byte j maps to output row
+    r = searchsorted(new_offsets, j) and source byte
+    src_start[r] + (j - new_start[r]): two gathers, no per-row loop.  Row
+    and source indices are clipped as in the reference; every other gather
+    is clamped where JAX clamps."""
+    dev = offsets.device
+    idx = indices.to(torch.int64) & 0xFFFFFFFF
+    last = max(offsets.shape[0] - 1, 0)
+    lens = (offsets[torch.clamp(idx + 1, max=last)]
+            - offsets[torch.clamp(idx, max=last)])
+    new_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(lens, 0)])
+    if idx.shape[0] == 0 or heap.shape[0] == 0:
+        return new_off, torch.zeros(out_heap_size if heap.shape[0] else 0,
+                                    dtype=torch.uint8, device=dev)
+    j = torch.arange(out_heap_size, dtype=torch.int64, device=dev)
+    r = torch.searchsorted(new_off, j, right=True) - 1
+    r = torch.clamp(r, 0, idx.shape[0] - 1)
+    src = offsets[torch.clamp(idx[r], max=last)] + (j - new_off[r])
+    src = torch.clamp(src, 0, heap.shape[0] - 1)
+    return new_off, heap[src]
 
 
 def levels_to_validity(def_levels: torch.Tensor, max_def: int):
@@ -277,6 +330,18 @@ def plain_decode_fixed(buf: torch.Tensor, dtype: str, count: int):
     if raw.storage_offset() % nbytes:
         raw = raw.clone()  # a dtype view needs an aligned start
     return raw.view(dt).clone()
+
+
+def byte_stream_split_decode(buf: torch.Tensor, dtype: str, count: int):
+    """BYTE_STREAM_SPLIT: de-interleave the ``itemsize`` byte streams of
+    ``count`` values, then reinterpret as ``dtype`` (``float64`` stays
+    ``float64``; see :func:`plain_decode_fixed`)."""
+    dt = _TORCH_DTYPES[dtype]
+    nbytes = torch.empty((), dtype=dt).element_size()
+    # a fresh row-major [count, itemsize] tensor: aligned for the dtype view
+    mat = torch.empty((count, nbytes), dtype=torch.uint8, device=buf.device)
+    mat.copy_(buf[: count * nbytes].reshape(nbytes, count).t())
+    return mat.view(dt).reshape(count)
 
 
 def snappy_resolve(ends, asrc, offs, islit, *, out_pad: int, iters: int):
