@@ -73,7 +73,23 @@ Phases:
    column with the dictionary on.  Phases 3, 4, 6, 8 and 9 check a
    fixed-width dictionary column's ``DeviceDictColumn``: its device
    ``materialize()`` against its ``to_host()``;
-10. one JSON line listing every ported kernel, then the result line.
+10. nested columns.  (a) TPC-H orders with their lineitems nested: the
+    6,001,215 lineitems of phase 6's draw (six of their columns) grouped
+    into orders of 1-7 lineitems (an OPTIONAL LIST of a REQUIRED group),
+    the port's writer (ColumnData with def and rep levels), SNAPPY,
+    dictionary on, page CRCs, 250,000 orders per row group.  (b) edge
+    shapes at 200,000 rows, data pages v2, dictionary on: ``input_ids``
+    LIST<INT32> (lengths 0-512, a 32,000-token vocabulary), ``tags``
+    LIST<OPTIONAL INT64>, ``attrs`` MAP<STRING, OPTIONAL INT64> and
+    ``matrix`` LIST<LIST<OPTIONAL INT32>> (``max_rep`` 2).  Each read on the
+    card, checked bit for bit (values, def and rep levels), rows counted on
+    the card with ``row_starts_from_rep``, one leaf scattered to its slots
+    with ``scatter_defined``; the fused K1 must run on rep-level streams
+    (its launches printed by stream: rep, def, index); a warm, a profiled
+    and a cProfile'd pass.  Row group 0 of (a) also through the host
+    ``FileReader``: equal to the device read, and ``iter_rows_logical()``
+    giving back the generator's first 1,000 orders;
+11. one JSON line listing every ported kernel, then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -1048,14 +1064,17 @@ def timed_pass(torch, path: str, columns, force: "str | None" = None):
 
 
 def read_main_path(torch, ck, path: str, groups, label: str,
-                   columns=COLUMNS, dict_column: "str | None" = None) -> dict:
+                   columns=COLUMNS, dict_column: "str | None" = None,
+                   check=check_groups) -> dict:
     """Read ``path`` on the card through the public entry point and the full
     ship planner (unforced), check every column bit for bit, and time a
     warm second pass.  The first pass also counts the planned hybrid
     streams, and among them the string dictionaries' index streams
     (``ragged_fused``).  ``dict_column`` names a fixed-width dictionary
     column that must come back as a ``DeviceDictColumn`` whose device
-    ``materialize()`` equals its ``to_host()`` in every row group."""
+    ``materialize()`` equals its ``to_host()`` in every row group.
+    ``check(outs, groups, columns, label)`` checks the first pass and
+    returns (rows, decoded bytes)."""
     from tpu_parquet_torch import device_reader as DR
 
     torch.cuda.synchronize()
@@ -1093,7 +1112,7 @@ def read_main_path(torch, ck, path: str, groups, label: str,
         raise fail(f"{label}: {counts['hybrid_unpack_combine']} launches of "
                    f"hybrid_unpack_combine and {counts['unpack_bp_groups']} "
                    f"of unpack_bp_groups for {planned[0]} hybrid streams")
-    rows, decoded = check_groups(outs, groups, columns, label)
+    rows, decoded = check(outs, groups, columns, label)
     if dict_column is not None:
         check_dict_column(outs, dict_column, label)
     del outs
@@ -1992,6 +2011,527 @@ def read_value_shapes(torch, ck, groups, work: str, smi: str) -> dict:
     return main
 
 
+# ---------------------------------------------------------------------------
+# phase 10: nested columns
+# ---------------------------------------------------------------------------
+
+NESTED_LINE_COLUMNS = ["l_partkey", "l_quantity", "l_extendedprice",
+                       "l_shipdate", "l_shipmode", "l_comment"]
+ORDERS_PER_GROUP = 250_000
+LOGICAL_ORDERS = 1_000
+EDGE_ROWS = 200_000
+EDGE_GROUP = 50_000
+VOCAB = 32_000
+EDGE_LEAVES = ["input_ids.list.element", "tags.list.element",
+               "attrs.key_value.key", "attrs.key_value.value",
+               "matrix.list.element.list.element"]
+
+
+def list_levels(lens, null, present=None):
+    """Def and rep levels of an OPTIONAL LIST column, one row per entry of
+    ``lens`` (elements per row) and ``null`` (the row's list is null): a
+    null list is one slot at def 0, an empty one a slot at def 1; an
+    element is at def 2, or, when the element is OPTIONAL (``present``
+    given, one flag per element), 3 where present and 2 where null."""
+    import numpy as np
+
+    lens = np.where(null, 0, lens)
+    slots = np.where(lens == 0, 1, lens)
+    starts = np.cumsum(slots) - slots
+    total = int(slots.sum())
+    rep = np.ones(total, np.int32)
+    rep[starts] = 0
+    d = np.full(total, 2, np.int32)
+    elem = np.ones(total, bool)
+    elem[starts[lens == 0]] = False
+    if present is not None:
+        d[elem] = np.where(present, 3, 2)
+    d[starts[null]] = 0
+    d[starts[(lens == 0) & ~null]] = 1
+    return d, rep
+
+
+def matrix_levels(outer, outer_null, inner, inner_null, present):
+    """Def and rep levels of an OPTIONAL LIST of OPTIONAL LISTs of OPTIONAL
+    INT32 (max_def 5, max_rep 2).  ``outer``/``outer_null`` per row;
+    ``inner``/``inner_null`` per inner list of the non-null rows, in
+    order; ``present`` per element of the non-null inner lists."""
+    import numpy as np
+
+    outer = np.where(outer_null, 0, outer)
+    units = np.where(outer == 0, 1, outer)       # slots' first level
+    marker = np.repeat(outer == 0, units)        # a null or empty row
+    first = np.zeros(int(units.sum()), bool)
+    first[np.cumsum(units) - units] = True
+    q = np.zeros(len(marker), np.int64)
+    inull = np.zeros(len(marker), bool)
+    q[~marker] = np.where(inner_null, 0, inner)
+    inull[~marker] = inner_null
+    slots = np.where(q == 0, 1, q)
+    starts = np.cumsum(slots) - slots
+    total = int(slots.sum())
+    rep = np.full(total, 2, np.int32)
+    rep[starts] = np.where(first, 0, 1)
+    d = np.zeros(total, np.int32)
+    elem = np.ones(total, bool)
+    elem[starts[q == 0]] = False
+    d[elem] = np.where(present, 5, 4)
+    row_null = np.repeat(outer_null, units)
+    d[starts[marker & row_null]] = 0
+    d[starts[marker & ~row_null]] = 1
+    d[starts[~marker & inull]] = 2
+    d[starts[~marker & ~inull & (q == 0)]] = 3
+    return d, rep
+
+
+def nested_orders(draws):
+    """Phase 10a: the 6,001,215 lineitems of ``draw_lineitem16`` (seed 4),
+    six of their columns, grouped into orders of 1-7 lineitems (TPC-H's
+    range, drawn from a generator of their own, the last order cut short),
+    with TPC-H-like sparse order keys.  Returns per-row-group dicts of
+    ``ORDERS_PER_GROUP`` orders: ``o_orderkey``, each lineitem column's
+    values (a STRING column as ``ByteArrayData``), and ``def``/``rep``, the
+    lineitem leaves' levels (every list present: def 2; rep 0 at each
+    order's first lineitem)."""
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    lines = {}
+    for c in NESTED_LINE_COLUMNS:
+        parts = [g[c] for g in draws]
+        if isinstance(parts[0], tuple):
+            lines[c] = (parts[0][0], np.concatenate([p[1] for p in parts]))
+        else:
+            lines[c] = np.concatenate(parts)
+    n_lines = len(lines["l_partkey"])
+    rng = np.random.default_rng(7)
+    lens = rng.integers(1, 8, n_lines // 3)
+    ends = np.cumsum(lens)
+    k = int(np.searchsorted(ends, n_lines))
+    lens = lens[: k + 1].copy()
+    lens[-1] -= int(ends[k]) - n_lines
+    keys = np.cumsum(rng.integers(1, 5, len(lens))).astype(np.int64)
+    line_start = np.concatenate([[0], np.cumsum(lens)])
+    groups = []
+    for lo in range(0, len(lens), ORDERS_PER_GROUP):
+        hi = min(lo + ORDERS_PER_GROUP, len(lens))
+        a, b = int(line_start[lo]), int(line_start[hi])
+        rep = np.ones(b - a, np.int32)
+        rep[line_start[lo:hi] - a] = 0
+        g = {"o_orderkey": keys[lo:hi], "lens": lens[lo:hi],
+             "def": np.full(b - a, 2, np.int32), "rep": rep}
+        for c, v in lines.items():
+            g[c] = (ByteArrayData.from_list(v[0]).take(v[1][a:b])
+                    if isinstance(v, tuple) else v[a:b])
+        groups.append(g)
+    return groups
+
+
+def orders_schema():
+    from tpu_parquet_torch.format import (ConvertedType,
+                                          FieldRepetitionType as FRT,
+                                          LogicalType, StringType, Type)
+    from tpu_parquet_torch.schema.core import (ColumnParameters,
+                                               build_schema, data_column,
+                                               group_column, list_column)
+
+    utf8 = ColumnParameters(logical_type=LogicalType(STRING=StringType()),
+                            converted_type=ConvertedType.UTF8)
+    types = {"l_partkey": Type.INT64, "l_quantity": Type.INT64,
+             "l_extendedprice": Type.DOUBLE, "l_shipdate": Type.INT32}
+    line = [data_column(c, types[c], FRT.REQUIRED) if c in types else
+            data_column(c, Type.BYTE_ARRAY, FRT.REQUIRED, utf8)
+            for c in NESTED_LINE_COLUMNS]
+    return build_schema([
+        data_column("o_orderkey", Type.INT64, FRT.REQUIRED),
+        list_column("lines", group_column("element", line, FRT.REQUIRED),
+                    FRT.OPTIONAL)])
+
+
+def write_orders(path: str, groups) -> float:
+    """Phase 10a's file with the port's writer, column by column (each
+    lineitem leaf a ``ColumnData`` with its def and rep levels): SNAPPY,
+    dictionary on, page CRCs, one row group per group of orders."""
+    from tpu_parquet_torch.column import ColumnData
+    from tpu_parquet_torch.format import CompressionCodec
+    from tpu_parquet_torch.writer import FileWriter
+
+    t0 = time.perf_counter()
+    with FileWriter(path, orders_schema(), codec=CompressionCodec.SNAPPY,
+                    use_dictionary=True, write_crc=True,
+                    row_group_size=1 << 30) as w:
+        for g in groups:
+            cols = {"o_orderkey": g["o_orderkey"]}
+            for c in NESTED_LINE_COLUMNS:
+                cols[f"lines.list.element.{c}"] = ColumnData(
+                    values=g[c], def_levels=g["def"], rep_levels=g["rep"],
+                    max_def=2, max_rep=1, num_leaf_slots=len(g["rep"]))
+            w.write_columns(cols)
+            w.flush_row_group()
+    return time.perf_counter() - t0
+
+
+def edge_groups(rows: int = EDGE_ROWS, group: int = EDGE_GROUP):
+    """Phase 10b's columns, per row group of ``group`` rows, from seed 10:
+    ``input_ids`` LIST<INT32> (lengths uniform on 0-512, 1% null lists, ids
+    of a 32,000-token vocabulary), ``tags`` LIST<OPTIONAL INT64> (0-7
+    elements, 5% null lists, 10% null elements), ``attrs`` MAP<STRING,
+    OPTIONAL INT64> (0-5 of 64 keys, 3% null maps, 15% null values) and
+    ``matrix`` LIST<LIST<OPTIONAL INT32>> (0-4 lists of 0-4 values, nulls
+    at every level).  Each leaf is ``(values, def, rep, max_def,
+    max_rep)``."""
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    rng = np.random.default_rng(10)
+    keys = [f"attr_{i:02d}".encode() for i in range(64)]
+    out = []
+    for lo in range(0, rows, group):
+        n = min(group, rows - lo)
+        g = {}
+        lens = rng.integers(0, 513, n)
+        null = rng.random(n) < 0.01
+        ids = rng.integers(0, VOCAB, int(lens[~null].sum())).astype(np.int32)
+        g["input_ids.list.element"] = (ids, *list_levels(lens, null), 2, 1)
+        lens = rng.integers(0, 8, n)
+        null = rng.random(n) < 0.05
+        m = int(lens[~null].sum())
+        present = rng.random(m) >= 0.10
+        vals = rng.integers(0, 1 << 40, int(present.sum()))
+        g["tags.list.element"] = (vals, *list_levels(lens, null, present),
+                                  3, 1)
+        lens = rng.integers(0, 6, n)
+        null = rng.random(n) < 0.03
+        m = int(lens[~null].sum())
+        kidx = rng.integers(0, len(keys), m)
+        present = rng.random(m) >= 0.15
+        g["attrs.key_value.key"] = (ByteArrayData.from_list(keys).take(kidx),
+                                    *list_levels(lens, null), 2, 1)
+        g["attrs.key_value.value"] = (
+            rng.integers(-(1 << 31), 1 << 31, int(present.sum())),
+            *list_levels(lens, null, present), 3, 1)
+        outer = rng.integers(0, 5, n)
+        onull = rng.random(n) < 0.02
+        n_inner = int(np.where(onull, 0, outer).sum())
+        inner = rng.integers(0, 5, n_inner)
+        inull = rng.random(n_inner) < 0.05
+        m = int(np.where(inull, 0, inner).sum())
+        present = rng.random(m) >= 0.10
+        g["matrix.list.element.list.element"] = (
+            rng.integers(0, 100, int(present.sum())).astype(np.int32),
+            *matrix_levels(outer, onull, inner, inull, present), 5, 2)
+        g["rows"] = n
+        out.append(g)
+    return out
+
+
+def edge_schema():
+    from tpu_parquet_torch.format import (ConvertedType,
+                                          FieldRepetitionType as FRT,
+                                          LogicalType, StringType, Type)
+    from tpu_parquet_torch.schema.core import (ColumnParameters,
+                                               build_schema, data_column,
+                                               list_column, map_column)
+
+    utf8 = ColumnParameters(logical_type=LogicalType(STRING=StringType()),
+                            converted_type=ConvertedType.UTF8)
+    return build_schema([
+        list_column("input_ids",
+                    data_column("element", Type.INT32, FRT.REQUIRED)),
+        list_column("tags", data_column("element", Type.INT64,
+                                        FRT.OPTIONAL)),
+        map_column("attrs",
+                   data_column("key", Type.BYTE_ARRAY, FRT.REQUIRED, utf8),
+                   data_column("value", Type.INT64, FRT.OPTIONAL)),
+        list_column("matrix", list_column(
+            "element", data_column("element", Type.INT32, FRT.OPTIONAL))),
+    ])
+
+
+def write_edges(path: str, groups) -> float:
+    """Phase 10b's file: the port's writer, data pages v2, dictionary on,
+    SNAPPY, page CRCs, one row group per group."""
+    from tpu_parquet_torch.column import ColumnData
+    from tpu_parquet_torch.format import CompressionCodec
+    from tpu_parquet_torch.writer import FileWriter
+
+    t0 = time.perf_counter()
+    with FileWriter(path, edge_schema(), codec=CompressionCodec.SNAPPY,
+                    data_page_version=2, use_dictionary=True,
+                    write_crc=True, row_group_size=1 << 30) as w:
+        for g in groups:
+            w.write_columns({
+                leaf: ColumnData(values=v, def_levels=d, rep_levels=r,
+                                 max_def=md, max_rep=mr,
+                                 num_leaf_slots=len(r))
+                for leaf, (v, d, r, md, mr) in
+                ((k, g[k]) for k in EDGE_LEAVES)})
+            w.flush_row_group()
+    return time.perf_counter() - t0
+
+
+def _same_host(got, want) -> bool:
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    if isinstance(want, ByteArrayData):
+        return (isinstance(got, ByteArrayData)
+                and np.array_equal(got.offsets, want.offsets)
+                and np.array_equal(got.heap, want.heap))
+    return got.dtype == want.dtype and np.array_equal(
+        np.ascontiguousarray(got).view(np.uint8),
+        np.ascontiguousarray(want).view(np.uint8))
+
+
+def check_leaf(col, values, d, r, name: str, label: str) -> int:
+    """One nested leaf bit for bit: values, def levels, rep levels; on the
+    card, ``row_starts_from_rep`` counts the rows.  Returns the decoded
+    bytes."""
+    import numpy as np
+
+    from tpu_parquet_torch import torch_kernels as TK
+
+    got = col.to_host()
+    gd, gr = col.levels_to_host()
+    if not _same_host(got, values):
+        raise fail(f"{label}: values of {name} differ from the generator")
+    for lv, g, w in (("def", gd, d), ("rep", gr, r)):
+        if g is None or len(g) != len(w) or not np.array_equal(
+                g.astype(np.int64), w.astype(np.int64)):
+            raise fail(f"{label}: {lv} levels of {name} differ from the "
+                       f"generator")
+    slots = col.num_leaf_slots
+    starts, row_index = TK.row_starts_from_rep(col.rep_levels[:slots])
+    rows = int((r == 0).sum())
+    if int(starts.sum()) != rows or int(row_index[-1]) != rows - 1:
+        raise fail(f"{label}: row_starts_from_rep of {name} on the card "
+                   f"does not count {rows} rows")
+    nbytes = (got.offsets.nbytes + got.heap.nbytes
+              if hasattr(got, "offsets") else got.nbytes)
+    return nbytes + gd.nbytes + gr.nbytes
+
+
+def check_scatter(torch, col, want_slots, fill, name: str,
+                  label: str) -> None:
+    """``scatter_defined`` of one leaf's defined values on the card equals
+    the generator's values slot by slot (``fill`` at null slots)."""
+    from tpu_parquet_torch import torch_kernels as TK
+    from tpu_parquet_torch.device_reader import DeviceDictColumn
+
+    if isinstance(col, DeviceDictColumn):
+        col = col.materialize()
+    slots = col.num_leaf_slots
+    valid = col.def_levels[:slots] == col.max_def
+    got = TK.scatter_defined(col.values[: col.num_values], valid, fill)
+    want = torch.from_numpy(want_slots).to(got.device)
+    if not torch.equal(got, want):
+        raise fail(f"{label}: scatter_defined of {name} on the card differs "
+                   f"from the generator's slots")
+
+
+def check_orders(torch, outs, groups, label: str) -> tuple:
+    """Phase 10a's check: every leaf of every row group bit for bit against
+    the generator (values, def and rep levels), rows counted on the card
+    from the rep levels, ``l_quantity`` scattered to its slots on the card.
+    Returns (orders, decoded bytes)."""
+    import numpy as np
+
+    orders = decoded = 0
+    for rg, g in zip(outs, groups, strict=True):
+        key = rg["o_orderkey"].to_host()
+        if not _same_host(key, g["o_orderkey"]):
+            raise fail(f"{label}: o_orderkey differs from the generator")
+        decoded += key.nbytes
+        for c in NESTED_LINE_COLUMNS:
+            name = f"lines.list.element.{c}"
+            decoded += check_leaf(rg[name], g[c], g["def"], g["rep"], name,
+                                  label)
+        check_scatter(torch, rg["lines.list.element.l_quantity"],
+                      np.asarray(g["l_quantity"]), -1,
+                      "lines.list.element.l_quantity", label)
+        orders += len(g["o_orderkey"])
+    return orders, decoded
+
+
+def check_edges(torch, outs, groups, label: str) -> tuple:
+    """Phase 10b's check: each leaf bit for bit against the generator, rows
+    counted on the card; ``tags`` scattered to its slots on the card (0 at
+    the null slots).  Returns (rows, decoded bytes)."""
+    import numpy as np
+
+    rows = decoded = 0
+    for rg, g in zip(outs, groups, strict=True):
+        for name in EDGE_LEAVES:
+            v, d, r, md, _ = g[name]
+            if rg[name].max_def != md:
+                raise fail(f"{label}: {name} has max_def "
+                           f"{rg[name].max_def}, want {md}")
+            decoded += check_leaf(rg[name], v, d, r, name, label)
+        v, d, _, md, _ = g["tags.list.element"]
+        slots = np.zeros(len(d), v.dtype)
+        slots[d == md] = v
+        check_scatter(torch, rg["tags.list.element"], slots, 0,
+                      "tags.list.element", label)
+        rows += g["rows"]
+    return rows, decoded
+
+
+def k1_stream_split(kinds: list) -> dict:
+    """{"rep": n, "def": n, "index": n} over the planned streams of ONE
+    read (``read_main_path`` reads twice; the first half is the checked
+    read)."""
+    first = kinds[: len(kinds) // 2]
+    return {k: first.count(k) for k in ("rep", "def", "index")}
+
+
+def read_nested(torch, ck, path: str, groups, label: str, check,
+                smi: str) -> dict:
+    """Read a nested file on the card through the public entry point
+    (``read_main_path``: the launch counts, a checked pass, a warm pass),
+    with each fused K1 launch attributed to the stream it decoded (rep
+    levels, def levels, dictionary indices); then the profiled and the
+    cProfile'd passes."""
+    from tpu_parquet_torch import device_reader as DR
+
+    kinds = []
+    current = ["index"]
+    real_levels = DR._ChunkAssembler._plan_levels
+    real_plan = DR._plan_hybrid_pallas
+
+    def levels_spy(self, stager, streams, *args, **kw):
+        rep = bool(self.pages) and streams[0] is self.pages[0].rep_stream
+        current.append("rep" if rep else "def")
+        try:
+            return real_levels(self, stager, streams, *args, **kw)
+        finally:
+            current.pop()
+
+    def plan_spy(*args):
+        plan = real_plan(*args)
+        if plan is not None:
+            kinds.append(current[-1])
+        return plan
+
+    DR._ChunkAssembler._plan_levels = levels_spy
+    DR._plan_hybrid_pallas = plan_spy
+    try:
+        main = read_main_path(
+            torch, ck, path, groups, label, columns=None,
+            check=lambda outs, gs, _cols, lab: check(torch, outs, gs, lab))
+    finally:
+        DR._ChunkAssembler._plan_levels = real_levels
+        DR._plan_hybrid_pallas = real_plan
+    split = k1_stream_split(kinds)
+    if sum(split.values()) != main["counts"]["hybrid_unpack_combine"] or \
+            split["rep"] <= 0:
+        raise fail(f"{label}: hybrid_unpack_combine launched "
+                   f"{main['counts']['hybrid_unpack_combine']} times for "
+                   f"planned streams {split}; rep-level streams must be "
+                   f"among them")
+    main["k1_split"] = split
+    log(f"{label}: hybrid_unpack_combine launches by stream: {split}")
+    main["device"] = device_breakdown(torch, path, label, columns=None)
+    summary(main, main["device"], label, smi)
+    host_breakdown(torch, path, label, None)
+    return main
+
+
+def logical_orders(g, count: int) -> list:
+    """The first ``count`` orders of a group as the logical rows a reader's
+    ``iter_rows_logical()`` gives back."""
+    starts = [0]
+    for n in g["lens"][:count]:
+        starts.append(starts[-1] + int(n))
+    cols = {c: (g[c].to_list()[: starts[-1]] if hasattr(g[c], "offsets")
+                else g[c][: starts[-1]].tolist())
+            for c in NESTED_LINE_COLUMNS}
+    for c in ("l_shipmode", "l_comment"):
+        cols[c] = [b.decode() for b in cols[c]]
+    return [{"o_orderkey": int(g["o_orderkey"][i]),
+             "lines": [{c: cols[c][j] for c in NESTED_LINE_COLUMNS}
+                       for j in range(starts[i], starts[i + 1])]}
+            for i in range(count)]
+
+
+def check_host_reader(torch, path: str, groups, label: str) -> None:
+    """Row group 0 through the port's host ``FileReader``: its ``ColumnData``
+    equal to the device read's ``to_host()`` / ``levels_to_host()``, and
+    ``iter_rows_logical()`` giving back the generator's first orders."""
+    import itertools
+
+    import numpy as np
+
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+    from tpu_parquet_torch.reader import FileReader
+
+    t0 = time.perf_counter()
+    with FileReader(path) as r:
+        host = r.read_row_group(0)
+        t1 = time.perf_counter()
+        rows = list(itertools.islice(r.iter_rows_logical(), LOGICAL_ORDERS))
+        t2 = time.perf_counter()
+    with DeviceFileReader(path) as r:
+        dev = r.read_row_group(0)
+    for name, cd in host.items():
+        col = dev[name]
+        d, rep = col.levels_to_host()
+        same = _same_host(cd.values, col.to_host())
+        for hl, dl in ((cd.def_levels, d), (cd.rep_levels, rep)):
+            same = same and (hl is None) == (dl is None) and (
+                hl is None or np.array_equal(hl.astype(np.int64),
+                                             dl.astype(np.int64)))
+        if not same:
+            raise fail(f"{label}: the host FileReader's {name} differs from "
+                       f"the device read's")
+    if rows != logical_orders(groups[0], LOGICAL_ORDERS):
+        raise fail(f"{label}: iter_rows_logical() does not give back the "
+                   f"generator's first {LOGICAL_ORDERS} orders")
+    log(f"{label}: host FileReader row group 0 ({len(host)} columns) equal "
+        f"to the device read in {t1 - t0:.4f} s; iter_rows_logical() gave "
+        f"the generator's first {LOGICAL_ORDERS} orders in {t2 - t1:.4f} s "
+        f"(assembly of the whole row group)")
+
+
+def read_nested_phase(torch, ck, draws, work: str, smi: str) -> dict:
+    """Phase 10: (a) TPC-H orders with their lineitems nested, SF1; (b) the
+    edge shapes (a tokenized corpus's ``input_ids``, null elements, a MAP,
+    ``max_rep`` 2), 200,000 rows, v2 pages."""
+    out = {}
+    label = "nested orders SF1"
+    groups = nested_orders(draws)
+    path = os.path.join(work, "orders_nested_sf1.parquet")
+    secs = write_orders(path, groups)
+    lines = sum(len(g["rep"]) for g in groups)
+    log(f"wrote {path}: {sum(len(g['o_orderkey']) for g in groups)} orders, "
+        f"{lines} lineitems, {len(groups)} row groups, "
+        f"{os.path.getsize(path)} bytes in {secs:.2f} s; encodings "
+        f"{chunk_encodings(path)}")
+    main = read_nested(torch, ck, path, groups, label, check_orders, smi)
+    main["lines_per_s"] = lines / main["seconds"]
+    log(f"{label}: warm pass {main['rows_per_s']:.1f} orders/s, "
+        f"{main['lines_per_s']:.1f} lineitems/s ({smi})")
+    check_host_reader(torch, path, groups, label)
+    out["orders"] = main
+    del groups
+    label = "nested edge shapes"
+    groups = edge_groups(EDGE_ROWS, EDGE_GROUP)
+    path = os.path.join(work, "nested_edges.parquet")
+    secs = write_edges(path, groups)
+    slots = sum(len(g["input_ids.list.element"][2]) for g in groups)
+    log(f"wrote {path}: {EDGE_ROWS} rows, {len(groups)} row groups, "
+        f"{slots} input_ids slots, {os.path.getsize(path)} bytes in "
+        f"{secs:.2f} s; encodings {chunk_encodings(path)}")
+    main = read_nested(torch, ck, path, groups, label, check_edges, smi)
+    if main["k1_split"]["rep"] <= 0 or not any(
+            len(g["matrix.list.element.list.element"][2]) for g in groups):
+        raise fail(f"{label}: no rep stream through the fused K1")
+    out["edges"] = main
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -2101,6 +2641,9 @@ def main() -> int:
     # phase 9: the remaining value shapes
     shapes = read_value_shapes(torch, ck, value_shape_groups(draws), work,
                                smi)
+
+    # phase 10: nested columns (rep levels through the fused K1)
+    nested = read_nested_phase(torch, ck, draws, work, smi)
     del draws
 
     # the kernels line and the result line
@@ -2149,7 +2692,12 @@ def main() -> int:
         f"pyarrow layout {pa_layout['counts']['hybrid_unpack_combine']} "
         f"(mixed-prefix groups through it {pa_layout['mixed_groups'][0]} of "
         f"{pa_layout['mixed_groups'][1]}), value shapes "
-        f"{shapes['counts']['hybrid_unpack_combine']} ({smi})")
+        f"{shapes['counts']['hybrid_unpack_combine']}; nested orders "
+        f"{nested['orders']['rows_per_s']:.1f} orders/s "
+        f"({nested['orders']['lines_per_s']:.1f} lineitems/s), "
+        f"hybrid_unpack_combine {nested['orders']['k1_split']}; nested edge "
+        f"shapes {nested['edges']['rows_per_s']:.1f} rows/s, "
+        f"hybrid_unpack_combine {nested['edges']['k1_split']} ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

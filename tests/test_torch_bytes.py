@@ -366,22 +366,43 @@ def test_iter_batches_materializes_string_dictionaries_first(
     assert seen[0].to_host() == col.to_host()
 
 
-def test_slice_names_byte_arrays():
-    from tpu_parquet_torch.format import (FieldRepetitionType as PFRT,
-                                          Type as PType)
-    from tpu_parquet_torch.schema.core import (build_schema as p_build,
-                                               data_column as p_column)
+def test_slice_names_byte_arrays(tmp_path, reference_env):
+    """The slice names its byte-array shapes, and a repeated BYTE_ARRAY leaf
+    (refused before nested columns were ported) reads equal to the
+    reference beside a flat string and a BOOLEAN, rep levels included."""
+    from tpu_parquet.schema.core import list_column
 
     assert "BYTE_ARRAY" in DR.SLICE and "DELTA_BINARY_PACKED" in DR.SLICE
     assert "BYTE_ARRAY" in DR.__doc__ and "DeviceDictColumn" in DR.__doc__
-    from tpu_parquet_torch.schema.core import list_column
-
-    schema = p_build([p_column("s", PType.BYTE_ARRAY, PFRT.OPTIONAL),
-                      p_column("b", PType.BOOLEAN, PFRT.REQUIRED),
-                      list_column("r", p_column("element", PType.BYTE_ARRAY,
-                                                PFRT.REQUIRED))])
-    strings, flags, repeated = schema.leaves
-    DR._check_leaf(strings)  # in the slice
-    DR._check_leaf(flags)  # every flat leaf is, BOOLEAN included
-    with pytest.raises(NotImplementedError, match="BYTE_ARRAY"):
-        DR._check_leaf(repeated)  # the refusal names the slice's types
+    schema = build_schema([
+        data_column("s", Type.BYTE_ARRAY, FRT.OPTIONAL),
+        data_column("b", Type.BOOLEAN, FRT.REQUIRED),
+        list_column("r", data_column("element", Type.BYTE_ARRAY,
+                                     FRT.REQUIRED))])
+    path = str(tmp_path / "repeated_bytes.parquet")
+    rows = [{"s": None if i % 4 == 0 else WORDS[i % len(WORDS)],
+             "b": i % 3 == 0,
+             "r": [WORDS[(i + j) % len(WORDS)] for j in range(i % 5)]}
+            for i in range(2_000)]
+    with FileWriter(path, schema, page_size=2048, use_dictionary=False) as w:
+        w.write_rows(rows)
+    with RefReader(path) as r:
+        ref = {k: (v.to_host(), v.levels_to_host())
+               for k, v in r.read_row_group(0).items()}
+    with DeviceFileReader(path, device="cpu") as r:
+        got = {k: (v.to_host(), v.levels_to_host())
+               for k, v in r.read_row_group(0).items()}
+    assert set(got) == set(ref) == {"s", "b", "r.list.element"}
+    for name, ((rv, rl), (gv, gl)) in ((k, (ref[k], got[k])) for k in ref):
+        if isinstance(rv, ByteArrayData):
+            assert np.array_equal(gv.offsets, rv.offsets), name
+            assert np.array_equal(gv.heap, rv.heap), name
+        else:
+            assert gv.dtype == rv.dtype and np.array_equal(gv, rv), name
+        for g, w in zip(gl, rl):
+            assert (g is None) == (w is None), name
+            if w is not None:
+                assert g.dtype == w.dtype and np.array_equal(g, w), name
+    values, (_, rep) = got["r.list.element"]
+    assert values.to_list() == [v for row in rows for v in row["r"]]
+    assert rep is not None and int((rep == 0).sum()) == len(rows)

@@ -349,7 +349,8 @@ def test_port_imports_no_jax_and_no_reference_module():
         for name in names:
             importlib.import_module(name)
         for name in ("ship", "torch_kernels", "cuda_kernels",
-                     "device_reader", "torch_decode"):
+                     "device_reader", "torch_decode", "reader", "assembly",
+                     "logical", "alloc", "chunk_decode"):
             assert "tpu_parquet_torch." + name in names, name
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

@@ -281,8 +281,8 @@ def test_default_device_is_cuda_and_raises_without_it(files):
 def test_columns_outside_the_slice_raise(tmp_path, reference_env):
     """Once outside the slice, now read equal to the reference: BOOLEAN
     columns, DELTA_LENGTH_BYTE_ARRAY strings beside DELTA_BINARY_PACKED
-    integers, and a dictionary-overflow chunk (early pages dictionary
-    encoded, later pages PLAIN).  A repeated leaf is still refused."""
+    integers, a dictionary-overflow chunk (early pages dictionary encoded,
+    later pages PLAIN) and a repeated leaf (a LIST column)."""
     path = str(tmp_path / "other.parquet")
     pq.write_table(pa.table({"b": pa.array([True, False] * 50),
                              "n": pa.array(np.arange(100))}), path)
@@ -315,15 +315,22 @@ def test_columns_outside_the_slice_raise(tmp_path, reference_env):
     _assert_same(ref, got)
     assert np.array_equal(got[0]["m"][0], np.arange(5000))
     assert _routes(got_stats) == _routes(ref_stats)
-    from tpu_parquet_torch.format import (FieldRepetitionType as PFRT,
-                                          Type as PType)
-    from tpu_parquet_torch.schema.core import (build_schema as p_build,
-                                               data_column as p_column,
-                                               list_column)
-    leaf = p_build([list_column("l", p_column("element", PType.INT64,
-                                              PFRT.REQUIRED))]).leaves[0]
-    with pytest.raises(NotImplementedError, match="repeated column l"):
-        DR._check_leaf(leaf)
+    # a repeated leaf, refused before nested columns were ported, reads
+    # equal to the reference, rep levels included
+    nested = str(tmp_path / "nested.parquet")
+    pq.write_table(pa.table({"l": pa.array(
+        [list(range(i % 5)) if i % 7 else None for i in range(300)],
+        pa.list_(pa.int64()))}), nested)
+    with RefReader(nested) as r:
+        ref = r.read_row_group(0)["l.list.element"]
+        want, (want_d, want_r) = ref.to_host(), ref.levels_to_host()
+    with DeviceFileReader(nested, device="cpu") as r:
+        col = r.read_row_group(0)["l.list.element"]
+    got, (got_d, got_r) = col.to_host(), col.levels_to_host()
+    assert col.max_rep == 1 and got_r is not None
+    for g, w in ((got, want), (got_d, want_d), (got_r, want_r)):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert int((got_r == 0).sum()) == 300  # one rep-0 slot per row
 
 
 def test_corrupt_page_crc_raises(files, tmp_path):

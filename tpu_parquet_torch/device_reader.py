@@ -25,17 +25,20 @@ columns.  Per row group:
    fixed-width byte rows, or the ragged offsets and heap) for a
    dictionary-encoded chunk, as the reference returns them.
 
-The slice: every flat column (REQUIRED or OPTIONAL, no repetition) the
-reference reads — BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY
-and FIXED_LEN_BYTE_ARRAY; UNCOMPRESSED, SNAPPY, GZIP and ZSTD; data pages
-v1 and v2; page CRCs.  Batched on the row group's buffer: PLAIN,
+The slice: every column the reference reads, flat or nested (REQUIRED,
+OPTIONAL and repeated leaves: LIST, MAP, nested groups, legacy two-level
+lists) — BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY and
+FIXED_LEN_BYTE_ARRAY; UNCOMPRESSED, SNAPPY, GZIP and ZSTD; data pages v1
+and v2; page CRCs.  Def and rep levels are planned alike: each page's RLE
+level stream goes through the fused K1 where it has bit-packed runs.
+Batched on the row group's buffer: PLAIN,
 dictionary and DELTA_BINARY_PACKED chunks, PLAIN BOOLEAN, INT96 and FLBA,
 and the dictionary fallback (a dictionary-encoded prefix of pages, then
 PLAIN pages) of a fixed-width column.  Every other chunk (BYTE_STREAM_SPLIT,
 DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY, boolean RLE, other mixes of
 encodings) takes the host-decode path, ``_finish_host``: page by page
-through ``torch_decode.DeviceChunkDecoder``, staged per page.  A repeated
-leaf raises ``NotImplementedError`` naming the slice.
+through ``torch_decode.DeviceChunkDecoder``, staged per page.
+``decode_chunk_batched`` decodes one chunk without a reader.
 
 Every raise of the chunk walk carries the decode site
 (``errors.error_context``: file, column, row group, page, byte offset).
@@ -59,7 +62,8 @@ import torch
 
 from . import native
 from . import torch_kernels as K
-from .chunk_decode import _check_crc, validate_chunk_meta, walk_pages
+from .chunk_decode import (_check_crc, require_full, row_group_chunks,
+                           walk_pages)
 from .errors import error_context
 from .column import ByteArrayData
 from .compress import decompress_block
@@ -71,11 +75,12 @@ from .footer import ParquetError, read_file_metadata
 from .format import CompressionCodec, Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack
 from .kernels.delta import _read_uvarint
+from .reader import apply_selection, resolve_validate
 from .schema.core import Schema, SchemaNode
 from .ship import (
     ChunkFacts, FUSED_ROUTES, ROUTE_DEVICE_SNAPPY, ROUTE_FUSED_NARROW_SNAPPY,
     ROUTE_FUSED_PLAIN, ROUTE_NARROW, ROUTE_NARROW_SNAPPY, ROUTE_PLAIN,
-    ROUTE_RECOMPRESS, SNAPPY_WORTH_RATIO, ShipPlanner,
+    ROUTE_RECOMPRESS, SNAPPY_WORTH_RATIO, ShipPlanner, default_planner,
 )
 from .torch_decode import (
     DeviceColumnData, ParsedDataPage, _bucket, _bucket_bytes, _bucket_count,
@@ -85,20 +90,18 @@ from .torch_decode import (
     parse_delta_meta, parse_hybrid_meta,
 )
 
-__all__ = ["DeviceDictColumn", "DeviceFileReader", "ReaderStats"]
+__all__ = ["DeviceDictColumn", "DeviceFileReader", "ReaderStats",
+           "decode_chunk_batched"]
 
-SLICE = ("flat columns of every physical type (BYTE_ARRAY and "
+SLICE = ("flat and nested columns (repeated leaves: LIST, MAP, nested "
+         "groups) of every physical type (BYTE_ARRAY and "
          "FIXED_LEN_BYTE_ARRAY included) with PLAIN, dictionary, "
          "DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT, delta byte-array or boolean "
-         "RLE pages (the tpu_parquet_torch flat-column slice)")
+         "RLE pages")
 
 _I32_MAX = np.iinfo(np.int32).max
 
 _TORCH_DTYPES = K._TORCH_DTYPES
-
-
-def _out_of_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not supported by {SLICE}")
 
 
 # pointer-doubling round buckets; 24 covers chains of 2^24 ops
@@ -950,24 +953,34 @@ def _run_plans(plans, buf_dev):
     return {name: p.build(p.fn(buf_dev, *p.dyn)) for name, p in plans}
 
 
-def _compose_column(value_plan: "_Plan", d_plan) -> "_Plan":
-    """Fuse a chunk's value plan with its def-level plan into one _Plan
-    producing the finished DeviceColumnData."""
-    if d_plan is None:
+def _compose_column(value_plan: "_Plan", d_plan, r_plan) -> "_Plan":
+    """Fuse a chunk's value plan with its def- and rep-level plans into one
+    _Plan producing the finished DeviceColumnData."""
+    if d_plan is None and r_plan is None:
         return value_plan
     nv = len(value_plan.dyn)
-    v_fn, d_fn = value_plan.fn, d_plan.fn
+    nd = len(d_plan.dyn) if d_plan is not None else 0
+    v_fn = value_plan.fn
+    d_fn = d_plan.fn if d_plan is not None else None
+    r_fn = r_plan.fn if r_plan is not None else None
 
     def fn(buf, *dyn):
-        return (v_fn(buf, *dyn[:nv]), d_fn(buf, *dyn[nv:]))
+        return (v_fn(buf, *dyn[:nv]),
+                d_fn(buf, *dyn[nv : nv + nd]) if d_fn is not None else None,
+                r_fn(buf, *dyn[nv + nd :]) if r_fn is not None else None)
 
     def build(res):
-        vres, dres = res
+        vres, dres, rres = res
         col = value_plan.build(vres)
-        col.def_levels = dres
+        if d_plan is not None:
+            col.def_levels = dres
+        if r_plan is not None:
+            col.rep_levels = rres
         return col
 
-    return _Plan(fn, value_plan.dyn + d_plan.dyn, build)
+    dyn = (value_plan.dyn + (d_plan.dyn if d_plan is not None else ())
+           + (r_plan.dyn if r_plan is not None else ()))
+    return _Plan(fn, dyn, build)
 
 
 def _fused_words_cast(words: torch.Tensor, dtype: str) -> torch.Tensor:
@@ -1293,12 +1306,19 @@ class _ChunkAssembler:
             for p in self.pages:
                 p.materialize()
         slots_pad = _bucket_count(slots)
-        d_plan = None
+        d_plan = r_plan = None
         if leaf.max_def > 0:
             d_plan = self._plan_levels(
                 stager, [p.def_stream for p in self.pages],
                 bitpack.bit_width(leaf.max_def), slots, slots_pad,
                 metas=[p.def_meta for p in self.pages],
+            )
+        if leaf.max_rep > 0:
+            # no metas, as in the reference: the page parse walked only the
+            # def stream, so each rep stream's runs are walked here
+            r_plan = self._plan_levels(
+                stager, [p.rep_stream for p in self.pages],
+                bitpack.bit_width(leaf.max_rep), slots, slots_pad,
             )
         common = dict(
             max_def=leaf.max_def, max_rep=leaf.max_rep, num_leaf_slots=slots,
@@ -1339,7 +1359,7 @@ class _ChunkAssembler:
             value_plan = self._finish_host(common)
         # every plan has captured what it needs: drop the parsed pages
         self.pages = []
-        return _compose_column(value_plan, d_plan)
+        return _compose_column(value_plan, d_plan, r_plan)
 
     def _plan_levels(self, stager: _RowGroupStager, streams, width: int,
                      slots: int, slots_pad: int, metas=None):
@@ -2436,6 +2456,32 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
     return asm
 
 
+def decode_chunk_batched(buf: bytes, codec: int, total_values: int,
+                         leaf: SchemaNode, deferred_checks: list,
+                         validate_crc: bool = False,
+                         device=None) -> DeviceColumnData:
+    """Decode one column chunk without a reader: the same walk, ship plan
+    (``ship.default_planner()``) and device plan as a row group's chunk, on
+    a stager of its own.  ``device`` is ``cuda`` unless the caller names
+    another.
+
+    The dictionary-index range checks that could not run on the host land
+    in ``deferred_checks`` as ``(device max, dict_len, column)``: the
+    caller must drain them (``DeviceFileReader.finalize`` does the same),
+    or a corrupt index reads the clamped row."""
+    dev = _resolve_device(device, "decode_chunk_batched")
+    asm = _collect_chunk(buf, codec, total_values, leaf, deferred_checks,
+                         validate_crc, device=dev)
+    if not asm.pages:
+        return DeviceColumnData(
+            values=torch.zeros(0, dtype=torch.int64, device=dev),
+            max_def=leaf.max_def, max_rep=leaf.max_rep, num_leaf_slots=0)
+    asm.preship(default_planner())
+    stager = _RowGroupStager()
+    plan = asm.finish(stager)
+    return _run_plans([("c", plan)], stager.stage(dev))["c"]
+
+
 @dataclass
 class ReaderStats:
     """Decode counters, accumulated per DeviceFileReader (the reference's
@@ -2509,34 +2555,6 @@ class ReaderStats:
         }
 
 
-_VALIDATE_ON = ("1", "on", "true", "crc", "yes")
-_VALIDATE_OFF = ("0", "off", "false", "no")
-
-
-def _resolve_validate(validate_crc=None) -> bool:
-    """``validate_crc`` as the reference resolves it: ``None`` reads
-    ``TPQ_VALIDATE`` (default ``crc``: page CRCs are verified when
-    present)."""
-    if validate_crc is None:
-        raw = os.environ.get("TPQ_VALIDATE", "crc").lower()
-        return raw not in _VALIDATE_OFF
-    if isinstance(validate_crc, bool):
-        return validate_crc
-    v = str(validate_crc).lower()
-    if v in _VALIDATE_ON:
-        return True
-    if v in _VALIDATE_OFF:
-        return False
-    raise ValueError(f"validate_crc must be a bool, 'crc', or 'off'; "
-                     f"got {validate_crc!r}")
-
-
-def _check_leaf(leaf: SchemaNode) -> None:
-    """Every flat leaf is in the slice; a repeated one is not yet."""
-    if leaf.max_rep > 0:
-        raise _out_of_slice(f"repeated column {'.'.join(leaf.path)}")
-
-
 class DeviceFileReader:
     """Columnar file reader decoding straight to device tensors.
 
@@ -2567,7 +2585,7 @@ class DeviceFileReader:
             self._owns_file = False
             self._source_name = getattr(source, "name", None) or "<stream>"
         try:
-            self.validate_crc = _resolve_validate(validate_crc)
+            self.validate_crc = resolve_validate(validate_crc)
             self.metadata = read_file_metadata(self._f)
             self.schema = Schema.from_file_metadata(self.metadata)
             self.set_selected_columns(columns)
@@ -2583,22 +2601,8 @@ class DeviceFileReader:
         self._pinned = _PinnedPool() if self.device.type == "cuda" else None
 
     def set_selected_columns(self, columns) -> None:
-        """Project to ``columns`` (None = all); every selected leaf must be
-        in the slice, or this raises ``NotImplementedError``."""
-        if columns is None:
-            self.schema.set_selected(None)
-        else:
-            paths = [tuple(c.split(".")) if isinstance(c, str) else tuple(c)
-                     for c in columns]
-            if not self.schema.selection_matches(paths):
-                known = [".".join(l.path) for l in self.schema.leaves]
-                raise ParquetError(
-                    f"selected columns {['.'.join(p) for p in paths]} "
-                    f"match no schema columns; available: {known}"
-                )
-            self.schema.set_selected(paths)
-        for leaf in self.schema.selected_leaves():
-            _check_leaf(leaf)
+        """Project to ``columns`` (None = all)."""
+        apply_selection(self.schema, columns)
 
     def close(self) -> None:
         if self._owns_file:
@@ -2629,23 +2633,11 @@ class DeviceFileReader:
         out: dict[str, DeviceColumnData] = {}
         stager = _RowGroupStager()
         plans: list[tuple[str, _Plan]] = []
-        for chunk in rg.columns or []:
-            md = chunk.meta_data
-            if md is None or md.path_in_schema is None:
-                raise ParquetError("column chunk missing metadata/path")
-            path = tuple(md.path_in_schema)
-            leaf = leaves.get(path)
-            if leaf is None:
-                continue  # unselected: never read its bytes
-            md, offset = validate_chunk_meta(chunk, leaf)
+        for path, leaf, _chunk, md, offset in row_group_chunks(rg, leaves):
             self._f.seek(offset)
-            buf = self._f.read(md.total_compressed_size)
-            if len(buf) != md.total_compressed_size:
-                raise ParquetError(
-                    f"truncated file reading column {'.'.join(path)}: wanted "
-                    f"{md.total_compressed_size} bytes at offset {offset}, "
-                    f"got {len(buf)} — the file is shorter than its "
-                    f"metadata claims")
+            buf = require_full(self._f.read(md.total_compressed_size),
+                               offset, md.total_compressed_size,
+                               context=f"column {'.'.join(path)}")
             self._stats.chunks += 1
             self._stats.compressed_bytes += md.total_compressed_size
             ctx = {"file": self._source_name, "row_group": index,
@@ -2733,10 +2725,10 @@ class DeviceFileReader:
         """Yield fixed-size device batches ``{column: tensor[batch_size]}``.
 
         Rows flow across row-group boundaries; the final short remainder is
-        NOT yielded (drop_remainder semantics).  Fixed-width, null-free
-        columns only: a ragged BYTE_ARRAY column has no fixed row shape and
-        raises ``TypeError``; a string dictionary column is materialized
-        first, and raises too."""
+        NOT yielded (drop_remainder semantics).  Fixed-width, flat,
+        null-free columns only: a ragged BYTE_ARRAY column has no fixed row
+        shape and raises ``TypeError`` (a string dictionary column is
+        materialized first, and raises too), as does a repeated column."""
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         want = None if columns is None else set(columns)
@@ -2752,6 +2744,11 @@ class DeviceFileReader:
                     raise TypeError(
                         f"iter_batches needs fixed-width columns; "
                         f"{name!r} is ragged (offsets/heap)"
+                    )
+                if col.max_rep > 0:
+                    raise TypeError(
+                        f"iter_batches needs flat columns; {name!r} is "
+                        f"repeated"
                     )
                 if col.num_values != col.num_leaf_slots:
                     raise TypeError(

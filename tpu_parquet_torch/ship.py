@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 from dataclasses import dataclass
 
 ROUTE_PLAIN = "plain"
@@ -82,8 +83,8 @@ MIN_COMPRESS_BYTES = 1 << 16
 EST_NARROW_SNAPPY_RATIO = 0.6
 EST_RECOMPRESS_RATIO = 0.5
 # inter-stage spill the unfused decode chain pays beyond its resolve term
-# (the reference's fused-vs-unfused device prediction; kept for parity of
-# the constants, unused by the ranking)
+# (the fused-vs-unfused device prediction of unfused_device_costs; unused
+# by the ranking)
 HBM_SPILL_PASSES = 2
 
 
@@ -263,6 +264,19 @@ class ShipPlanner:
                 out[r] = self._t(L, self.device_mbps)
         return out
 
+    def unfused_device_costs(self, f: ChunkFacts, routes=None) -> dict:
+        """Per fused route: the modelled device seconds its unfused twin's
+        stage chain would pay for the same stream, the twin's
+        :meth:`device_costs` term plus ``HBM_SPILL_PASSES`` output-sized
+        round trips between its stages.  The prediction a measured fused
+        launch has to beat; never used for ranking."""
+        c = routes if routes is not None else self.costs(f)
+        dev = self.device_costs(f, routes=c)
+        spill = self._t(float(f.logical) * HBM_SPILL_PASSES,
+                        self.device_mbps)
+        return {r: dev.get(UNFUSED_OF[r], 0.0) + spill
+                for r in c if r in UNFUSED_OF}
+
     def routes(self, f: ChunkFacts) -> list:
         """Ordered candidate routes, cheapest modelled cost first; the plan
         functions fall through on infeasibility and ``plain`` ends the
@@ -281,3 +295,47 @@ class ShipPlanner:
             return order, c
         return sorted(c, key=lambda r: (c[r], r not in UNFUSED_OF,
                                         ROUTES.index(r))), c
+
+    def decision_table(self, f: ChunkFacts) -> dict:
+        """Route -> modelled milliseconds, rounded to the microsecond."""
+        return {r: round(t * 1e3, 3) for r, t in self.costs(f).items()}
+
+
+def recalibrate_link_mbps(link_bytes_per_sec: float) -> "float | None":
+    """The ``TPQ_LINK_MBPS`` a measured staging rate says to run with: the
+    rate in MB/s, floored at the planner's 1 MB/s clamp.  ``None`` when
+    nothing was measured: an unmeasured link never replaces a calibration
+    with a guess."""
+    if not link_bytes_per_sec or link_bytes_per_sec <= 0:
+        return None
+    return max(round(link_bytes_per_sec / 1e6, 1), 1.0)
+
+
+def recalibrate_device_mbps(device_bytes_per_sec: float) -> "float | None":
+    """The ``TPQ_DEVICE_MBPS`` a measured device-resolve rate (logical
+    output bytes per device second) says to run with, in MB/s, floored at
+    1 MB/s; ``None`` when the device lane was never timed."""
+    if not device_bytes_per_sec or device_bytes_per_sec <= 0:
+        return None
+    return max(round(device_bytes_per_sec / 1e6, 1), 1.0)
+
+
+_default: "ShipPlanner | None" = None
+_default_key: "tuple | None" = None
+_default_lock = threading.Lock()
+
+
+def default_planner() -> ShipPlanner:
+    """The process-wide planner of the callers without a reader
+    (``device_reader.decode_chunk_batched``).  Rebuilt when a routing
+    environment knob changes (``TPQ_LINK_MBPS``, ``TPQ_FORCE_ROUTE``,
+    ``TPQ_DEVICE_MBPS``, ``TPQ_FUSE``), as the reference's is, so a changed
+    environment is seen by the next call."""
+    global _default, _default_key
+    key = tuple(os.environ.get(k, "") for k in (
+        "TPQ_LINK_MBPS", "TPQ_FORCE_ROUTE", "TPQ_DEVICE_MBPS", "TPQ_FUSE"))
+    with _default_lock:
+        if _default is None or _default_key != key:
+            _default = ShipPlanner()
+            _default_key = key
+        return _default

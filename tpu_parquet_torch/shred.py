@@ -17,6 +17,7 @@ import numpy as np
 from .column import ByteArrayData, ColumnData
 from .footer import ParquetError
 from .format import FieldRepetitionType as FRT, Type
+from .logical import _is_list_node, _is_map_node, _repeated_group_is_element
 from .schema.core import Schema, SchemaNode
 
 
@@ -155,7 +156,9 @@ def _coerce_values(vals: list, leaf: SchemaNode):
 
 
 class Shredder:
-    """Shreds dict rows (raw physical shape) into per-leaf accumulators."""
+    """Shreds dict rows (raw physical shape, or the logical shape: a plain
+    list for a LIST group, a plain dict for a MAP group) into per-leaf
+    accumulators."""
 
     def __init__(self, schema: Schema):
         self.schema = schema
@@ -204,7 +207,7 @@ class Shredder:
             self._emit_empty(node, d, r)
             return
         nd = node.max_def if rep == FRT.OPTIONAL else d
-        self._shred_instance(node, value, nd, r)
+        self._shred_instance(node, self._normalize_value(node, value), nd, r)
 
     def _shred_instance(self, node: SchemaNode, value: Any, d: int, r: int) -> None:
         if node.is_leaf:
@@ -222,6 +225,29 @@ class Shredder:
                 f"group {node.flat_name()}: expected dict, got {type(value).__name__}"
             )
         self._shred_group(node, value, d, r)
+
+    # -- logical-shape acceptance (lists/dicts without physical wrappers) ------
+
+    def _normalize_value(self, node: SchemaNode, value: Any) -> Any:
+        """Accept logical python shapes for LIST/MAP columns: a plain list for
+        a LIST group, a plain dict for a MAP group (as the Go reference's
+        floor marshalling does)."""
+        if (node.is_leaf or not isinstance(node.children, list)
+                or not node.children):
+            return value
+        rep_group = node.children[0]
+        if _is_list_node(node) and isinstance(value, list):
+            if rep_group.is_leaf or _repeated_group_is_element(node.name,
+                                                               rep_group):
+                return {rep_group.name: value}
+            elem = rep_group.children[0]
+            return {rep_group.name: [{elem.name: v} for v in value]}
+        if _is_map_node(node) and isinstance(value, dict) and not (
+            len(node.children) == 1 and set(value) <= {rep_group.name}
+        ):
+            return {rep_group.name: [{"key": k, "value": v}
+                                     for k, v in value.items()]}
+        return value
 
     def _normalize_repeated(self, node: SchemaNode, value: Any) -> list:
         if value is None:

@@ -35,6 +35,8 @@ __all__ = [
     "dict_gather_bytes",
     "ragged_take",
     "levels_to_validity",
+    "scatter_defined",
+    "row_starts_from_rep",
     "plain_decode_fixed",
     "byte_stream_split_decode",
     "snappy_resolve",
@@ -318,6 +320,34 @@ def ragged_take(offsets: torch.Tensor, heap: torch.Tensor,
 def levels_to_validity(def_levels: torch.Tensor, max_def: int):
     """validity[i] = slot i holds a real leaf value (def == max_def)."""
     return def_levels == max_def
+
+
+def scatter_defined(values: torch.Tensor, validity: torch.Tensor, fill):
+    """Dense defined values -> one per slot, ``fill`` at the null slots.
+
+    Slot i reads ``values`` at the exclusive prefix count of validity: one
+    scan and one (clamped) gather.  2-D values keep their trailing axis, the
+    validity broadcast over it; empty ``values`` give ``fill`` at every slot
+    (shaped like ``validity``, as in the reference)."""
+    if values.shape[0] == 0:
+        return torch.full(validity.shape, fill, dtype=values.dtype,
+                          device=validity.device)
+    vidx = torch.cumsum(validity.to(torch.int32), 0) - 1
+    vidx = torch.clamp(vidx, 0, values.shape[0] - 1)
+    expanded = values.index_select(0, vidx)
+    mask = validity.reshape(validity.shape + (1,) * (values.dim() - 1))
+    return torch.where(mask, expanded,
+                       torch.tensor(fill, dtype=values.dtype,
+                                    device=values.device))
+
+
+def row_starts_from_rep(rep_levels: torch.Tensor):
+    """Row boundaries from repetition levels: a slot with rep == 0 starts a
+    row; ``row_index`` is the inclusive int64 prefix count of starts - 1
+    (the slot's row)."""
+    starts = rep_levels == 0
+    row_index = torch.cumsum(starts.to(torch.int64), 0) - 1
+    return starts, row_index
 
 
 def plain_decode_fixed(buf: torch.Tensor, dtype: str, count: int):

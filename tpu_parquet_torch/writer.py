@@ -33,6 +33,7 @@ from .format import (
     Type,
     TypeDefinedOrder,
 )
+from .reader import _concat_column_data
 from .schema.core import Schema, SchemaNode
 from .shred import Shredder, _coerce_values
 from . import __version__
@@ -356,33 +357,3 @@ class FileWriter:
         elif self._owns_file:
             self._f.close()
         return False
-
-
-def _concat_column_data(parts: list[ColumnData]) -> ColumnData:
-    first = parts[0]
-
-    def cat_opt(attr):
-        arrs = [getattr(p, attr) for p in parts]
-        if any(a is None for a in arrs):
-            return None
-        return np.concatenate(arrs)
-
-    if isinstance(first.values, ByteArrayData):
-        offsets = [first.values.offsets]
-        heaps = [first.values.heap]
-        base = int(first.values.offsets[-1])
-        for p in parts[1:]:
-            offsets.append(p.values.offsets[1:] + base)
-            heaps.append(p.values.heap)
-            base += int(p.values.offsets[-1])
-        values = ByteArrayData(np.concatenate(offsets), np.concatenate(heaps))
-    else:
-        values = np.concatenate([p.values for p in parts])
-    return ColumnData(
-        values=values,
-        def_levels=cat_opt("def_levels"),
-        rep_levels=cat_opt("rep_levels"),
-        max_def=first.max_def,
-        max_rep=first.max_rep,
-        num_leaf_slots=sum(p.num_leaf_slots for p in parts),
-    )
