@@ -89,7 +89,22 @@ Phases:
     and a cProfile'd pass.  Row group 0 of (a) also through the host
     ``FileReader``: equal to the device read, and ``iter_rows_logical()``
     giving back the generator's first 1,000 orders;
-11. one JSON line listing every ported kernel, then the result line.
+11. the host pipeline: (a) lineitem16 SF1 (phase 6's file), (b) the
+    pyarrow layout (phase 8's) and (c) the K3 file (phase 5's), each read
+    with ``DeviceFileReader(prefetch=p).iter_row_groups()`` for p in
+    {0, 2, K}, K = min(8, os.cpu_count()): every depth bit-equal to prefetch
+    0 on the card (every tensor of every column), launch counts and routes
+    equal to the file's own phase, warm rows/s, ``pipeline_stats()`` (stage
+    seconds, stall, peak in flight, overlap), ``host_seconds`` and
+    ``max_memory_allocated`` per depth, and a profiled pass at K; (d)
+    lineitem16 SF1 written as 7 one-group files with phase 6's writer
+    settings and a ``tpq_manifest.json``, read through ``scan_files`` at 0
+    and K with ``max_memory`` 256 MiB (bytes in flight under it), through
+    the manifest, and at K under a non-default ``torch.cuda.Stream``: every
+    row group bit-equal to (a)'s, launches equal to phase 6's; (e) the host
+    ``FileReader(prefetch=p).read_all()`` at 0 and K, equal;
+12. one JSON line listing every ported kernel (with phase 11's launches as
+    ``pipeline_launches``), then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -1140,11 +1155,12 @@ def read_main_path(torch, ck, path: str, groups, label: str,
                 ragged_fused=ragged_fused[0])
 
 
-def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
-    """One more read of ``path`` under ``torch.profiler``: device time by
-    kernel (and copy), and the device's idle share of the profiled wall.
-    The profiler's own host overhead lengthens that wall, so the idle share
-    is an upper bound."""
+def device_breakdown(torch, path: str, label: str, columns=COLUMNS,
+                     prefetch: int = 0) -> dict:
+    """One more read of ``path`` under ``torch.profiler`` (at ``prefetch``):
+    device time by kernel (and copy), and the device's idle share of the
+    profiled wall.  The profiler's own host overhead lengthens that wall,
+    so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_parquet_torch.device_reader import DeviceFileReader
@@ -1155,7 +1171,8 @@ def device_breakdown(torch, path: str, label: str, columns=COLUMNS) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        with DeviceFileReader(path, columns=columns) as r:
+        with DeviceFileReader(path, columns=columns,
+                              prefetch=prefetch) as r:
             keep = list(r.iter_row_groups())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2532,6 +2549,363 @@ def read_nested_phase(torch, ck, draws, work: str, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the host pipeline
+# ---------------------------------------------------------------------------
+
+PIPELINE_BUDGET = 256 << 20  # scan_files' max_memory in phase 11(d)
+MANIFEST_NAME = "tpq_manifest.json"
+
+
+def pipeline_depth() -> int:
+    """K: the chunk pool's depth, capped at the host's cores."""
+    return min(8, os.cpu_count() or 1)
+
+
+def _bits(torch, t):
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+def same_on_card(torch, outs, want, label: str) -> None:
+    """Every tensor of every column (values, offsets and heap, indices and
+    dictionary, def and rep levels; padding included) bit for bit against
+    ``want``, compared on the card: nothing large is copied to the host."""
+    if len(outs) != len(want):
+        raise fail(f"{label}: {len(outs)} row groups, want {len(want)}")
+    for i, (g, w) in enumerate(zip(outs, want)):
+        if list(g) != list(w):
+            raise fail(f"{label}: row group {i} columns {list(g)}, want "
+                       f"{list(w)}")
+        for name in w:
+            gt = {k: v for k, v in vars(g[name]).items()
+                  if isinstance(v, torch.Tensor)}
+            wt = {k: v for k, v in vars(w[name]).items()
+                  if isinstance(v, torch.Tensor)}
+            if type(g[name]) is not type(w[name]) or set(gt) != set(wt):
+                raise fail(f"{label}: row group {i} column {name} is a "
+                           f"{type(g[name]).__name__} of {sorted(gt)}, want "
+                           f"{type(w[name]).__name__} of {sorted(wt)}")
+            for k, t in wt.items():
+                u = gt[k]
+                if (u.dtype != t.dtype or u.shape != t.shape
+                        or not torch.equal(_bits(torch, u), _bits(torch, t))):
+                    raise fail(f"{label}: row group {i} column {name}.{k} "
+                               f"differs")
+
+
+def pipeline_pass(torch, ck, path: str, columns, prefetch: int):
+    """One ``DeviceFileReader(prefetch=...).iter_row_groups()`` read, timed
+    end to end (ending in a synchronize).  Returns (outputs, seconds, reader
+    stats, pipeline stats, launches, the device memory the pass added at
+    its peak, pinned bytes): ``max_memory_allocated`` less what was
+    allocated before the pass (the outputs phase 11 keeps to compare
+    with)."""
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    with DeviceFileReader(path, columns=columns, prefetch=prefetch) as r:
+        outs = list(r.iter_row_groups())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(ck.launches)
+        st = r.stats().as_dict()
+        pipe = r.pipeline_stats().as_dict()
+        pinned = r._pinned.peak_held_bytes if r._pinned is not None else 0
+    return (outs, seconds, st, pipe, counts,
+            torch.cuda.max_memory_allocated() - before, pinned)
+
+
+def pipe_line(pipe: dict) -> str:
+    return (", ".join(f"{k} {pipe[k]}" for k in (
+        "io_seconds", "decompress_seconds", "recompress_seconds",
+        "stage_seconds", "dispatch_seconds", "finalize_seconds",
+        "busy_seconds", "wall_seconds", "stall_seconds",
+        "peak_in_flight_bytes", "overlap_efficiency", "chunks",
+        "row_groups")))
+
+
+def read_pipeline_file(torch, ck, path: str, columns, label: str, main: dict,
+                       depths, rows: int, smi: str, launched: dict,
+                       keep_base: bool = False) -> dict:
+    """Phase 11(a)-(c) for one file: at each prefetch depth a checked pass
+    (every tensor bit-equal to the prefetch-0 pass on the card; launch
+    counts and the route table equal to ``main``'s, the file's own phase)
+    and a warm pass; a profiled pass at the deepest depth."""
+    base = None
+    per_depth = {}
+    for p in depths:
+        outs, _, st, _, counts, _, _ = pipeline_pass(torch, ck, path,
+                                                      columns, p)
+        for name, n in counts.items():
+            launched[name] = launched.get(name, 0) + n
+        if counts != main["counts"]:
+            raise fail(f"{label} prefetch {p}: launches {counts}, want the "
+                       f"phase's {main['counts']}")
+        if st["ship_routes"] != main["stats"]["ship_routes"]:
+            raise fail(f"{label} prefetch {p}: routes {route_table(st)}, "
+                       f"want {route_table(main['stats'])}")
+        if base is None:
+            base = outs
+        else:
+            same_on_card(torch, outs, base, f"{label} prefetch {p}")
+        del outs
+        _, seconds, st2, pipe, _, peak, pinned = pipeline_pass(
+            torch, ck, path, columns, p)
+        per_depth[p] = dict(rows_per_s=rows / seconds, seconds=seconds,
+                            pipe=pipe, host=st2["host_seconds"], peak=peak)
+        log(f"{label} prefetch {p}: bit-equal to prefetch 0, launches and "
+            f"routes equal the phase's; warm pass {seconds:.4f} s = "
+            f"{rows / seconds:.1f} rows/s; host_seconds "
+            f"{st2['host_seconds']:.4f}, stage_seconds "
+            f"{st2['stage_seconds']:.4f}, dispatch_seconds "
+            f"{st2['dispatch_seconds']:.4f}; peak device memory of the pass "
+            f"{peak} bytes (the phase's max_memory_allocated "
+            f"{main['peak']}); pinned staging buffers "
+            f"{pinned} bytes at most ({smi})")
+        log(f"{label} prefetch {p} pipeline_stats: {pipe_line(pipe)}")
+    deep = max(depths)
+    dev = device_breakdown(torch, path, f"{label} prefetch {deep}", columns,
+                           prefetch=deep)
+    return dict(base=base if keep_base else None, depths=per_depth,
+                device=dev)
+
+
+def write_shards(path_dir: str, groups) -> list:
+    """lineitem16 SF1 as one file per row group, phase 6's writer settings
+    (the layout Spark writes: one file per task), and the dataset's
+    manifest, written here as the JSON the reference's ``write_manifest``
+    writes."""
+    from tpu_parquet_torch.footer import read_file_metadata
+
+    os.makedirs(path_dir, exist_ok=True)
+    for old in os.listdir(path_dir):
+        os.unlink(os.path.join(path_dir, old))
+    paths, entries = [], []
+    for i, g in enumerate(groups):
+        p = os.path.join(path_dir, f"part-{i:05d}.parquet")
+        write_lineitem16(p, [g])
+        with open(p, "rb") as f:
+            md = read_file_metadata(f)
+        paths.append(p)
+        entries.append({"path": os.path.basename(p),
+                        "rows": int(md.num_rows or 0),
+                        "bytes": os.path.getsize(p),
+                        "row_groups": len(md.row_groups or [])})
+    doc = {"magic": "TPQM", "manifest_version": 1, "generation": 1,
+           "created_by": "chip_smoke.py",
+           "total_rows": sum(e["rows"] for e in entries), "files": entries}
+    with open(os.path.join(path_dir, MANIFEST_NAME), "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+    return paths
+
+
+def largest_chunk_cost(paths) -> int:
+    """The chunk feed's largest charge: compressed + uncompressed bytes."""
+    from tpu_parquet_torch.footer import read_file_metadata
+
+    most = 0
+    for p in paths:
+        with open(p, "rb") as f:
+            md = read_file_metadata(f)
+        for rg in md.row_groups:
+            for c in rg.columns:
+                comp = c.meta_data.total_compressed_size
+                most = max(most, comp + max(
+                    c.meta_data.total_uncompressed_size, comp))
+    return most
+
+
+def scan_pass(torch, ck, source, prefetch: int, stream=None):
+    """One ``scan_files(source, prefetch=..., max_memory=PIPELINE_BUDGET)``
+    read, timed end to end; under ``stream`` when given.  Returns
+    (outputs, seconds, launches, the largest bytes in flight any reader
+    saw, the device memory the pass added at its peak, rows)."""
+    import contextlib
+
+    from tpu_parquet_torch import device_reader as DR
+
+    made = []
+    real = DR.DeviceFileReader.__init__
+
+    def spy(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        made.append(self)
+
+    DR.DeviceFileReader.__init__ = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            outs = list(DR.scan_files(source, prefetch=prefetch,
+                                      max_memory=PIPELINE_BUDGET))
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(ck.launches)
+    finally:
+        DR.DeviceFileReader.__init__ = real
+    in_flight = max(r.pipeline_stats().peak_in_flight_bytes for r in made)
+    rows = sum(r.stats().rows for r in made)
+    return (outs, seconds, counts, in_flight,
+            torch.cuda.max_memory_allocated() - before, rows)
+
+
+def host_reader_pass(path: str, prefetch: int):
+    """``FileReader(path, prefetch=...).read_all()``, timed."""
+    from tpu_parquet_torch.reader import FileReader
+
+    t0 = time.perf_counter()
+    with FileReader(path, prefetch=prefetch) as r:
+        cols = r.read_all()
+        pipe = r.pipeline_stats().as_dict()
+    return cols, time.perf_counter() - t0, pipe
+
+
+def same_host_columns(got: dict, want: dict, label: str) -> None:
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    if list(got) != list(want):
+        raise fail(f"{label}: columns {list(got)}, want {list(want)}")
+    for name, w in want.items():
+        g = got[name]
+        pairs = [(g.def_levels, w.def_levels), (g.rep_levels, w.rep_levels)]
+        if isinstance(w.values, ByteArrayData):
+            pairs += [(g.values.offsets, w.values.offsets),
+                      (g.values.heap, w.values.heap)]
+        else:
+            pairs.append((g.values, w.values))
+        for a, b in pairs:
+            if (a is None) != (b is None) or (
+                    b is not None and (a.dtype != b.dtype or not
+                                       np.array_equal(a.view(np.uint8),
+                                                      b.view(np.uint8)))):
+                raise fail(f"{label}: column {name} differs")
+
+
+def read_pipeline_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                        l16_groups, l16: dict, pa_layout: dict,
+                        k3_path: str, k3_main: dict, k3_rows: int) -> dict:
+    """Phase 11: the host pipeline on the card.  (a) lineitem16 SF1, (b) the
+    pyarrow layout and (c) the K3 file through
+    ``DeviceFileReader(prefetch=p).iter_row_groups()`` for p in {0, 2, K};
+    (d) lineitem16 SF1 as 7 one-group files through ``scan_files`` at 0 and
+    K under a 256 MiB budget, through the dataset's manifest, and under a
+    non-default stream; (e) the host ``FileReader`` at 0 and K."""
+    k = pipeline_depth()
+    depths = sorted({0, 2, k})
+    log(f"pipeline: os.cpu_count() {os.cpu_count()}, K = min(8, cores) = "
+        f"{k}; depths {depths} ({smi})")
+    launched: dict = {}
+    out = {"k": k, "depths": depths}
+    label = "pipeline lineitem16 SF1"
+    a = read_pipeline_file(torch, ck, l16_path, L16_COLUMNS, label, l16,
+                           depths, SF1_ROWS, smi, launched, keep_base=True)
+    out["lineitem16"] = a
+    pa_path = os.path.join(work, "lineitem16_pyarrow_layout.parquet")
+    out["pyarrow_layout"] = read_pipeline_file(
+        torch, ck, pa_path, L16_COLUMNS, "pipeline pyarrow layout",
+        pa_layout, depths, SF1_ROWS, smi, launched)
+    out["k3"] = read_pipeline_file(
+        torch, ck, k3_path, K3_COLUMNS, "pipeline K3 file", k3_main, depths,
+        k3_rows, smi, launched)
+
+    # (d) scan_files over the dataset
+    label = "pipeline scan_files"
+    shard_dir = os.path.join(work, "lineitem16_sf1_shards")
+    t0 = time.perf_counter()
+    paths = write_shards(shard_dir, l16_groups)
+    log(f"wrote {len(paths)} one-group files of lineitem16 SF1 and "
+        f"{MANIFEST_NAME} under {shard_dir} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    most = largest_chunk_cost(paths)
+    if most > PIPELINE_BUDGET:
+        raise fail(f"{label}: the largest chunk costs {most} bytes, over "
+                   f"the {PIPELINE_BUDGET}-byte budget")
+    log(f"{label}: largest chunk compressed + uncompressed {most} bytes; "
+        f"max_memory {PIPELINE_BUDGET}")
+    base = a["base"]
+    scans = {}
+    runs = [(f"prefetch {p}", paths, p, None) for p in (0, k)]
+    runs.append((f"manifest prefetch {k}", shard_dir, k, None))
+    runs.append((f"prefetch {k} on a non-default stream", paths, k,
+                 torch.cuda.Stream()))
+    for name, source, p, stream in runs:
+        outs, seconds, counts, in_flight, peak, rows = scan_pass(
+            torch, ck, source, p, stream)
+        for kname, n in counts.items():
+            launched[kname] = launched.get(kname, 0) + n
+        if stream is not None:
+            with torch.cuda.stream(stream):
+                same_on_card(torch, outs, base, f"{label} {name}")
+        else:
+            same_on_card(torch, outs, base, f"{label} {name}")
+        del outs
+        if counts != l16["counts"]:
+            raise fail(f"{label} {name}: launches {counts}, want phase 6's "
+                       f"{l16['counts']}")
+        if in_flight > PIPELINE_BUDGET:
+            raise fail(f"{label} {name}: {in_flight} bytes in flight, over "
+                       f"max_memory {PIPELINE_BUDGET}")
+        if rows != SF1_ROWS:
+            raise fail(f"{label} {name}: {rows} rows")
+        scans[name] = rows / seconds
+        log(f"{label} {name}: every row group bit-equal to (a)'s; launches "
+            f"equal phase 6's; peak_in_flight_bytes {in_flight} <= "
+            f"{PIPELINE_BUDGET}; {seconds:.4f} s = {rows / seconds:.1f} "
+            f"rows/s; peak device memory of the pass {peak} bytes ({smi})")
+    out["scan"] = scans
+    a["base"] = None
+    del base
+
+    # (e) the host FileReader
+    label = "pipeline host FileReader lineitem16 SF1"
+    host = {}
+    want = None
+    for p in (0, k):
+        cols, seconds, pipe = host_reader_pass(l16_path, p)
+        if want is None:
+            want = cols
+        else:
+            same_host_columns(cols, want, f"{label} prefetch {p}")
+        host[p] = seconds
+        log(f"{label} prefetch {p}: read_all {seconds:.4f} s = "
+            f"{SF1_ROWS / seconds:.1f} rows/s; pipeline_stats "
+            f"{pipe_line(pipe)}")
+        del cols
+    del want
+    out["host"] = host
+    for kname, need in (("hybrid_unpack_combine", True),
+                        ("fused_plain_words", True),
+                        ("fused_narrow_words", True)):
+        if need and not launched.get(kname):
+            raise fail(f"phase 11 never launched {kname}")
+    out["launched"] = launched
+    log(f"pipeline summary ({smi}): K {k} of {os.cpu_count()} cores; rows/s "
+        + "; ".join(
+            f"{n} " + ", ".join(
+                f"p{p} {out[key]['depths'][p]['rows_per_s']:.1f}"
+                for p in depths)
+            for n, key in (("lineitem16", "lineitem16"),
+                           ("pyarrow layout", "pyarrow_layout"),
+                           ("K3 file", "k3")))
+        + "; scan_files " + ", ".join(f"{n} {v:.1f}"
+                                      for n, v in scans.items())
+        + "; host FileReader " + ", ".join(
+            f"p{p} {SF1_ROWS / v:.1f}" for p, v in host.items())
+        + f"; phase 11 launches {launched}")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -2636,7 +3010,6 @@ def main() -> int:
 
     # phase 8: the 16 columns in pyarrow's layout (dictionary fallback)
     pa_layout = read_pyarrow_layout(torch, ck, l16_groups, work, smi)
-    del l16_groups
 
     # phase 9: the remaining value shapes
     shapes = read_value_shapes(torch, ck, value_shape_groups(draws), work,
@@ -2645,6 +3018,13 @@ def main() -> int:
     # phase 10: nested columns (rep levels through the fused K1)
     nested = read_nested_phase(torch, ck, draws, work, smi)
     del draws
+
+    # phase 11: the host pipeline (prefetch, staging worker, scan_files)
+    pipe = read_pipeline_phase(
+        torch, ck, work, smi, l16_path=l16_path, l16_groups=l16_groups,
+        l16=l16, pa_layout=pa_layout, k3_path=k3_path, k3_main=k3_main,
+        k3_rows=sum(len(g["dates"]) for g in k3_groups))
+    del l16_groups
 
     # the kernels line and the result line
     t14 = k1["timings"][14]
@@ -2697,7 +3077,22 @@ def main() -> int:
         f"({nested['orders']['lines_per_s']:.1f} lineitems/s), "
         f"hybrid_unpack_combine {nested['orders']['k1_split']}; nested edge "
         f"shapes {nested['edges']['rows_per_s']:.1f} rows/s, "
-        f"hybrid_unpack_combine {nested['edges']['k1_split']} ({smi})")
+        f"hybrid_unpack_combine {nested['edges']['k1_split']}; pipeline "
+        f"(K {pipe['k']}) lineitem16 " + ", ".join(
+            f"p{p} {v['rows_per_s']:.1f}"
+            for p, v in pipe["lineitem16"]["depths"].items())
+        + ", pyarrow layout " + ", ".join(
+            f"p{p} {v['rows_per_s']:.1f}"
+            for p, v in pipe["pyarrow_layout"]["depths"].items())
+        + ", K3 file " + ", ".join(
+            f"p{p} {v['rows_per_s']:.1f}"
+            for p, v in pipe["k3"]["depths"].items())
+        + ", scan_files " + ", ".join(
+            f"{n} {v:.1f}" for n, v in pipe["scan"].items())
+        + f" ({smi})")
+    # phase 11's launches beside each kernel's main-path count
+    for entry in kernels:
+        entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

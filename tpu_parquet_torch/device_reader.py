@@ -11,8 +11,9 @@ columns.  Per row group:
    (``ship.py``) and does the host half of the first feasible one (narrow
    transcode, link recompression); ``finish`` registers the bytes its
    device half reads with ONE ``_RowGroupStager`` and returns a ``_Plan``;
-3. the stager fills one pinned host buffer and copies it to the device in
-   one ``non_blocking`` transfer;
+3. the stager fills pinned host buffers and copies them to the device with
+   ``non_blocking`` transfers: one buffer, or 16 MiB strips streamed while
+   the group is still parsed;
 4. ``_run_plans`` runs every chunk's decode over that one buffer: the
    hand-written CUDA kernels of ``cuda_kernels`` (the fused K1 unpack +
    run-table combine for dictionary indices and def levels, K2 for
@@ -47,13 +48,24 @@ Nothing on the decode path waits for the device: the dictionary-index range
 check runs on the host (``_check_dict_range``).  Only when the native run
 walk is unavailable is the check deferred to one device read in
 ``finalize()``, as the reference defers it.
+
+The host pipeline (``iter_row_groups``, ``scan_files``): a one-thread
+staging worker stages row group N while the consumer thread runs steps 1-2
+for N+1, and with ``prefetch=K`` a pool runs steps 1 and the host half of
+2 for upcoming chunks (``_chunk_feed``, across row groups and files);
+``finish``, the launches and the deferred checks stay on the consumer
+thread; the staging copies run on the worker, on the consumer's stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import logging
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -62,6 +74,7 @@ import torch
 
 from . import native
 from . import torch_kernels as K
+from .alloc import AllocTracker, InFlightBudget
 from .chunk_decode import (_check_crc, require_full, row_group_chunks,
                            walk_pages)
 from .errors import error_context
@@ -75,6 +88,7 @@ from .footer import ParquetError, read_file_metadata
 from .format import CompressionCodec, Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack
 from .kernels.delta import _read_uvarint
+from .pipeline import PipelineStats, SharedReader, prefetch_map
 from .reader import apply_selection, resolve_validate
 from .schema.core import Schema, SchemaNode
 from .ship import (
@@ -91,7 +105,7 @@ from .torch_decode import (
 )
 
 __all__ = ["DeviceDictColumn", "DeviceFileReader", "ReaderStats",
-           "decode_chunk_batched"]
+           "decode_chunk_batched", "scan_files"]
 
 SLICE = ("flat and nested columns (repeated leaves: LIST, MAP, nested "
          "groups) of every physical type (BYTE_ARRAY and "
@@ -248,33 +262,51 @@ class DeviceDictColumn(DeviceColumnData):
 # ---------------------------------------------------------------------------
 
 class _PinnedPool:
-    """Pinned host buffers for staging, reused across row groups.
+    """Pinned host buffers for staging, reused across row groups and shared
+    between the staging worker and the consumer thread (a lock guards the
+    free list).
 
-    A buffer handed to a ``non_blocking`` copy must stay alive and untouched
-    until the copy has completed: each returned buffer carries the event
-    recorded after its copy, and ``take`` waits on that event before the
-    buffer is filled again.  Two buffers let the host fill row group N+1
-    while the copy of N is in flight."""
+    A buffer handed to a ``non_blocking`` copy must stay untouched until
+    the copy has completed: each returned buffer carries the event recorded
+    after its copy, and ``take`` reuses only a buffer whose event has
+    completed, else pins a new one.  With strip streaming one row group
+    holds a buffer per in-flight strip, so the pool keeps up to ``KEEP``
+    free buffers: the strips of a large row group, its tail and the next
+    group's first strip.  A dropped buffer goes back to PyTorch's pinned
+    allocator, which itself waits for the copies recorded against it.
+    ``held_bytes`` (and its peak) counts the pinned bytes the pool owns:
+    free, or out with a copy not yet given back."""
 
-    KEEP = 2
+    KEEP = 12
 
     def __init__(self):
         self._free: list = []  # [(pinned uint8 tensor, cuda event)]
+        self._lock = threading.Lock()
+        self.held_bytes = 0
+        self.peak_held_bytes = 0
 
     def take(self, nbytes: int) -> torch.Tensor:
-        for i, (buf, ev) in enumerate(self._free):
-            if buf.numel() >= nbytes:
-                del self._free[i]
-                ev.synchronize()  # the previous copy out of it is done
-                return buf
-        room = max(_bucket_bytes(nbytes, 1 << 20), nbytes)
+        with self._lock:
+            best = None
+            for i, (buf, ev) in enumerate(self._free):
+                if buf.numel() >= nbytes and ev.query() and (
+                        best is None
+                        or buf.numel() < self._free[best][0].numel()):
+                    best = i
+            if best is not None:
+                return self._free.pop(best)[0]
+            room = max(_bucket_bytes(nbytes, 1 << 20), nbytes)
+            self.held_bytes += room
+            self.peak_held_bytes = max(self.peak_held_bytes,
+                                       self.held_bytes)
         return torch.empty(room, dtype=torch.uint8, pin_memory=True)
 
     def give(self, buf: torch.Tensor, event) -> None:
-        self._free.append((buf, event))
-        if len(self._free) > self.KEEP:
-            self._free.sort(key=lambda e: e[0].numel())
-            del self._free[0]
+        with self._lock:
+            self._free.append((buf, event))
+            if len(self._free) > self.KEEP:
+                self._free.sort(key=lambda e: e[0].numel())
+                self.held_bytes -= self._free.pop(0)[0].numel()
 
 
 class _RowGroupStager:
@@ -283,13 +315,40 @@ class _RowGroupStager:
     Every chunk registers its host byte regions here (value streams, level
     streams, packed run tables, dictionaries); ``stage()`` ships ONE buffer
     and each chunk's kernels address into it by base offset.  Regions start
-    on 64-byte boundaries."""
+    on 64-byte boundaries.
 
-    def __init__(self):
+    With an ``executor`` (the reader's staging worker), registration also
+    streams: each time the arena grows past a ``STRIP`` boundary, the
+    completed strip is filled and copied to the card on the worker while
+    the consumer thread still parses the row group's later chunks, and
+    ``stage()`` ships the tail and joins the strips on the card.  A row
+    group under one strip, or a stager without an executor, takes the
+    single-buffer path.  The streamed buffer is ``flushed + bucket(tail)``
+    bytes where the single one is ``bucket(need + _SLACK)``: both are at
+    least ``need + _SLACK`` long and equal in their first ``need`` bytes.
+
+    Every copy of the stager runs on the stream that was current on the
+    thread that made it (the consumer's: PyTorch's current stream is per
+    thread, so a worker would otherwise enqueue on the default stream), on
+    ``device``, with host buffers from ``pool``.  ``ready`` is the event
+    recorded after the last copy."""
+
+    STRIP = 16 << 20
+
+    def __init__(self, executor=None, device: "torch.device | None" = None,
+                 pool: "_PinnedPool | None" = None):
         # ("arr", u8, base, nbytes) | ("segs", segments, base, nbytes)
         self._parts: list[tuple] = []
         self.total = 0
         self._max_read_end = 0
+        self._ex = executor
+        self._device = torch.device("cpu") if device is None else device
+        self._pool = pool
+        self._stream = (torch.cuda.current_stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._strip_futs: list = []
+        self._flushed = 0  # arena bytes handed to strip jobs
+        self.ready = None
 
     def _reserve(self, nbytes: int, reserve: int | None) -> int:
         base = self.total
@@ -304,6 +363,7 @@ class _RowGroupStager:
               else arr.reshape(-1))
         base = self._reserve(u8.nbytes, reserve)
         self._parts.append(("arr", u8, base, u8.nbytes))
+        self._flush_ready()
         return base
 
     def add_segments(self, segments: list[tuple[bytes, int, int]]) -> np.ndarray:
@@ -316,6 +376,7 @@ class _RowGroupStager:
             nbytes += size
         base = self._reserve(nbytes, None)
         self._parts.append(("segs", segments, base, nbytes))
+        self._flush_ready()
         return bases + base
 
     def note_read_extent(self, base: int, nbytes: int) -> None:
@@ -326,41 +387,109 @@ class _RowGroupStager:
         self._max_read_end = max(self._max_read_end, base + nbytes)
 
     def size(self) -> int:
+        """The single-buffer path's size."""
         need = max(self.total, self._max_read_end)
         return _bucket_bytes(need + _SLACK, 64)
 
     def fill(self, buf: np.ndarray) -> None:
-        pos = 0
+        """The arena into ``buf`` from byte 0, the rest zeroed."""
+        self._copy_range(buf, 0, len(buf))
+
+    def _copy_range(self, buf: np.ndarray, lo: int, hi: int) -> None:
+        """Copy every registered byte in [lo, hi) into ``buf``, zeroing
+        only the gaps (alignment and zero-filled reserves).  Parts are
+        appended in ascending base order and never changed, so the worker
+        may scan the list while the consumer appends."""
+        pos = lo
         for kind, payload, base, nbytes in self._parts:
-            if base > pos:
-                buf[pos:base] = 0
+            if base >= hi:
+                break
+            if base + nbytes <= lo:
+                continue
+            s = max(lo, base)
+            if s > pos:
+                buf[pos - lo : s - lo] = 0
             if kind == "arr":
-                buf[base : base + nbytes] = payload
+                e = min(hi, base + nbytes)
+                buf[s - lo : e - lo] = payload[s - base : e - base]
+                pos = e
             else:
                 off = base
                 for raw, start, size in payload:
-                    buf[off : off + size] = np.frombuffer(raw, np.uint8,
-                                                          size, start)
+                    if off >= hi:
+                        break
+                    if off + size > lo:
+                        s = max(lo, off)
+                        e = min(hi, off + size)
+                        buf[s - lo : e - lo] = np.frombuffer(
+                            raw, np.uint8, e - s, start + (s - off))
+                        pos = e
                     off += size
-            pos = base + nbytes
-        buf[pos:] = 0
+        if pos < hi:
+            buf[pos - lo :] = 0
 
-    def stage(self, device: torch.device,
-              pool: "_PinnedPool | None" = None) -> torch.Tensor:
-        size = self.size()
-        if device.type != "cuda":
-            host = torch.empty(size, dtype=torch.uint8)
-            self.fill(host.numpy())
-            return host if device.type == "cpu" else host.to(device)
-        pool = pool if pool is not None else _PinnedPool()
-        host = pool.take(size)
-        self.fill(host.numpy()[:size])
-        dev = torch.empty(size, dtype=torch.uint8, device=device)
-        dev.copy_(host[:size], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(device))
+    def _ship(self, lo: int, nbytes: int) -> torch.Tensor:
+        """Fill arena bytes [lo, lo + nbytes) and put them on the device:
+        through a pinned buffer and one ``non_blocking`` copy on the
+        stager's stream on the card (``ready`` its event), a plain tensor
+        elsewhere."""
+        dev = self._device
+        if dev.type != "cuda":
+            host = torch.empty(nbytes, dtype=torch.uint8)
+            self._copy_range(host.numpy(), lo, lo + nbytes)
+            return host if dev.type == "cpu" else host.to(dev)
+        pool = self._pool if self._pool is not None else _PinnedPool()
+        host = pool.take(nbytes)
+        self._copy_range(host.numpy()[:nbytes], lo, lo + nbytes)
+        with torch.cuda.stream(self._stream):
+            out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            out.copy_(host[:nbytes], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
         pool.give(host, ev)
-        return dev
+        self.ready = ev
+        return out
+
+    def _flush_ready(self) -> None:
+        """Hand every newly completed strip to the worker."""
+        if self._ex is None:
+            return
+        while self.total - self._flushed >= self.STRIP:
+            lo = self._flushed
+            self._flushed += self.STRIP
+            self._strip_futs.append(
+                self._ex.submit(self._ship, lo, self.STRIP))
+
+    def stage(self, device: "torch.device | None" = None,
+              pool: "_PinnedPool | None" = None) -> torch.Tensor:
+        """Ship the arena and return it on the device.  ``device`` and
+        ``pool`` stand in for the constructor's on a stager without an
+        executor (no strip has shipped yet)."""
+        if device is not None and torch.device(device) != self._device:
+            if self._ex is not None:
+                raise ValueError("a streaming stager stages on the device "
+                                 "it was made for")
+            self._device = torch.device(device)
+            self._stream = (torch.cuda.current_stream(self._device)
+                            if self._device.type == "cuda" else None)
+        if pool is not None:
+            self._pool = pool
+        if not self._strip_futs:
+            return self._ship(0, self.size())
+        # streaming: the strips are in flight; ship the tail, then join
+        # them on the card
+        need = max(self.total, self._max_read_end)
+        tail_len = _bucket_bytes(need + _SLACK - self._flushed, 64)
+        parts = [f.result() for f in self._strip_futs]
+        parts.append(self._ship(self._flushed, tail_len))
+        self._strip_futs.clear()
+        if self._device.type != "cuda":
+            return torch.cat(parts)
+        with torch.cuda.stream(self._stream):
+            buf = torch.cat(parts)
+            self.ready = torch.cuda.Event()
+            self.ready.record(self._stream)
+        return buf
 
 
 def _pack_tables(stager: _RowGroupStager, arrays) -> int:
@@ -1021,6 +1150,9 @@ class _ChunkAssembler:
         # level lanes, i32 ceilings) — a counter, never a crash
         self.fused_fallbacks = 0
         self.ship_records: list = []
+        # AllocTracker: the link-recompression copies count against the
+        # budget too (set by _collect_chunk)
+        self.alloc = None
 
     def _record_ship(self, route: str, logical: int, shipped: int) -> None:
         self.ship_records.append((route, int(logical), int(shipped)))
@@ -1049,7 +1181,7 @@ class _ChunkAssembler:
 
     # -- ship planning (host half; see ship.py) -------------------------------
 
-    def _try_snappy(self, stream):
+    def _try_snappy(self, stream, pipe_stats=None):
         """snappy over one host stream; returns the payload only when it
         beats SNAPPY_WORTH_RATIO — thin wins lose to the op tables and the
         device resolve."""
@@ -1059,12 +1191,16 @@ class _ChunkAssembler:
             else stream.nbytes
         if nbytes == 0:
             return None
-        comp = native.snappy_compress(stream)
+        if self.alloc is not None:
+            # the worst-case compressed size, registered BEFORE it exists
+            self.alloc.register_transient(nbytes + nbytes // 6 + 32)
+        with _timed(pipe_stats, "recompress"):
+            comp = native.snappy_compress(stream)
         if len(comp) > SNAPPY_WORTH_RATIO * nbytes:
             return None
         return comp
 
-    def _recompress_streams(self, streams):
+    def _recompress_streams(self, streams, pipe_stats=None):
         """Link recompression (ROUTE_RECOMPRESS): snappy over each page's
         value stream.  ``streams``: [(buf, pos, size)].  Returns the
         per-page payloads, or None when the whole chunk didn't compress
@@ -1074,9 +1210,16 @@ class _ChunkAssembler:
         total = sum(s[2] for s in streams)
         if total == 0:
             return None
-        payloads = [native.snappy_compress(np.frombuffer(buf, np.uint8,
-                                                         size, pos))
-                    for buf, pos, size in streams]
+        if self.alloc is not None:
+            # the copies coexist with the decompressed originals at their
+            # peak: the per-stream snappy worst case (n + n/6 + 32),
+            # registered before the copies exist
+            self.alloc.register_transient(
+                total + total // 6 + 32 * len(streams))
+        with _timed(pipe_stats, "recompress"):
+            payloads = [native.snappy_compress(np.frombuffer(buf, np.uint8,
+                                                             size, pos))
+                        for buf, pos, size in streams]
         if sum(len(c) for c in payloads) > SNAPPY_WORTH_RATIO * total:
             return None
         return payloads
@@ -1123,22 +1266,24 @@ class _ChunkAssembler:
             at += p.defined * k
         return k, mn, out
 
-    def preship(self, planner: ShipPlanner) -> None:
+    def preship(self, planner: ShipPlanner, pipe_stats=None) -> None:
         """Route choice + link-byte host work for this chunk (ship.py):
         stores the ordered route preference plus any host-built artifacts;
         ``finish`` executes the routes in order, falling through on
-        infeasibility."""
-        self._preship_dict(planner)
+        infeasibility.  Host-only: with prefetch it runs on the worker that
+        collected the chunk, and its compression seconds land in
+        ``pipe_stats``' ``recompress`` stage."""
+        self._preship_dict(planner, pipe_stats)
         if not self.pages:
             return
         if {parse_encoding(p.encoding) for p in self.pages} != {Encoding.PLAIN}:
             return
         if self.leaf.physical_type in _PTYPE_TO_NAME:
-            self._preship_fixed(planner)
+            self._preship_fixed(planner, pipe_stats)
         elif self.leaf.physical_type == Type.BYTE_ARRAY:
-            self._preship_bytes(planner)
+            self._preship_bytes(planner, pipe_stats)
 
-    def _preship_fixed(self, planner: ShipPlanner) -> None:
+    def _preship_fixed(self, planner: ShipPlanner, pipe_stats) -> None:
         leaf = self.leaf
         name = _PTYPE_TO_NAME[leaf.physical_type]
         width = np.dtype(name).itemsize
@@ -1170,7 +1315,7 @@ class _ChunkAssembler:
                     self._ship["narrow"] = None
                     continue
                 k, mn, out = art
-                comp = (self._try_snappy(out)
+                comp = (self._try_snappy(out, pipe_stats)
                         if route in (ROUTE_NARROW_SNAPPY,
                                      ROUTE_FUSED_NARROW_SNAPPY) else None)
                 self._ship["narrow"] = (k, mn, out, comp)
@@ -1187,7 +1332,7 @@ class _ChunkAssembler:
                     continue  # truncated: plain path raises diagnostics
                 payloads = self._recompress_streams(
                     [(p.raw, p.value_pos, p.defined * width)
-                     for p in self.pages])
+                     for p in self.pages], pipe_stats)
                 self._ship["recompress"] = payloads
                 if payloads is None:
                     continue
@@ -1195,7 +1340,7 @@ class _ChunkAssembler:
             if route in (ROUTE_PLAIN, ROUTE_FUSED_PLAIN):
                 return  # no host artifacts to prepare for either
 
-    def _preship_bytes(self, planner: ShipPlanner) -> None:
+    def _preship_bytes(self, planner: ShipPlanner, pipe_stats) -> None:
         """PLAIN BYTE_ARRAY: walk the length prefixes (native, no copies),
         rank the routes on the walked span, and snappy-compress the spans
         when ``recompress`` leads.  Returns without a plan when a walk
@@ -1229,7 +1374,7 @@ class _ChunkAssembler:
                     continue
                 payloads = self._recompress_streams(
                     [(p.raw, p.value_pos, s)
-                     for p, s in zip(self.pages, span_l)])
+                     for p, s in zip(self.pages, span_l)], pipe_stats)
                 # a failure is memoized (None): finish does not compress
                 # again
                 self._ship["recompress_bytes"] = payloads
@@ -1239,7 +1384,7 @@ class _ChunkAssembler:
             if route == ROUTE_PLAIN:
                 return
 
-    def _preship_dict(self, planner: ShipPlanner) -> None:
+    def _preship_dict(self, planner: ShipPlanner, pipe_stats) -> None:
         """Dictionary VALUE TABLE shipping: a fixed-width dictionary whose
         snappy page payload is exactly the rows keeps that payload;
         otherwise the table (for a ragged dictionary, its heap) may
@@ -1275,7 +1420,8 @@ class _ChunkAssembler:
                 # as its byte count; the payload then fails the tag walk at
                 # finish and the table ships plain, unrecorded (kept for
                 # route parity; ROADMAP)
-                comp = self._try_snappy(np.ascontiguousarray(src))
+                comp = self._try_snappy(np.ascontiguousarray(src),
+                                        pipe_stats)
                 if comp is None:
                     continue
                 self._dict_ship = (route, comp, nbytes)
@@ -2399,7 +2545,7 @@ class _ChunkAssembler:
 
 def _collect_chunk(buf: bytes, codec: int, total_values: int,
                    leaf: SchemaNode, deferred_checks: list,
-                   validate_crc: bool = False,
+                   validate_crc: bool = False, alloc=None,
                    statistics=None, context=None,
                    device=None) -> _ChunkAssembler:
     """Walk a chunk's pages into an assembler (host phase): CRC checks,
@@ -2409,13 +2555,17 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
 
     ``context`` ({file, column, row_group, chunk_offset}) is stamped onto
     every raise (``errors.error_context``), with the failing page's ordinal
-    and absolute byte offset."""
+    and absolute byte offset.  ``alloc`` (an ``AllocTracker``) registers
+    each page's decompressed size before the page is decompressed, and the
+    assembler's link-recompression copies.  Host-only: with prefetch this
+    runs on a worker thread."""
     ctx = dict(context or {})
     if "column" not in ctx and leaf.path:
         ctx["column"] = ".".join(leaf.path)
     chunk_offset = ctx.pop("chunk_offset", 0) or 0
     asm = _ChunkAssembler(leaf, deferred_checks, device)
     asm.stats_span = _int_stats_span(statistics, leaf)
+    asm.alloc = alloc
     # parse_data_page applies the per-page conditions (PLAIN encoding,
     # levels outside the compressed region)
     lazy = (codec == CompressionCodec.SNAPPY
@@ -2432,6 +2582,8 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
             with error_context(offset=chunk_offset + ps.payload_start, **ctx):
                 payload = buf[ps.payload_start : ps.payload_end]
                 _check_crc(header, payload, validate_crc)
+                if alloc is not None:
+                    alloc.register(max(header.uncompressed_page_size or 0, 0))
                 raw = decompress_block(payload, codec,
                                        header.uncompressed_page_size)
                 dh = header.dictionary_page_header
@@ -2447,7 +2599,7 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
                                offset=chunk_offset + ps.payload_start, **ctx):
                 asm.pages.append(
                     parse_data_page(ps, buf, codec, leaf,
-                                    validate_crc=validate_crc,
+                                    validate_crc=validate_crc, alloc=alloc,
                                     decode_levels=False,
                                     lazy_decompress=lazy)
                 )
@@ -2477,9 +2629,9 @@ def decode_chunk_batched(buf: bytes, codec: int, total_values: int,
             values=torch.zeros(0, dtype=torch.int64, device=dev),
             max_def=leaf.max_def, max_rep=leaf.max_rep, num_leaf_slots=0)
     asm.preship(default_planner())
-    stager = _RowGroupStager()
+    stager = _RowGroupStager(device=dev)
     plan = asm.finish(stager)
-    return _run_plans([("c", plan)], stager.stage(dev))["c"]
+    return _run_plans([("c", plan)], stager.stage())["c"]
 
 
 @dataclass
@@ -2564,11 +2716,27 @@ class DeviceFileReader:
     defaults to ``cuda``: without a CUDA device the constructor raises —
     pass ``device="cpu"`` to decode with the kernels' plain versions.
 
+    ``max_memory`` caps the host bytes one row group's decode may register
+    (chunk bytes, each page's decompressed size, link-recompression copies;
+    0 = no cap): a decompression bomb raises
+    ``alloc.MemoryBudgetExceeded``.  With ``prefetch`` it also bounds the
+    bytes in flight on the chunk pool (backpressure).  ``prefetch=K`` runs
+    the chunk reads, CRCs, decompression, page parse and ship planning of
+    upcoming chunks K-deep on a thread pool (``_chunk_feed``), across row
+    groups; 0 keeps that host phase on the consumer thread.
+
     Nothing blocks until ``finalize()`` (called by ``read_row_group``;
     ``finalize=False`` defers it): staging and every kernel launch are
-    asynchronous on the current stream."""
+    asynchronous on the current stream.  ``iter_row_groups`` stages each
+    row group on a one-thread staging worker while the consumer prepares
+    the next (``_scan_pipeline``).
 
-    def __init__(self, source, columns=None, validate_crc=None, device=None):
+    Where the port differs from the reference on purpose: an explicit
+    ``device``, and a pool of pinned host buffers (``_PinnedPool``) under
+    the copies."""
+
+    def __init__(self, source, columns=None, validate_crc=None, device=None,
+                 max_memory: int = 0, prefetch: int = 0):
         self.device = _resolve_device(device)
         if isinstance(source, (str, os.PathLike)):
             self._f = open(source, "rb")
@@ -2593,9 +2761,25 @@ class DeviceFileReader:
             if self._owns_file:
                 self._f.close()
             raise
+        # positioned reads: the chunk pool's workers and the consumer
+        # share the source without sharing a position
+        self._sr = SharedReader(self._f)
+        self.alloc = AllocTracker(max_memory)
+        self._prefetch = int(prefetch)
+        self._pipe_stats = PipelineStats(prefetch=self._prefetch,
+                                         budget_bytes=int(max_memory))
+        # the chunk feed's in-flight budget while a scan runs
+        self._live_budget = None
         self._deferred: list = []
         self._stats = ReaderStats()
+        # the staging worker and the consumer both write the stats
+        self._stats_lock = threading.Lock()
         self._t0: "float | None" = None
+        # HBM ledger: a staged buffer is pending until its group is
+        # dispatched, then outstanding until a finalize proves the kernels
+        # reading it complete (the pipeline stages N+1 before N finalizes)
+        self._device_staged_pending = 0
+        self._device_outstanding = 0
         self._ship_planner = ShipPlanner()
         self._stats.planner_link_mbps = self._ship_planner.link_mbps
         self._pinned = _PinnedPool() if self.device.type == "cuda" else None
@@ -2605,6 +2789,8 @@ class DeviceFileReader:
         apply_selection(self.schema, columns)
 
     def close(self) -> None:
+        # deferred-finalize scans (scan_files) release the ledger here
+        self._release_device_outstanding(all_bytes=True)
         if self._owns_file:
             self._f.close()
             self._owns_file = False
@@ -2622,32 +2808,64 @@ class DeviceFileReader:
     def stats(self) -> ReaderStats:
         return self._stats
 
-    def _prepare_row_group(self, index: int):
+    def pipeline_stats(self) -> PipelineStats:
+        """Per-stage pipeline timing (io / decompress / recompress / stage /
+        dispatch / finalize), stall time and the in-flight high-water mark
+        of the current or last scan.  io and decompress fill only when
+        ``prefetch`` > 0 routes the host phase through the chunk pool."""
+        return self._pipe_stats
+
+    def _prepare_row_group(self, index: int, executor=None, collected=None):
         """Host phase: read, decompress and parse every selected chunk of the
-        row group, registering all byte regions with ONE stager."""
+        row group, registering all byte regions with ONE stager.
+
+        With ``executor`` (the staging worker) the stager streams completed
+        strips to the device while this thread still parses later chunks.
+        With ``collected`` (the chunk feed's output: IO, CRC, decompression,
+        page parse and ship planning already done on the pool) this
+        collapses to stager registration and plan construction.  Only the
+        host-decode path (``_finish_host``) touches the device here, on
+        this thread's current stream."""
         rg = self.metadata.row_groups[index]
         t0 = time.perf_counter()
         if self._t0 is None:
             self._t0 = t0
         leaves = {l.path: l for l in self.schema.selected_leaves()}
         out: dict[str, DeviceColumnData] = {}
-        stager = _RowGroupStager()
+        f = self._sr.as_file()
+        self.alloc.reset()
+        stager = _RowGroupStager(executor, self.device, self._pinned)
         plans: list[tuple[str, _Plan]] = []
         for path, leaf, _chunk, md, offset in row_group_chunks(rg, leaves):
-            self._f.seek(offset)
-            buf = require_full(self._f.read(md.total_compressed_size),
-                               offset, md.total_compressed_size,
-                               context=f"column {'.'.join(path)}")
-            self._stats.chunks += 1
-            self._stats.compressed_bytes += md.total_compressed_size
-            ctx = {"file": self._source_name, "row_group": index,
-                   "column": ".".join(path), "chunk_offset": offset}
-            asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
-                                 self._deferred,
-                                 validate_crc=self.validate_crc,
-                                 statistics=md.statistics, context=ctx,
-                                 device=self.device)
-            asm.preship(self._ship_planner)
+            if collected is not None:
+                entry = collected["chunks"].get(path)
+                if entry is None:
+                    # the selection changed between feed and prepare (both
+                    # run on the consumer thread: a caller bug)
+                    raise ParquetError(
+                        f"prefetched row group {index} missing chunk "
+                        f"{'.'.join(path)}")
+                md, asm = entry
+                self._stats.chunks += 1
+                self._stats.compressed_bytes += md.total_compressed_size
+                self.alloc.register(md.total_compressed_size)
+            else:
+                f.seek(offset)
+                buf = require_full(f.read(md.total_compressed_size),
+                                   offset, md.total_compressed_size,
+                                   context=f"column {'.'.join(path)}")
+                self._stats.chunks += 1
+                self._stats.compressed_bytes += md.total_compressed_size
+                self.alloc.register(md.total_compressed_size)
+                ctx = {"file": self._source_name, "row_group": index,
+                       "column": ".".join(path), "chunk_offset": offset}
+                asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
+                                     self._deferred,
+                                     validate_crc=self.validate_crc,
+                                     alloc=self.alloc,
+                                     statistics=md.statistics, context=ctx,
+                                     device=self.device)
+                asm.preship(self._ship_planner, self._pipe_stats)
             self._stats.pages += len(asm.pages)
             name = ".".join(path)
             if not asm.pages:
@@ -2679,47 +2897,112 @@ class DeviceFileReader:
         self._stats.wall_seconds = now - self._t0
         return out, plans, stager
 
-    def _dispatch_row_group(self, prepared):
+    def _note_staged(self, stager: _RowGroupStager) -> None:
+        """A staged row-group buffer is on the device: into the ledger,
+        pending until its group is dispatched."""
+        n = int(stager.total)
+        if n:
+            self.alloc.register_device(n)
+            with self._stats_lock:
+                self._device_staged_pending += n
+
+    def _note_dispatched(self, stager: _RowGroupStager) -> None:
+        """The group's kernels are enqueued: its staged bytes are released
+        at the next finalize."""
+        n = int(stager.total)
+        if n:
+            with self._stats_lock:
+                self._device_staged_pending -= n
+                self._device_outstanding += n
+
+    def _release_device_outstanding(self, all_bytes: bool = False) -> None:
+        """Release the ledger for the groups whose kernels a finalize just
+        proved complete; ``all_bytes`` (close) also drops the staged
+        buffers still pending."""
+        with self._stats_lock:
+            n, self._device_outstanding = self._device_outstanding, 0
+            if all_bytes:
+                n += self._device_staged_pending
+                self._device_staged_pending = 0
+        if n:
+            self.alloc.release_device(n)
+
+    def _dispatch_row_group(self, prepared, buf_dev=None):
+        """Stage (unless the staging worker did: ``buf_dev``) and enqueue
+        every chunk's decode."""
         out, plans, stager = prepared
         if plans:
-            t0 = time.perf_counter()
-            buf_dev = stager.stage(self.device, self._pinned)
+            if buf_dev is None:
+                t0 = time.perf_counter()
+                with self._pipe_stats.timed("stage"):
+                    buf_dev = stager.stage()
+                with self._stats_lock:
+                    self._stats.stage_seconds += time.perf_counter() - t0
+                self._note_staged(stager)
+            if stager.ready is not None:
+                # the copies ran on the stream current when the stager was
+                # made; if this thread's stream is another, it waits for
+                # them, and the allocator learns the buffer's new user
+                cur = torch.cuda.current_stream(self.device)
+                if cur != stager._stream:
+                    cur.wait_event(stager.ready)
+                    buf_dev.record_stream(cur)
             t1 = time.perf_counter()
-            self._stats.stage_seconds += t1 - t0
-            out.update(_run_plans(plans, buf_dev))
-            self._stats.dispatch_seconds += time.perf_counter() - t1
+            with self._pipe_stats.timed("dispatch"):
+                out.update(_run_plans(plans, buf_dev))
+            with self._stats_lock:
+                self._stats.dispatch_seconds += time.perf_counter() - t1
+            self._note_dispatched(stager)
         if self._t0 is not None:
             self._stats.wall_seconds = time.perf_counter() - self._t0
+        self._pipe_stats.count_row_group()
+        self._pipe_stats.touch_wall()
         return out
 
     def read_row_group(self, index: int, finalize: bool = True) -> dict:
-        """Decode row group ``index``: ``{column name: DeviceColumnData}``."""
-        out = self._dispatch_row_group(self._prepare_row_group(index))
+        """Decode row group ``index``: ``{column name: DeviceColumnData}``.
+        With ``prefetch`` > 0 its chunks are collected on the pool."""
+        collected = None
+        if self._prefetch > 0:
+            feed = _chunk_feed(iter([(self, None, index)]), self._prefetch,
+                               self.alloc.max_size)
+            try:
+                _r, _p, _i, collected = next(feed)
+            finally:
+                feed.close()
+        out = self._dispatch_row_group(
+            self._prepare_row_group(index, collected=collected))
         if finalize:
             self.finalize()
         return out
 
     def finalize(self) -> None:
         """Run the deferred dictionary-range checks (one device read for
-        all chunks; there are none when the native run walk is built)."""
-        deferred, self._deferred[:] = list(self._deferred), []
-        if not deferred:
-            return
-        host_max = torch.stack([m for m, _, _ in deferred]).cpu().numpy()
-        for mx, (_, dict_len, path) in zip(host_max, deferred):
-            if int(mx) >= dict_len:
-                raise ParquetError(
-                    f"dictionary index {int(mx)} out of range ({dict_len}) "
-                    f"in column {path}"
-                )
+        all chunks; there are none when the native run walk is built).  The
+        read also proves the kernels reading the staged buffers complete,
+        so the HBM ledger releases them."""
+        with self._pipe_stats.timed("finalize"):
+            _finalize_many([self])
+        self._release_device_outstanding()
+        self._pipe_stats.touch_wall()
 
     def iter_row_groups(self, finalize_each: bool = False):
-        """Yield each row group's ``{column name: DeviceColumnData}``.  The
-        host parses row group N+1 while the card still copies and decodes
-        N (every launch is asynchronous)."""
-        for i in range(self.num_row_groups):
-            yield self.read_row_group(i, finalize=finalize_each)
-        self.finalize()
+        """Yield each row group's ``{column name: DeviceColumnData}``
+        through the one-deep pipeline: row group N is staged on the staging
+        worker (strips streamed while it is parsed) while the consumer
+        prepares N+1, and with ``prefetch`` > 0 the chunk pool reads and
+        parses ahead.  Each scan starts fresh ``pipeline_stats()``."""
+        self._pipe_stats = PipelineStats(prefetch=self._prefetch,
+                                         budget_bytes=self.alloc.max_size)
+        if not self.num_row_groups:
+            self.finalize()
+            return
+        with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
+            for _, out in _scan_pipeline(
+                    ((self, None, i) for i in range(self.num_row_groups)),
+                    ex, finalize_each=finalize_each, prefetch=self._prefetch,
+                    budget_bytes=self.alloc.max_size):
+                yield out
 
     def iter_batches(self, batch_size: int, columns=None):
         """Yield fixed-size device batches ``{column: tensor[batch_size]}``.
@@ -2780,3 +3063,294 @@ class DeviceFileReader:
                        for k, v in carry.items()}
                 start += batch_size
             carry = {k: v[start:] for k, v in carry.items()}
+
+
+# ---------------------------------------------------------------------------
+# the host pipeline: chunk feed, scan pipeline, multi-file scan
+# ---------------------------------------------------------------------------
+
+def _timed(pipe_stats, stage: str):
+    """``pipe_stats.timed(stage)``, or nothing without stats."""
+    return (pipe_stats.timed(stage) if pipe_stats is not None
+            else contextlib.nullcontext())
+
+
+def _finalize_many(readers) -> None:
+    """Run every reader's deferred dictionary-range checks with ONE device
+    read, placed after the last dispatch so nothing queued behind it
+    waits.  A failing check raises before any list is cleared, so a second
+    call raises again."""
+    deferred = [d for r in readers for d in r._deferred]
+    if not deferred:
+        return
+    host_max = torch.stack([m for m, _, _ in deferred]).cpu().numpy()
+    for mx, (_, dict_len, path) in zip(host_max, deferred):
+        if int(mx) >= dict_len:
+            raise ParquetError(
+                f"dictionary index {int(mx)} out of range ({dict_len}) "
+                f"in column {path}"
+            )
+    for r in readers:
+        # in place: the assemblers of prepared groups hold this list
+        r._deferred.clear()
+
+
+def _timed_stage(reader: DeviceFileReader, stager: _RowGroupStager):
+    """Stage on the worker, into the owning reader's ``stage`` lane and
+    ``stage_seconds`` (the worker and the consumer write the stats at
+    once: hence the lock)."""
+    t0 = time.perf_counter()
+    with reader._pipe_stats.timed("stage"):
+        buf_dev = stager.stage()
+    with reader._stats_lock:
+        reader._stats.stage_seconds += time.perf_counter() - t0
+    reader._note_staged(stager)
+    return buf_dev
+
+
+def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
+    """Chunk-granular prefetch over the ``(reader, path, index)`` stream.
+
+    The host half of the pipeline: IO, CRC, decompression, page parse and
+    ship planning of upcoming chunks run on a pool of ``prefetch`` threads,
+    the work items flattened across row-group and file boundaries, so the
+    pool keeps working while the consumer registers, stages and dispatches
+    the current group.  Yields ``(reader, path, index, collected)`` in work
+    order, where ``collected`` is what ``_prepare_row_group(collected=...)``
+    takes: ``{"chunks": {column path: (md, _ChunkAssembler)}}``.
+
+    The same flatten/regroup protocol as ``reader.FileReader.
+    _decode_row_groups``, with other payloads.  Everything on the workers
+    is host-only (``_collect_chunk``, ``preship``); the device plan is
+    built in ``finish`` on the consumer.  The bytes in flight are bounded
+    by an ``InFlightBudget`` over ``budget_bytes`` (backpressure), and each
+    worker chunk registers against its own ``AllocTracker`` (the
+    decompression-bomb guard without sharing the reader's per-row-group
+    counter across threads)."""
+    budget = InFlightBudget(budget_bytes)
+    fed: set = set()  # readers whose _live_budget is this feed's
+    pending: dict = {}
+    current = {"stats": None}  # stats of the reader whose item submits
+    depth_owner = {"stats": None}  # the stats whose queue gauge was set
+
+    class _StatsFwd:
+        """Route prefetch_map's stall, peak and queue-depth accounting to
+        the reader whose chunk is submitting (submission happens on the
+        consumer thread right after ``gen_items`` yields, so ``current``
+        names it).  When the window moves to the next reader, the previous
+        owner's queue gauge drops to 0."""
+
+        @staticmethod
+        def add_stall(seconds):
+            st = current["stats"]
+            if st is not None:
+                st.add_stall(seconds)
+
+        @staticmethod
+        def set_queue_depth(n):
+            st = current["stats"]
+            prev = depth_owner["stats"]
+            if prev is not None and prev is not st:
+                prev.set_queue_depth(0)
+            depth_owner["stats"] = st
+            if st is not None:
+                st.set_queue_depth(n)
+
+        @staticmethod
+        def note_peak(b):
+            st = current["stats"]
+            if st is not None:
+                st.note_peak(b)
+
+    def gen_items():
+        for r, path, i in work:
+            current["stats"] = r._pipe_stats
+            r._live_budget = budget
+            fed.add(r)
+            rg = r.metadata.row_groups[i]
+            leaves = {l.path: l for l in r.schema.selected_leaves()}
+            items = [(r, i, p, leaf, md, offset)
+                     for p, leaf, _chunk, md, offset
+                     in row_group_chunks(rg, leaves)]
+            pending[(id(r), i)] = {"r": r, "path": path, "i": i,
+                                   "todo": max(len(items), 1), "chunks": {}}
+            if not items:
+                # sentinel so an empty group still comes out in order
+                items.append((r, i, None, None, None, None))
+            yield from items
+
+    def cost(item):
+        md = item[4]
+        if md is None:
+            return 0
+        comp = max(md.total_compressed_size or 0, 0)
+        return comp + max(md.total_uncompressed_size or 0, comp)
+
+    def collect(item):
+        r, i, p, leaf, md, offset = item
+        if md is None:
+            return (id(r), i), None, None
+        stats = r._pipe_stats
+        ctx = {"file": r._source_name, "row_group": i,
+               "column": ".".join(p), "chunk_offset": offset}
+        tracker = AllocTracker(r.alloc.max_size)
+        tracker.register(md.total_compressed_size)
+        with stats.timed("io"):
+            buf = r._sr.pread(offset, md.total_compressed_size)
+        require_full(buf, offset, md.total_compressed_size,
+                     context=f"column {'.'.join(p)}")
+        with stats.timed("decompress"):
+            asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
+                                 r._deferred, validate_crc=r.validate_crc,
+                                 alloc=tracker, statistics=md.statistics,
+                                 context=ctx, device=r.device)
+        # ship planning on the same worker (its compression seconds land
+        # in the recompress lane): overlaps the consumer's stage/dispatch
+        asm.preship(r._ship_planner, stats)
+        stats.count_chunk()
+        return (id(r), i), p, (md, asm)
+
+    try:
+        for key, p, payload in prefetch_map(gen_items(), collect, prefetch,
+                                            budget=budget, cost=cost,
+                                            stats=_StatsFwd()):
+            slot = pending[key]
+            if p is not None:
+                slot["chunks"][p] = payload
+            slot["todo"] -= 1
+            if slot["todo"] == 0:
+                del pending[key]
+                r = slot["r"]
+                r._pipe_stats.note_peak(budget)
+                r._pipe_stats.touch_wall()
+                yield r, slot["path"], slot["i"], {"chunks": slot["chunks"]}
+    finally:
+        # un-bind the dead feed's budget from every reader it fed
+        for r in fed:
+            if r._live_budget is budget:
+                r._live_budget = None
+
+
+def _scan_pipeline(work, ex, finalize_each: bool = False,
+                   close_finished: bool = False,
+                   defer_finalize: bool = False,
+                   prefetch: int = 0, budget_bytes: int = 0):
+    """The one-deep prepare/stage/dispatch pipeline shared by
+    ``DeviceFileReader.iter_row_groups`` (one reader) and :func:`scan_files`
+    (many).  ``work`` yields ``(reader, path, row_group_index)``; this yields
+    ``(path, columns)`` per row group.  Row group N is staged on ``ex``
+    while the consumer prepares N+1, then dispatched and yielded.
+
+    With ``prefetch`` > 0 the host phase (chunk IO, decompression, parse)
+    comes from :func:`_chunk_feed`'s pool; an eager error from a prefetched
+    chunk may then preempt the preceding yield by up to the feed's depth
+    (the sequential path's by exactly one).
+
+    Ordering contract: a row group is always yielded before its reader's
+    deferred checks can raise (finalize runs after the yield, at a file
+    boundary, per group with ``finalize_each``, or at the end; never with
+    ``defer_finalize``, whose caller runs them once).  With
+    ``close_finished`` a reader is closed as soon as its last row group is
+    delivered: all of its chunk reads precede that yield."""
+    stream = (_chunk_feed(work, prefetch, budget_bytes) if prefetch > 0
+              else ((r, path, i, None) for r, path, i in work))
+    try:
+        prev = None  # (reader, path, prepared, staging future)
+        for r, path, i, collected in stream:
+            prepared = r._prepare_row_group(i, executor=ex,
+                                            collected=collected)
+            fut = (ex.submit(_timed_stage, r, prepared[2])
+                   if prepared[1] else None)
+            if prev is not None:
+                pr, pp, pprep, pfut = prev
+                out = pr._dispatch_row_group(
+                    pprep, pfut.result() if pfut else None)
+                yield pp, out
+                if finalize_each or pr is not r:
+                    if not defer_finalize:
+                        pr.finalize()
+                    if close_finished and pr is not r:
+                        pr.close()
+            prev = (r, path, prepared, fut)
+        if prev is not None:
+            pr, pp, pprep, pfut = prev
+            out = pr._dispatch_row_group(
+                pprep, pfut.result() if pfut else None)
+            yield pp, out
+            if not defer_finalize:
+                pr.finalize()
+    finally:
+        # an abandoned or failed scan joins the chunk pool here, not at GC
+        if prefetch > 0:
+            stream.close()
+
+
+def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
+               with_path: bool = False, prefetch: int = 0, device=None):
+    """Scan several files' row groups through ONE continuous pipeline.
+
+    ``paths`` is a path, a list of paths, or a dataset: a
+    ``tpq_manifest.json`` or a directory holding one
+    (``write.manifest.expand_dataset``).  One staging worker spans the
+    whole dataset, so file N+1's footer and host phase overlap file N's
+    tail transfers as adjacent row groups do within a file; with
+    ``prefetch=K`` the chunk pool also spans file boundaries.
+
+    Yields one ``{column: DeviceColumnData}`` dict per row group in file
+    order; ``with_path=True`` yields ``(path, columns)`` pairs.  The
+    deferred dictionary-range checks run ONCE, after the last group is
+    yielded; eager per-chunk errors raise from the pipelined prepare and
+    may preempt the preceding group's yield.  Finished files close at the
+    boundary, and every reader is closed on exit, on an error or an early
+    ``break`` too.
+
+    A consumer that abandons the scan and lets the generator be closed by
+    the garbage collector loses the deferred-check exception (Python drops
+    it); the error is also logged on this module's logger before it is
+    raised.  Close the generator explicitly, or run it to the end, to get
+    the ``ParquetError``.
+
+    Left out of the reference: ``row_filter``, ``trace``, ``sample_ms``,
+    ``hang_s``, ``hang_policy``, ``store``, ``on_data_error``,
+    ``quarantine`` and ``plan_cache``."""
+    from .write.manifest import expand_dataset
+
+    paths, _manifest = expand_dataset(paths)
+    dev = _resolve_device(device, "scan_files")
+    readers: list[DeviceFileReader] = []
+    pool = _PinnedPool() if dev.type == "cuda" else None
+
+    def work():
+        for path in paths:
+            r = DeviceFileReader(path, columns=columns,
+                                 validate_crc=validate_crc, device=dev,
+                                 max_memory=max_memory)
+            # one pinned pool for the whole dataset: the next file's
+            # strips reuse the last file's buffers
+            r._pinned = pool
+            readers.append(r)
+            for i in range(r.num_row_groups):
+                yield r, path, i
+
+    try:
+        with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
+            for pp, out in _scan_pipeline(work(), ex, close_finished=True,
+                                          defer_finalize=True,
+                                          prefetch=int(prefetch),
+                                          budget_bytes=int(max_memory)):
+                yield (pp, out) if with_path else out
+        _finalize_many(readers)
+    finally:
+        try:
+            # again for a consumer that abandoned the scan: the files it
+            # consumed still validate when the generator closes
+            try:
+                _finalize_many(readers)
+            except ParquetError as e:
+                logging.getLogger(__name__).error(
+                    "scan_files deferred validation failed (swallowed if "
+                    "this close is GC-driven): %s", e)
+                raise
+        finally:
+            for r in readers:
+                r.close()

@@ -1,0 +1,332 @@
+"""Overlapped chunk pipeline: threaded IO + decompress prefetch.
+
+The counterpart of ``tpu_parquet.pipeline``, shared by the host
+``FileReader`` and the ``DeviceFileReader``:
+
+- :func:`prefetch_map` — an ordered overlapped map: up to ``prefetch``
+  items run on a bounded thread pool ahead of the consumer, results are
+  yielded in submission order, and an error surfaces at the failing item's
+  position.  Decompression releases the GIL (zlib, zstandard, the native
+  snappy codec through ctypes) and chunk IO is blocking reads, so host
+  threads overlap.  The item stream is pulled lazily in the consumer
+  thread, so work generation keeps its sequential semantics;
+- :class:`PipelineStats` — per-stage wall-time counters (io / decompress /
+  recompress / stage / dispatch / finalize), stall time and the in-flight
+  high-water mark, surfaced by both readers' ``pipeline_stats()``;
+- :class:`SharedReader` — thread-safe positioned reads over one byte
+  source: ``os.pread`` on real files (parallel, never touches the shared
+  descriptor's position), a lock around seek+read otherwise (``BytesIO``,
+  wrapped streams).
+
+Memory is bounded by :class:`alloc.InFlightBudget`: the submitter acquires
+each item's estimated bytes before handing it to the pool and releases
+them when the consumer takes the result.  The budget is only awaited in the
+consumer thread while nothing is in flight, else the window head is drained
+first, so it cannot deadlock against itself.
+
+Left out of the reference: tracer spans, the flight recorder, the
+per-stage latency histograms (so ``as_dict()`` has no
+``stage_histograms``), the byte stores of ``iostore`` behind
+``SharedReader`` (this module reads local sources only), and
+``prefetch_map``'s ``cancel`` and ``feed``.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
+from typing import Callable, Iterable, Iterator, Optional, TypeVar
+
+from .alloc import InFlightBudget
+
+T = TypeVar("T")
+R = TypeVar("R")
+
+STAGES = ("io", "decompress", "recompress", "stage", "dispatch", "finalize")
+
+
+class PipelineStats:
+    """Per-stage timing of the overlapped decode pipeline.
+
+    - ``io``          chunk byte reads from the source
+    - ``decompress``  page decompress + CRC + structure parse + host decode
+    - ``recompress``  link recompression (snappy over hot streams, on the
+                      worker that collected the chunk when prefetching)
+    - ``stage``       host->device staging (buffer fill + copy enqueue)
+    - ``dispatch``    enqueue of the decode launches
+    - ``finalize``    the deferred range checks' device read
+
+    ``busy_seconds`` is the sum over stages; ``overlap_efficiency =
+    busy_seconds / wall_seconds`` reads 1.0 for a serial run and more when
+    stages overlap.  ``stall_seconds`` counts submitter time blocked on the
+    memory budget.  Thread-safe: workers and the consumer add at once."""
+
+    def __init__(self, prefetch: int = 0, budget_bytes: int = 0):
+        self.prefetch = int(prefetch)
+        self.budget_bytes = int(budget_bytes)
+        self.chunks = 0
+        self.row_groups = 0
+        self.stall_seconds = 0.0
+        self.wall_seconds = 0.0
+        self.peak_in_flight_bytes = 0
+        # live prefetch backlog (items submitted, not yet consumed): a
+        # point-in-time gauge, not in as_dict() (it ends at 0)
+        self.queue_depth = 0
+        self._stage_seconds = {s: 0.0 for s in STAGES}
+        self._lock = threading.Lock()
+        self._t0: Optional[float] = None
+
+    def add(self, stage: str, seconds: float) -> None:
+        if stage not in self._stage_seconds:
+            raise ValueError(
+                f"unknown pipeline stage {stage!r}; valid stages: "
+                f"{', '.join(STAGES)}")
+        with self._lock:
+            self._stage_seconds[stage] += seconds
+
+    @contextmanager
+    def timed(self, stage: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(stage, time.perf_counter() - t0)
+
+    def add_stall(self, seconds: float) -> None:
+        with self._lock:
+            self.stall_seconds += seconds
+
+    def count_chunk(self) -> None:
+        with self._lock:
+            self.chunks += 1
+
+    def count_row_group(self) -> None:
+        with self._lock:
+            self.row_groups += 1
+
+    def touch_wall(self) -> None:
+        """Extend the wall clock to now (the first call starts it)."""
+        now = time.perf_counter()
+        with self._lock:
+            if self._t0 is None:
+                self._t0 = now
+            self.wall_seconds = now - self._t0
+
+    def set_queue_depth(self, n: int) -> None:
+        with self._lock:
+            self.queue_depth = int(n)
+
+    def note_peak(self, budget: InFlightBudget) -> None:
+        with self._lock:
+            self.peak_in_flight_bytes = max(self.peak_in_flight_bytes,
+                                            budget.peak)
+
+    def merge_from(self, other: "PipelineStats") -> None:
+        """Fold another pipeline's counters into this one: stage and stall
+        seconds and item counts add, peaks take the max, the wall clock
+        stays this object's own."""
+        with other._lock:
+            stages = dict(other._stage_seconds)
+            chunks, row_groups = other.chunks, other.row_groups
+            stall = other.stall_seconds
+            peak = other.peak_in_flight_bytes
+        with self._lock:
+            for s, v in stages.items():
+                self._stage_seconds[s] += v
+            self.chunks += chunks
+            self.row_groups += row_groups
+            self.stall_seconds += stall
+            self.peak_in_flight_bytes = max(self.peak_in_flight_bytes, peak)
+
+    def stage_seconds(self, stage: str) -> float:
+        with self._lock:
+            return self._stage_seconds[stage]
+
+    @property
+    def busy_seconds(self) -> float:
+        with self._lock:
+            return sum(self._stage_seconds.values())
+
+    @property
+    def overlap_efficiency(self) -> float:
+        return (self.busy_seconds / self.wall_seconds
+                if self.wall_seconds else 0.0)
+
+    def as_dict(self) -> dict:
+        with self._lock:
+            stages = {f"{s}_seconds": round(v, 6)
+                      for s, v in self._stage_seconds.items()}
+        busy = self.busy_seconds
+        return {
+            "prefetch": self.prefetch,
+            "budget_bytes": self.budget_bytes,
+            "chunks": self.chunks,
+            "row_groups": self.row_groups,
+            **stages,
+            "busy_seconds": round(busy, 6),
+            "wall_seconds": round(self.wall_seconds, 6),
+            "stall_seconds": round(self.stall_seconds, 6),
+            "peak_in_flight_bytes": self.peak_in_flight_bytes,
+            "overlap_efficiency": round(self.overlap_efficiency, 3),
+        }
+
+
+def _real_fileno(f) -> "int | None":
+    """The OS descriptor behind ``f`` that ``os.pread`` can serve, or None
+    (``BytesIO``, streams without one, a pipe, no ``os.pread``)."""
+    try:
+        fd = f.fileno()
+        os.pread(fd, 0, 0)
+    except (AttributeError, OSError, TypeError, ValueError,
+            io.UnsupportedOperation):
+        return None
+    return fd
+
+
+class SharedReader:
+    """Thread-safe positioned reads over one local byte source: ``os.pread``
+    where the source has a real descriptor (parallel, and a thread doing
+    its own seek+read on the raw file stays correct), a lock around
+    seek+read otherwise.  ``parallel`` is False on the locked path."""
+
+    def __init__(self, f):
+        self._f = f
+        self._fd = _real_fileno(f)
+        self._lock = threading.Lock()
+
+    @property
+    def parallel(self) -> bool:
+        return self._fd is not None
+
+    def as_file(self) -> "_PReadFile":
+        """A minimal file-like (seek/read pairs) whose every read goes
+        through :meth:`pread`."""
+        return _PReadFile(self)
+
+    def pread(self, offset: int, size: int) -> bytes:
+        if self._fd is not None:
+            parts = []
+            got = 0
+            while got < size:
+                b = os.pread(self._fd, size - got, offset + got)
+                if not b:
+                    break  # end of file: the caller checks the length
+                parts.append(b)
+                got += len(b)
+            return parts[0] if len(parts) == 1 else b"".join(parts)
+        with self._lock:
+            self._f.seek(offset)
+            return self._f.read(size)
+
+
+class _PReadFile:
+    """File-like adapter over :class:`SharedReader` that tracks its own
+    position, so concurrent holders never fight over the shared one."""
+
+    def __init__(self, sr: SharedReader):
+        self._sr = sr
+        self._pos = 0
+
+    def seek(self, pos: int) -> int:
+        self._pos = int(pos)
+        return self._pos
+
+    def read(self, size: int) -> bytes:
+        b = self._sr.pread(self._pos, size)
+        self._pos += len(b)
+        return b
+
+
+def prefetch_map(
+    items: Iterable[T],
+    fn: Callable[[T], R],
+    prefetch: int,
+    budget: Optional[InFlightBudget] = None,
+    cost: Optional[Callable[[T], int]] = None,
+    stats: Optional[PipelineStats] = None,
+) -> Iterator[R]:
+    """Ordered overlapped map: run ``fn`` over ``items`` on a bounded pool.
+
+    Up to ``prefetch`` items are in flight ahead of the consumer; results
+    yield strictly in item order; an item whose ``fn`` raises re-raises at
+    its ordered position, after which the remaining work is cancelled and
+    the pool joined — no leaked threads, also when the consumer abandons
+    the generator early (``close()`` runs the same cleanup).
+
+    ``cost(item)`` bytes are acquired from ``budget`` before submission and
+    released when the consumer receives the result.  Backpressure never
+    blocks while results are poppable: when the next item's bytes do not
+    fit, the window head is drained first; a blocking wait happens only
+    with nothing in flight (the oversize item, which the budget admits
+    alone).  ``stats`` takes the stall time, the budget's peak and the
+    queue depth.
+
+    Workers are named ``tpq-prefetch`` and capped at the machine's cores:
+    queued-but-not-running items keep the lookahead without convoying on
+    the GIL.  ``prefetch <= 0`` is a plain sequential map with no threads.
+    """
+    if prefetch <= 0:
+        for item in items:
+            yield fn(item)
+        return
+
+    it = iter(items)
+    pending: deque = deque()  # (future, charged cost)
+    carried: Optional[tuple] = None  # (item, cost) awaiting budget headroom
+    workers = max(1, min(prefetch, os.cpu_count() or 1))
+    ex = ThreadPoolExecutor(max_workers=workers,
+                            thread_name_prefix="tpq-prefetch")
+    try:
+        exhausted = False
+        while True:
+            while len(pending) < prefetch and not exhausted:
+                if carried is None:
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    carried = (item,
+                               int(cost(item)) if cost is not None else 0)
+                item, c = carried
+                if budget is not None and c:
+                    if not budget.try_acquire(c):
+                        if pending:
+                            break  # drain the head; its release frees room
+                        t0 = time.perf_counter()
+                        budget.acquire(c)
+                        if stats is not None:
+                            stats.add_stall(time.perf_counter() - t0)
+                    if stats is not None:
+                        stats.note_peak(budget)
+                carried = None
+                pending.append((ex.submit(fn, item), c))
+                if stats is not None:
+                    stats.set_queue_depth(len(pending))
+            if not pending:
+                break
+            fut, c = pending.popleft()
+            if stats is not None:
+                stats.set_queue_depth(len(pending))
+            try:
+                res = fut.result()
+            finally:
+                if budget is not None and c:
+                    budget.release(c)
+            yield res
+    finally:
+        if stats is not None:
+            stats.set_queue_depth(0)
+        for fut, _c in pending:
+            fut.cancel()
+        ex.shutdown(wait=True)
+        for fut, c in pending:
+            if budget is not None and c:
+                budget.release(c)
+            if not fut.cancelled():
+                fut.exception()  # retrieve, so failures are not lost

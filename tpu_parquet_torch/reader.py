@@ -9,6 +9,11 @@ reference's FileReader (file_reader.go:65-149): ``columns`` (projection),
 accessors.  Columnar first: ``read_row_group`` / ``read_all`` return decoded
 columns per row group, and rows (``iter_rows``, NextRow parity) are
 assembled on top of them by ``assembly``.
+
+``prefetch=K`` runs the chunk reads and decodes K-deep on a thread pool
+(``pipeline.prefetch_map``), flattened across row groups, as the
+reference's ``_decode_row_groups``; without the reference's quarantine,
+result cache, range coalescing and fetch engine.
 """
 
 from __future__ import annotations
@@ -19,11 +24,13 @@ from typing import BinaryIO, Iterable, Optional, Sequence, Union
 
 import numpy as np
 
-from .alloc import AllocTracker
-from .chunk_decode import read_chunk, row_group_chunks
+from .alloc import AllocTracker, InFlightBudget
+from .chunk_decode import (ChunkDecoder, read_chunk, require_full,
+                           row_group_chunks, validate_chunk_meta)
 from .column import ByteArrayData, ColumnData
 from .footer import ParquetError, read_file_metadata
 from .format import FileMetaData
+from .pipeline import PipelineStats, SharedReader, prefetch_map
 from .schema.core import Schema, SchemaNode
 
 _VALIDATE_ON = ("1", "on", "true", "crc", "yes")
@@ -73,7 +80,11 @@ class FileReader:
     ``max_memory`` caps the bytes one row group's decode may register (chunk
     bytes and decompressed pages; 0 = no cap): passing it raises
     ``alloc.MemoryBudgetExceeded`` instead of running out of memory on a
-    decompression bomb."""
+    decompression bomb.  With ``prefetch`` > 0 it also bounds the bytes in
+    flight on the prefetch pool (backpressure, not an error).
+
+    ``prefetch`` is the depth of the chunk pipeline (0 = sequential); the
+    read calls take it per call too."""
 
     def __init__(
         self,
@@ -82,6 +93,7 @@ class FileReader:
         validate_crc=None,
         max_memory: int = 0,
         metadata: Optional[FileMetaData] = None,
+        prefetch: int = 0,
     ):
         if isinstance(source, (str, os.PathLike)):
             self._f: BinaryIO = open(source, "rb")
@@ -105,6 +117,12 @@ class FileReader:
                 self.set_selected_columns(columns)
             self.alloc = AllocTracker(max_memory)
             self._current_row_group = 0
+            # positioned reads: the prefetch pool's workers and the
+            # sequential path share the source without sharing a position
+            self._sr = SharedReader(self._f)
+            self.prefetch = int(prefetch)
+            self._pipe_stats = PipelineStats(prefetch=self.prefetch,
+                                             budget_bytes=int(max_memory))
         except BaseException:
             # a constructor failure (bad footer, bad projection) must not
             # leak the file this reader opened
@@ -160,19 +178,129 @@ class FileReader:
 
     # -- columnar reads --------------------------------------------------------
 
-    def read_row_group(self, index: int) -> dict[str, ColumnData]:
+    def pipeline_stats(self) -> PipelineStats:
+        """Per-stage timing of the last or current prefetch pipeline (io,
+        decompress, stall, peak in flight); zeros when ``prefetch`` was
+        never used."""
+        return self._pipe_stats
+
+    def _decode_row_groups(self, indices, k: int):
+        """Chunk-granular overlapped decode (the prefetch pipeline).
+
+        Work items are (row group, chunk) pairs flattened across
+        ``indices``: the K-deep window spans group boundaries, so workers
+        decode the next group's chunks while a finished group is assembled
+        and yielded.  Yields ``(index, {dotted path: ColumnData})`` in
+        ``indices`` order; the per-group missing-column check is
+        ``read_row_group``'s.
+
+        Memory: every worker chunk gets its own ``AllocTracker(max_memory)``
+        (the per-chunk decompression-bomb guard), and the bytes in flight
+        across chunks are bounded by an ``InFlightBudget`` over the same
+        budget.  ``device_reader._chunk_feed`` mirrors this flatten/regroup
+        protocol with other payloads."""
+        stats = PipelineStats(prefetch=k, budget_bytes=self.alloc.max_size)
+        self._pipe_stats = stats
+        budget = InFlightBudget(self.alloc.max_size)
+        sr = self._sr
+        pending: dict[int, dict] = {}  # row group -> regrouping slot
+
+        def gen_items():
+            # runs in the consumer thread as the window refills, so the
+            # selection snapshot keeps sequential semantics
+            for i in indices:
+                rg = self.metadata.row_groups[i]
+                by_path = {l.path: l for l in self.schema.selected_leaves()}
+                items = []
+                for chunk in rg.columns or []:
+                    md = chunk.meta_data
+                    if md is None or md.path_in_schema is None:
+                        raise ParquetError(
+                            "column chunk missing metadata/path")
+                    path = tuple(md.path_in_schema)
+                    leaf = by_path.get(path)
+                    if leaf is None:
+                        continue  # unselected: its bytes are never read
+                    items.append((i, path, chunk, leaf))
+                pending[i] = {"expect": {".".join(p) for p in by_path},
+                              "todo": max(len(items), 1), "out": {}}
+                if not items:
+                    # sentinel so an empty group still comes out in order
+                    items.append((i, None, None, None))
+                yield from items
+
+        def chunk_cost(item):
+            chunk = item[2]
+            if chunk is None:
+                return 0
+            md = chunk.meta_data
+            comp = max(md.total_compressed_size or 0, 0)
+            return comp + max(md.total_uncompressed_size or 0, comp)
+
+        def decode_item(item):
+            i, path, chunk, leaf = item
+            if chunk is None:
+                return i, None, None
+            name = ".".join(path)
+            md, offset = validate_chunk_meta(chunk, leaf)
+            alloc = AllocTracker(self.alloc.max_size)
+            alloc.register(md.total_compressed_size)
+            with stats.timed("io"):
+                buf = sr.pread(offset, md.total_compressed_size)
+            require_full(buf, offset, md.total_compressed_size,
+                         context=f"column {name}")
+            with stats.timed("decompress"):
+                dec = ChunkDecoder(
+                    leaf, validate_crc=self.validate_crc, alloc=alloc,
+                    context={"file": self._source_name, "row_group": i,
+                             "column": name, "chunk_offset": offset})
+                cd = dec.decode(buf, md.codec, md.num_values)
+            stats.count_chunk()
+            return i, name, cd
+
+        stats.touch_wall()
+        for i, name, cd in prefetch_map(gen_items(), decode_item, k,
+                                        budget=budget, cost=chunk_cost,
+                                        stats=stats):
+            slot = pending[i]
+            if name is not None:
+                slot["out"][name] = cd
+            slot["todo"] -= 1
+            if slot["todo"] == 0:
+                del pending[i]
+                missing = slot["expect"] - set(slot["out"])
+                if missing:
+                    raise ParquetError(
+                        f"row group {i} missing columns {sorted(missing)}")
+                stats.count_row_group()
+                stats.note_peak(budget)
+                stats.touch_wall()
+                yield i, slot["out"]
+        stats.touch_wall()
+
+    def read_row_group(self, index: int,
+                       prefetch: Optional[int] = None) -> dict[str, ColumnData]:
         """Decode all selected column chunks of one row group:
         ``{dotted column path: ColumnData}``, one contiguous read and one
-        batch decode per chunk."""
+        batch decode per chunk.  With ``prefetch`` > 0 (the argument, else
+        the reader's setting) the group's chunks decode on the pool."""
         if not 0 <= index < self.num_row_groups:
             raise IndexError(f"row group {index} of {self.num_row_groups}")
+        k = self.prefetch if prefetch is None else int(prefetch)
+        if k > 0:
+            feed = self._decode_row_groups([index], k)
+            try:
+                return next(feed)[1]
+            finally:
+                feed.close()  # joins the pool now, not when collected
         rg = self.metadata.row_groups[index]
         self.alloc.reset()
         by_path = {l.path: l for l in self.schema.selected_leaves()}
+        f = self._sr.as_file()
         out: dict[str, ColumnData] = {}
         for path, leaf, chunk, md, offset in row_group_chunks(rg, by_path):
             out[".".join(path)] = read_chunk(
-                self._f, chunk, leaf, validate_crc=self.validate_crc,
+                f, chunk, leaf, validate_crc=self.validate_crc,
                 alloc=self.alloc,
                 context={"file": self._source_name, "row_group": index},
                 meta=(md, offset))
@@ -182,14 +310,21 @@ class FileReader:
                 f"row group {index} missing columns {sorted(missing)}")
         return out
 
-    def iter_row_groups(self):
+    def iter_row_groups(self, prefetch: Optional[int] = None):
+        k = self.prefetch if prefetch is None else int(prefetch)
+        if k > 0:
+            for _i, out in self._decode_row_groups(
+                    range(self.num_row_groups), k):
+                yield out
+            return
         for i in range(self.num_row_groups):
-            yield self.read_row_group(i)
+            yield self.read_row_group(i, prefetch=0)
 
-    def read_all(self) -> dict[str, ColumnData]:
+    def read_all(self, prefetch: Optional[int] = None
+                 ) -> dict[str, ColumnData]:
         """Concatenate all row groups' columns (convenience for small
-        files)."""
-        groups = list(self.iter_row_groups())
+        files).  ``prefetch`` overrides the reader's depth for this call."""
+        groups = list(self.iter_row_groups(prefetch=prefetch))
         if not groups:
             return {
                 ".".join(l.path): ColumnData(

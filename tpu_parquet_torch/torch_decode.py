@@ -282,9 +282,7 @@ def decode_hybrid_device(raw, meta: HybridMeta, width: int,
     plan = _plan_hybrid_pallas(stager, [(meta, raw, count)], width, count,
                                _bucket_count(count))
     if plan is not None:
-        host = torch.empty(stager.size(), dtype=torch.uint8)
-        stager.fill(host.numpy())
-        return plan.fn(host.to(device), *plan.dyn)[:count]
+        return plan.fn(stager.stage().to(device), *plan.dyn)[:count]
     buf = pad_buffer(raw, device)
     return _hybrid(
         buf, torch.from_numpy(meta.run_ends).to(device),
@@ -426,7 +424,7 @@ class ParsedDataPage:
 
 def parse_data_page(
     ps: PageSlice, buf: bytes, codec: int, leaf: SchemaNode,
-    validate_crc: bool = False, decode_levels: bool = True,
+    validate_crc: bool = False, alloc=None, decode_levels: bool = True,
     lazy_decompress: bool = False,
 ) -> ParsedDataPage:
     """Parse one v1/v2 data page on host (no device work).
@@ -444,11 +442,16 @@ def parse_data_page(
 
     With ``lazy_decompress`` a PLAIN page whose value stream is the whole
     compressed region (v1 without levels, or v2) keeps its payload
-    compressed in ``comp``.
+    compressed in ``comp``.  ``alloc`` (an ``AllocTracker``) registers the
+    page's decompressed size first.
     """
     header = ps.header
     payload = buf[ps.payload_start : ps.payload_end]
     _check_crc(header, payload, validate_crc)
+    if alloc is not None:
+        # the page's REAL decompressed size, registered before it exists
+        # (the chunk-level totals are attacker-controlled and optional)
+        alloc.register(max(header.uncompressed_page_size or 0, 0))
     max_rep, max_def = leaf.max_rep, leaf.max_def
     if header.type == PageType.DATA_PAGE:
         dh = header.data_page_header
