@@ -103,8 +103,34 @@ Phases:
     the manifest, and at K under a non-default ``torch.cuda.Stream``: every
     row group bit-equal to (a)'s, launches equal to phase 6's; (e) the host
     ``FileReader(prefetch=p).read_all()`` at 0 and K, equal;
-12. one JSON line listing every ported kernel (with phase 11's launches as
-    ``pipeline_launches``), then the result line.
+12. filtered and contained scans (predicate pushdown, the ScanPlan IR,
+    quarantine).  (a) ``row_filter = col("l_orderkey").between(lo, hi)``
+    on phase 6's file (chunk and page statistics on; ``l_orderkey`` is
+    sorted), a window of about 3% of the keys around the start of row group
+    2: (a1) phase 3's seven columns, whose pages share an edge every
+    262,144 rows, and (a2) all 16 columns; group pruning must keep row
+    groups 1 and 2, and (a1) must prune pages.  The yielded rows must be
+    the generator's rows of the pages the plan kept, every window row among
+    them, in every column; pages parsed + pruned equal the kept groups'
+    pages; each fused stream one launch on the surviving pages.  (b) TPC-H
+    Q6's predicate (``l_shipdate`` in 1994, ``l_discount`` 0.05-0.07,
+    ``l_quantity`` < 24) on unsorted dates: nothing pruned, bit-equal to
+    the unfiltered read, warm rows/s beside it.  (c) (a1) again through
+    ``plan=`` its serialized and deserialized ``ScanPlan``: bit-equal,
+    equal routes, pruning and launches, no header walk.  (d) (a1) at
+    prefetch K and under a non-default stream, and ``scan_files`` with the
+    filter over phase 11's seven shards at 0 and K (five shards read no
+    chunk).  (e) the host ``FileReader``'s group pruning.  (f) a copy of
+    phase 5's K3 file with row group 40's ``dates`` page corrupted
+    (``writer.corrupt_page``, CRC on): ``skip_unit`` at 0 and K (one
+    record, the other 91 groups bit-exact, K3 launched phase 5's count
+    less group 40's), ``raise`` (the same error with and without a
+    policy), and ``scan_files`` with the clean file under ``skip_unit``
+    and ``skip_file``; after every pass no ``tpq-`` thread, no pinned
+    buffer out of its pool and no byte in a reader's device ledger;
+13. one JSON line listing every ported kernel (with phase 11's launches as
+    ``pipeline_launches`` and phase 12's as ``filter_launches``), then the
+    result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -1156,8 +1182,9 @@ def read_main_path(torch, ck, path: str, groups, label: str,
 
 
 def device_breakdown(torch, path: str, label: str, columns=COLUMNS,
-                     prefetch: int = 0) -> dict:
-    """One more read of ``path`` under ``torch.profiler`` (at ``prefetch``):
+                     prefetch: int = 0, **reader_kw) -> dict:
+    """One more read of ``path`` under ``torch.profiler`` (at ``prefetch``;
+    ``reader_kw`` go to the reader: a row filter, a data-error policy):
     device time by kernel (and copy), and the device's idle share of the
     profiled wall.  The profiler's own host overhead lengthens that wall,
     so the idle share is an upper bound."""
@@ -1171,8 +1198,8 @@ def device_breakdown(torch, path: str, label: str, columns=COLUMNS,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        with DeviceFileReader(path, columns=columns,
-                              prefetch=prefetch) as r:
+        with DeviceFileReader(path, columns=columns, prefetch=prefetch,
+                              **reader_kw) as r:
             keep = list(r.iter_row_groups())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1201,7 +1228,9 @@ def device_breakdown(torch, path: str, label: str, columns=COLUMNS,
         log(f"{label}: device time not measured (the profiler recorded no "
             f"device events)")
     return dict(wall=wall, busy=busy_s, launches=n_device,
-                idle=1 - busy_s / wall if busy_s else None)
+                idle=1 - busy_s / wall if busy_s else None,
+                per_launch_us={name: us / n for name, (us, n)
+                               in by_name.items() if "tpq_" in name})
 
 
 def unfused_yardstick(torch, ck, path: str, groups, label: str,
@@ -2719,16 +2748,18 @@ def largest_chunk_cost(paths) -> int:
     return most
 
 
-def scan_pass(torch, ck, source, prefetch: int, stream=None):
+def scan_pass(torch, ck, source, prefetch: int, stream=None, made=None,
+              **scan_kw):
     """One ``scan_files(source, prefetch=..., max_memory=PIPELINE_BUDGET)``
-    read, timed end to end; under ``stream`` when given.  Returns
-    (outputs, seconds, launches, the largest bytes in flight any reader
-    saw, the device memory the pass added at its peak, rows)."""
+    read, timed end to end; under ``stream`` when given; ``scan_kw`` go to
+    ``scan_files`` and the readers it opens are appended to ``made``.
+    Returns (outputs, seconds, launches, the largest bytes in flight any
+    reader saw, the device memory the pass added at its peak, rows)."""
     import contextlib
 
     from tpu_parquet_torch import device_reader as DR
 
-    made = []
+    made = [] if made is None else made
     real = DR.DeviceFileReader.__init__
 
     def spy(self, *args, **kwargs):
@@ -2746,13 +2777,14 @@ def scan_pass(torch, ck, source, prefetch: int, stream=None):
                else contextlib.nullcontext())
         with ctx:
             outs = list(DR.scan_files(source, prefetch=prefetch,
-                                      max_memory=PIPELINE_BUDGET))
+                                      max_memory=PIPELINE_BUDGET, **scan_kw))
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = dict(ck.launches)
     finally:
         DR.DeviceFileReader.__init__ = real
-    in_flight = max(r.pipeline_stats().peak_in_flight_bytes for r in made)
+    in_flight = max((r.pipeline_stats().peak_in_flight_bytes for r in made),
+                    default=0)
     rows = sum(r.stats().rows for r in made)
     return (outs, seconds, counts, in_flight,
             torch.cuda.max_memory_allocated() - before, rows)
@@ -2906,6 +2938,511 @@ def read_pipeline_phase(torch, ck, work: str, smi: str, *, l16_path: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: filtered and contained scans
+# ---------------------------------------------------------------------------
+
+# the sort-key window of phase 12(a): about 3% of the keys, straddling the
+# boundary of row groups 1 and 2
+WINDOW_HALF_ROWS = 90_000
+# Q6's dates as days since 1970-01-01: [1994-01-01, 1995-01-01)
+Q6_DATES = (8766, 9131)
+Q6_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate"]
+QUARANTINE_GROUP = 40  # the K3 file's row group whose dates page is corrupt
+
+
+def tpq_threads() -> list:
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.is_alive() and t.name.startswith("tpq-")]
+
+
+def check_released(readers, label: str) -> None:
+    """After a pass: no pool or staging thread alive, every pinned buffer
+    back in its pool, and each reader's device ledger at zero."""
+    threads = tpq_threads()
+    if threads:
+        raise fail(f"{label}: threads still alive after the pass: {threads}")
+    for r in readers:
+        pool = r._pinned
+        if pool is not None and pool.out_bytes:
+            raise fail(f"{label}: {pool.out_bytes} pinned bytes not given "
+                       f"back to the pool")
+        if (r._device_staged_pending or r._device_outstanding
+                or r.alloc.device_snapshot()[0]):
+            raise fail(f"{label}: device ledger not released (pending "
+                       f"{r._device_staged_pending}, outstanding "
+                       f"{r._device_outstanding}, alloc "
+                       f"{r.alloc.device_snapshot()[0]})")
+
+
+def filtered_pass(torch, ck, path: str, columns, prefetch: int = 0,
+                  stream=None, **reader_kw):
+    """One ``DeviceFileReader(...).iter_row_groups()`` read with
+    ``reader_kw`` (a row filter, a plan, a data-error policy), timed end to
+    end; under ``stream`` when given.  Returns (outputs, seconds, reader
+    stats, launches, the reader's plan, its quarantine engine, the kept row
+    groups); the reader is closed and checked released."""
+    import contextlib
+
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    ctx = (torch.cuda.stream(stream) if stream is not None
+           else contextlib.nullcontext())
+    with ctx:
+        with DeviceFileReader(path, columns=columns, prefetch=prefetch,
+                              **reader_kw) as r:
+            outs = list(r.iter_row_groups())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = dict(ck.launches)
+            st = r.stats().as_dict()
+            kept = [i for i in range(r.num_row_groups)
+                    if r.row_group_selected(i)]
+    check_released([r], f"{path} prefetch {prefetch}")
+    return outs, seconds, st, counts, r._plan, r.quarantine, kept
+
+
+def kept_rows(path: str, plan, index: int, column: str, num_rows: int):
+    """Boolean mask of row group ``index``'s rows the plan's pruning memo
+    keeps, from ``column``'s page headers (the skip sets drop whole pages,
+    the same rows in every selected column)."""
+    import numpy as np
+
+    from tpu_parquet_torch.footer import read_file_metadata
+    from tpu_parquet_torch.scanplan import walk_header_pages
+
+    hint = plan.pruning_hint(index)
+    if hint is None:
+        raise fail(f"{path}: row group {index} has no pruning memo")
+    skip = (hint[0] or {}).get((column,), set())
+    mask = np.ones(num_rows, dtype=bool)
+    with open(path, "rb") as f:
+        md = read_file_metadata(f)
+        chunk = next(c for c in md.row_groups[index].columns
+                     if c.meta_data.path_in_schema == [column])
+        cmd = chunk.meta_data
+        offset = cmd.data_page_offset
+        if cmd.dictionary_page_offset is not None:
+            offset = min(offset, cmd.dictionary_page_offset)
+        start = 0
+        for i, h in enumerate(walk_header_pages(
+                f, offset, cmd.total_compressed_size, cmd.num_values)):
+            n = (h.data_page_header or h.data_page_header_v2).num_values
+            if i in skip:
+                mask[start : start + n] = False
+            start += n
+    if int((~mask).sum()) != hint[1]:
+        raise fail(f"{path}: row group {index} drops {int((~mask).sum())} "
+                   f"rows by its pages, {hint[1]} by its memo")
+    return mask
+
+
+def check_window(outs, groups, kept, plan, path: str, columns, lo: int,
+                 hi: int, label: str) -> int:
+    """Each kept group's output is the generator's rows of the page runs
+    the plan kept, in every column (strings included), every row of the
+    window among them.  Returns the rows checked."""
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    if len(outs) != len(kept):
+        raise fail(f"{label}: {len(outs)} row groups for kept {kept}")
+    rows = 0
+    for out, g in zip(outs, kept):
+        want = groups[g]
+        n = len(want["l_orderkey"])
+        mask = kept_rows(path, plan, g, columns[0], n)
+        keys = want["l_orderkey"]
+        hit = (keys >= lo) & (keys <= hi)
+        if (hit & ~mask).any():
+            raise fail(f"{label}: row group {g} dropped rows of the window")
+        idx = np.flatnonzero(mask)
+        for name in columns:
+            got = out[name].to_host()
+            exp = want[name]
+            if isinstance(exp, ByteArrayData):
+                exp = exp.take(idx)
+                same = (isinstance(got, ByteArrayData)
+                        and np.array_equal(got.offsets, exp.offsets)
+                        and np.array_equal(got.heap, exp.heap))
+            else:
+                exp = exp[idx]
+                same = got.dtype == exp.dtype and np.array_equal(
+                    got.view(np.uint8), exp.view(np.uint8))
+            if not same:
+                raise fail(f"{label}: row group {g} column {name} is not "
+                           f"the generator's kept rows")
+        rows += len(idx)
+    return rows
+
+
+def unfiltered_groups(torch, ck, path: str, columns, groups):
+    """Row groups ``groups`` of ``path`` read unfiltered, one by one:
+    (pages, compressed bytes, launches) — what a filtered read of those
+    groups is held against."""
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    ck.reset_launches()
+    with DeviceFileReader(path, columns=columns) as r:
+        for g in groups:
+            r.read_row_group(g)
+        torch.cuda.synchronize()
+        st = r.stats().as_dict()
+    return st["pages"], st["compressed_bytes"], dict(ck.launches)
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def read_filter_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                      l16_groups, k3_path: str, k3_groups,
+                      k3_main: dict) -> dict:
+    """Phase 12: filtered and contained scans on the card.  (a) a sort-key
+    window on lineitem16 SF1, over phase 3's seven columns (a1) and all 16
+    (a2); (b) TPC-H Q6's predicate, which prunes nothing; (c) a replay of
+    (a1) through its serialized plan; (d) (a1) pipelined and under a
+    non-default stream, and ``scan_files`` with the filter over phase 11's
+    shards; (e) the host ``FileReader``'s group pruning; (f) a corrupt page
+    in the K3 file under each data-error policy."""
+    from tpu_parquet_torch import device_reader as DR
+    from tpu_parquet_torch.predicate import col
+    from tpu_parquet_torch.reader import FileReader
+    from tpu_parquet_torch.scanplan import ScanPlan
+
+    k = pipeline_depth()
+    launched: dict = {}
+    out = {"k": k}
+    boundary = len(l16_groups[0]["l_orderkey"]) * 2
+    lo = int(l16_groups[1]["l_orderkey"][-WINDOW_HALF_ROWS])
+    hi = int(l16_groups[2]["l_orderkey"][WINDOW_HALF_ROWS - 1])
+    window = col("l_orderkey").between(lo, hi)
+    n_window = sum(int(((g["l_orderkey"] >= lo)
+                        & (g["l_orderkey"] <= hi)).sum())
+                   for g in l16_groups)
+    log(f"filter: l_orderkey between {lo} and {hi}: {n_window} of "
+        f"{SF1_ROWS} rows ({n_window / SF1_ROWS:.4f}), around row "
+        f"{boundary} (the start of row group 2); K = {k} ({smi})")
+
+    # (a) the window, on phase 3's seven columns and on all 16
+    base = {}
+    for tag, columns in (("a1", COLUMNS), ("a2", L16_COLUMNS)):
+        label = f"filter ({tag}) {len(columns)} columns"
+        unf = timed_pass(torch, l16_path, columns)
+        unf_stats = unf[2]
+        del unf
+        outs, _, st, counts, plan, _, kept = filtered_pass(
+            torch, ck, l16_path, columns, row_filter=window)
+        add_launches(launched, counts)
+        if kept != [1, 2]:
+            raise fail(f"{label}: kept row groups {kept}, want [1, 2]")
+        rows = check_window(outs, l16_groups, kept, plan, l16_path, columns,
+                            lo, hi, label)
+        if rows != st["rows"]:
+            raise fail(f"{label}: {rows} rows checked, stats say "
+                       f"{st['rows']}")
+        pages, comp, unf_counts = unfiltered_groups(torch, ck, l16_path,
+                                                    columns, kept)
+        if st["pages"] + st["pages_pruned"] != pages:
+            raise fail(f"{label}: {st['pages']} pages parsed + "
+                       f"{st['pages_pruned']} pruned, the kept groups hold "
+                       f"{pages}")
+        # every fused stream of the route table is one launch on the
+        # surviving pages (K2 where fused_plain ranks first)
+        check_route_launches(counts, st, label)
+        if counts.get("hybrid_unpack_combine", 0) <= 0:
+            raise fail(f"{label}: the fused K1 never launched on the "
+                       f"surviving index pages")
+        if tag == "a1" and st["pages_pruned"] <= 0:
+            raise fail(f"{label}: no page pruned")
+        _, seconds, st2, _, _, _, _ = filtered_pass(
+            torch, ck, l16_path, columns, row_filter=window)
+        log(f"{label}: kept row groups {kept} of {len(l16_groups)}; "
+            f"pages_pruned {st['pages_pruned']} of {pages} in the kept "
+            f"groups; rows {st['rows']} (rows_dropped "
+            f"{2 * ROWS_PER_GROUP - st['rows']}), the generator's rows of "
+            f"the kept pages, every window row among them; compressed bytes "
+            f"read {st['compressed_bytes']} against "
+            f"{unf_stats['compressed_bytes']} unfiltered ({comp} in the "
+            f"kept groups); staged "
+            f"{st['staged_bytes']} against {unf_stats['staged_bytes']}; "
+            f"launches {counts} against {unf_counts} for the kept groups "
+            f"unfiltered; routes {route_table(st)}; warm pass "
+            f"{seconds:.4f} s; prune_seconds {st2['prune_seconds']:.4f} of "
+            f"host_seconds {st2['host_seconds']:.4f} ({smi})")
+        base[tag] = dict(outs=outs, st=st, counts=counts, plan=plan,
+                         seconds=seconds, prune=st2["prune_seconds"])
+    del base["a2"]["outs"]
+    out["a"] = {t: {kk: v for kk, v in b.items() if kk in ("st", "counts",
+                                                          "seconds")}
+                for t, b in base.items()}
+    a1 = base["a1"]
+    dev = device_breakdown(torch, l16_path, "filter (a1) 7 columns",
+                           columns=COLUMNS, row_filter=window)
+    out["a1_device"] = dev
+
+    # (b) Q6's predicate on unsorted dates: nothing prunes
+    label = "filter (b) TPC-H Q6"
+    q6 = ((col("l_shipdate") >= Q6_DATES[0])
+          & (col("l_shipdate") < Q6_DATES[1])
+          & col("l_discount").between(0.05, 0.07)
+          & (col("l_quantity") < 24))
+    want, _, _ = timed_pass(torch, l16_path, Q6_COLUMNS)
+    outs, _, st, counts, _, _, kept = filtered_pass(
+        torch, ck, l16_path, Q6_COLUMNS, row_filter=q6)
+    add_launches(launched, counts)
+    if (st["pages_pruned"] or st["rows"] != SF1_ROWS
+            or len(kept) != len(l16_groups)):
+        raise fail(f"{label}: pruned {st['pages_pruned']} pages, {st['rows']}"
+                   f" rows, kept {kept}: the dates are not sorted")
+    same_on_card(torch, outs, want, label)
+    del outs, want
+    _, plain_s, _ = timed_pass(torch, l16_path, Q6_COLUMNS)
+    _, q6_s, st2, _, _, _, _ = filtered_pass(torch, ck, l16_path, Q6_COLUMNS,
+                                             row_filter=q6)
+    out["q6"] = dict(plain=SF1_ROWS / plain_s, filtered=SF1_ROWS / q6_s,
+                     prune=st2["prune_seconds"])
+    log(f"{label}: nothing pruned; bit-equal to the unfiltered read; warm "
+        f"{SF1_ROWS / q6_s:.1f} rows/s filtered against "
+        f"{SF1_ROWS / plain_s:.1f} unfiltered; prune_seconds "
+        f"{st2['prune_seconds']:.4f} of host_seconds "
+        f"{st2['host_seconds']:.4f} ({smi})")
+
+    # (c) replay through the serialized plan
+    label = "filter (c) replay"
+    blob = a1["plan"].serialize()
+    walks = [0]
+    real = DR.plan_page_pruning
+
+    def counted(*args, **kwargs):
+        walks[0] += 1
+        return real(*args, **kwargs)
+
+    DR.plan_page_pruning = counted
+    try:
+        replay = ScanPlan.deserialize(blob)
+        outs, _, st, counts, plan, _, _ = filtered_pass(
+            torch, ck, l16_path, COLUMNS, row_filter=window, plan=replay)
+    finally:
+        DR.plan_page_pruning = real
+    add_launches(launched, counts)
+    if plan is not replay or walks[0]:
+        raise fail(f"{label}: plan adopted {plan is replay}, header walks "
+                   f"{walks[0]}")
+    same_on_card(torch, outs, a1["outs"], label)
+    del outs
+    if (replay.routes_table() != a1["plan"].routes_table()
+            or st["ship_routes"] != a1["st"]["ship_routes"]
+            or st["pages_pruned"] != a1["st"]["pages_pruned"]
+            or counts != a1["counts"]):
+        raise fail(f"{label}: routes, pages pruned or launches differ from "
+                   f"(a1)")
+    out["replay_prune"] = st["prune_seconds"]
+    log(f"{label}: {len(blob)}-byte plan; bit-equal to (a1), routes, "
+        f"pages_pruned and launches equal; no header walk; prune_seconds "
+        f"{st['prune_seconds']:.6f} against {a1['prune']:.6f} for the first "
+        f"read ({smi})")
+
+    # (d) pipelined, a non-default stream, and scan_files over the shards
+    for name, p, stream in ((f"prefetch {k}", k, None),
+                            (f"prefetch {k} on a non-default stream", k,
+                             torch.cuda.Stream())):
+        label = f"filter (d) {name}"
+        outs, seconds, st, counts, _, _, _ = filtered_pass(
+            torch, ck, l16_path, COLUMNS, prefetch=p, stream=stream,
+            row_filter=window)
+        add_launches(launched, counts)
+        if stream is not None:
+            with torch.cuda.stream(stream):
+                same_on_card(torch, outs, a1["outs"], label)
+        else:
+            same_on_card(torch, outs, a1["outs"], label)
+        del outs
+        if (st["pages_pruned"] != a1["st"]["pages_pruned"]
+                or counts != a1["counts"]):
+            raise fail(f"{label}: pages_pruned {st['pages_pruned']} or "
+                       f"launches {counts} differ from (a1)")
+        log(f"{label}: bit-equal to (a1), pages_pruned and launches equal; "
+            f"{seconds:.4f} s ({smi})")
+    shard_dir = os.path.join(work, "lineitem16_sf1_shards")
+    shards = sorted(os.path.join(shard_dir, f) for f in os.listdir(shard_dir)
+                    if f.endswith(".parquet"))
+    for p in (0, k):
+        label = f"filter (d) scan_files prefetch {p}"
+        made: list = []
+        outs, seconds, counts, in_flight, _, rows = scan_pass(
+            torch, ck, shards, p, made=made, row_filter=window,
+            columns=COLUMNS)
+        add_launches(launched, counts)
+        same_on_card(torch, outs, a1["outs"], label)
+        del outs
+        untouched = sum(1 for r in made if r.stats().chunks == 0)
+        pruned = sum(r.stats().pages_pruned for r in made)
+        check_released(made, label)
+        if (untouched != len(shards) - 2 or pruned != a1["st"]["pages_pruned"]
+                or counts != a1["counts"] or rows != a1["st"]["rows"]
+                or in_flight > PIPELINE_BUDGET):
+            raise fail(f"{label}: {untouched} shards unread, pages_pruned "
+                       f"{pruned}, launches {counts}, rows {rows}, in "
+                       f"flight {in_flight}")
+        log(f"{label}: bit-equal to (a1); {untouched} of {len(shards)} "
+            f"shards read no chunk; pages_pruned and launches equal (a1)'s; "
+            f"peak_in_flight_bytes {in_flight}; {seconds:.4f} s ({smi})")
+
+    # (e) the host reader's group pruning
+    with FileReader(l16_path, columns=COLUMNS, row_filter=window) as r:
+        host_kept = [i for i in range(r.num_row_groups)
+                     if r.row_group_selected(i)]
+        selected = r.num_selected_rows
+    if host_kept != [1, 2] or selected != 2 * ROWS_PER_GROUP:
+        raise fail(f"filter (e) host FileReader: kept {host_kept}, "
+                   f"num_selected_rows {selected}")
+    log(f"filter (e) host FileReader: num_selected_rows {selected}, kept "
+        f"row groups {host_kept}, the device read's (group pruning only)")
+    del base, a1
+
+    # (f) a corrupt page in the K3 file, under each policy
+    out["quarantine"] = read_quarantine(torch, ck, work, smi, k3_path,
+                                        k3_groups, k3_main, launched)
+    for kname in ("hybrid_unpack_combine", "fused_plain_words",
+                  "fused_narrow_words"):
+        if not launched.get(kname):
+            raise fail(f"phase 12 never launched {kname}")
+    out["launched"] = launched
+    log(f"filter phase summary ({smi}): (a1) {out['a']['a1']['st']['rows']} "
+        f"rows, pages_pruned {out['a']['a1']['st']['pages_pruned']}, warm "
+        f"{out['a']['a1']['seconds']:.4f} s; (a2) "
+        f"{out['a']['a2']['st']['rows']} rows, pages_pruned "
+        f"{out['a']['a2']['st']['pages_pruned']}, warm "
+        f"{out['a']['a2']['seconds']:.4f} s; Q6 {out['q6']['filtered']:.1f} "
+        f"rows/s filtered, {out['q6']['plain']:.1f} unfiltered; replay "
+        f"prune_seconds {out['replay_prune']:.6f}; phase 12 launches "
+        f"{launched}")
+    return out
+
+
+def read_quarantine(torch, ck, work: str, smi: str, k3_path: str, k3_groups,
+                    k3_main: dict, launched: dict) -> dict:
+    """Phase 12(f): row group 40's ``dates`` page corrupted in a copy of
+    the K3 file, read under ``skip_unit`` (prefetch 0 and K, and with the
+    clean file through ``scan_files``), ``raise`` and ``skip_file``."""
+    import shutil
+
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+    from tpu_parquet_torch.errors import ParquetError
+    from tpu_parquet_torch.quarantine import Quarantine
+    from tpu_parquet_torch.writer import corrupt_page
+
+    k = pipeline_depth()
+    g40 = QUARANTINE_GROUP
+    bad = os.path.join(work, "k3_file_gzip_corrupt.parquet")
+    shutil.copyfile(k3_path, bad)
+    offset, nbytes = corrupt_page(bad, row_group=g40, column="dates", page=0,
+                                  mode="bitflip", seed=g40)
+    log(f"quarantine: copied the K3 file to {bad}; corrupted row group "
+        f"{g40}'s dates page 0 ({nbytes} bytes at {offset})")
+    ck.reset_launches()
+    with DeviceFileReader(k3_path, columns=K3_COLUMNS) as r:
+        r.read_row_group(g40)
+    k3_g40 = ck.launches["fused_narrow_words"]
+    k3_pass = k3_main["counts"]["fused_narrow_words"]
+    survivors = [g for i, g in enumerate(k3_groups) if i != g40]
+    fields = {"file", "column", "row_group", "page", "offset", "error",
+              "message"}
+
+    def check_record(q, label):
+        recs = q.log.snapshot()
+        if len(recs) != 1:
+            raise fail(f"{label}: {len(recs)} quarantine records")
+        rec = recs[0]
+        if (set(rec) != fields or rec["row_group"] != g40
+                or rec["column"] != "dates" or rec["page"] != 0
+                or rec["file"] != bad or rec["error"] != "ParquetError"):
+            raise fail(f"{label}: record {rec}")
+        return rec
+
+    out = {}
+    for p in (0, k):
+        label = f"quarantine skip_unit prefetch {p}"
+        outs, seconds, st, counts, _, q, _ = filtered_pass(
+            torch, ck, bad, K3_COLUMNS, prefetch=p, on_data_error="skip_unit")
+        add_launches(launched, counts)
+        check_groups(outs, survivors, K3_COLUMNS, label)
+        del outs
+        rec = check_record(q, label)
+        if (q.units_skipped != 1 or q.rows_skipped != K3_GROUP
+                or counts["fused_narrow_words"] != k3_pass - k3_g40):
+            raise fail(f"{label}: units_skipped {q.units_skipped}, "
+                       f"rows_skipped {q.rows_skipped}, K3 launches "
+                       f"{counts['fused_narrow_words']} (want {k3_pass} - "
+                       f"{k3_g40})")
+        out[p] = seconds
+        log(f"{label}: one record {rec}; the other {len(survivors)} row "
+            f"groups bit-exact against the generator; K3 launched "
+            f"{counts['fused_narrow_words']} = {k3_pass} - {k3_g40} (row "
+            f"group {g40}'s); {seconds:.4f} s ({smi})")
+    dev = device_breakdown(torch, bad, "quarantine skip_unit",
+                           columns=K3_COLUMNS, on_data_error="skip_unit")
+    out["device"] = dev
+
+    # raise: the same class and text as without a policy
+    texts = []
+    for kw in ({}, {"on_data_error": "raise"}):
+        try:
+            with DeviceFileReader(bad, columns=K3_COLUMNS, **kw) as r:
+                for _ in r.iter_row_groups():
+                    pass
+        except ParquetError as e:
+            texts.append((type(e).__name__, str(e)))
+        else:
+            raise fail(f"quarantine raise {kw}: the read did not raise")
+        check_released([r], f"quarantine raise {kw}")
+    if texts[0] != texts[1] or f"row_group={g40}" not in texts[0][1]:
+        raise fail(f"quarantine raise: {texts}")
+    log(f"quarantine raise: {texts[0][0]}: {texts[0][1][:160]}")
+
+    # scan_files with the clean file: skip_unit and skip_file
+    for policy, want_groups, skipped in (
+            ("skip_unit", survivors + list(k3_groups), 1),
+            ("skip_file", list(k3_groups[:g40]) + list(k3_groups),
+             len(k3_groups) - g40)):
+        for p in (0, k):
+            label = f"quarantine scan_files {policy} prefetch {p}"
+            q = Quarantine(policy)
+            made: list = []
+            outs, seconds, counts, _, _, _ = scan_pass(
+                torch, ck, [bad, k3_path], p, made=made, quarantine=q,
+                columns=K3_COLUMNS)
+            add_launches(launched, counts)
+            check_groups(outs, want_groups, K3_COLUMNS, label)
+            del outs
+            check_released(made, label)
+            check_record(q, label)
+            want_k3 = ((k3_pass - k3_g40) if policy == "skip_unit"
+                       else None)
+            if (q.units_skipped != skipped
+                    or q.files_skipped != (policy == "skip_file")
+                    or (want_k3 is not None
+                        and counts["fused_narrow_words"]
+                        != want_k3 + k3_pass)):
+                raise fail(f"{label}: units_skipped {q.units_skipped}, "
+                           f"files_skipped {q.files_skipped}, K3 launches "
+                           f"{counts['fused_narrow_words']}")
+            log(f"{label}: one record; {len(want_groups)} row groups "
+                f"bit-exact against the generator; units_skipped "
+                f"{q.units_skipped}, files_skipped {q.files_skipped}; K3 "
+                f"launched {counts['fused_narrow_words']}; {seconds:.4f} s "
+                f"({smi})")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -3024,6 +3561,11 @@ def main() -> int:
         torch, ck, work, smi, l16_path=l16_path, l16_groups=l16_groups,
         l16=l16, pa_layout=pa_layout, k3_path=k3_path, k3_main=k3_main,
         k3_rows=sum(len(g["dates"]) for g in k3_groups))
+
+    # phase 12: filtered and contained scans
+    filt = read_filter_phase(torch, ck, work, smi, l16_path=l16_path,
+                             l16_groups=l16_groups, k3_path=k3_path,
+                             k3_groups=k3_groups, k3_main=k3_main)
     del l16_groups
 
     # the kernels line and the result line
@@ -3090,9 +3632,10 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phase 11's launches beside each kernel's main-path count
+    # phases 11's and 12's launches beside each kernel's main-path count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
+        entry["filter_launches"] = filt["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -232,8 +232,8 @@ class RowIterator:
     """Row-at-a-time cursor over a FileReader (NextRow parity,
     file_reader.go:258-273 + advanceIfNeeded): starts from the reader's
     current row-group cursor (so seek_to_row_group/skip_row_group are
-    honored), consumes the preload cache when it matches, and never mutates
-    the reader's cursor itself."""
+    honored), skips the groups ``row_filter`` pruned, consumes the preload
+    cache when it matches, and never mutates the reader's cursor itself."""
 
     def __init__(self, reader):
         self.reader = reader
@@ -248,6 +248,9 @@ class RowIterator:
         while self._pos >= len(self._rows):
             if self._group >= self.reader.num_row_groups:
                 raise StopIteration
+            if not self.reader.row_group_selected(self._group):
+                self._group += 1  # pruned by row_filter: skip without IO
+                continue
             if (
                 self.reader._current_row_group == self._group
                 and self.reader._preloaded is not None

@@ -163,25 +163,6 @@ def validate_chunk_meta(chunk, leaf: SchemaNode):
     return md, offset
 
 
-def row_group_chunks(rg, leaves):
-    """Walk one row group's SELECTED column chunks in file order.
-
-    Yields ``(path, leaf, chunk, md, offset)`` per selected leaf (``leaves``:
-    ``{path: leaf}``), ``md``/``offset`` already through
-    :func:`validate_chunk_meta`; unselected chunks' bytes are never read.
-    The one chunk walk of both readers."""
-    for chunk in rg.columns or []:
-        md = chunk.meta_data
-        if md is None or md.path_in_schema is None:
-            raise ParquetError("column chunk missing metadata/path")
-        path = tuple(md.path_in_schema)
-        leaf = leaves.get(path)
-        if leaf is None:
-            continue  # unselected: never read its bytes
-        md, offset = validate_chunk_meta(chunk, leaf)
-        yield path, leaf, chunk, md, offset
-
-
 def _byte_stream_split_decode(raw: bytes, ptype: Type, count: int,
                               type_length: int):
     """BYTE_STREAM_SPLIT: K per-byte streams concatenated; de-interleave."""

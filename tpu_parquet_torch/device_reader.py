@@ -55,6 +55,14 @@ for N+1, and with ``prefetch=K`` a pool runs steps 1 and the host half of
 2 for upcoming chunks (``_chunk_feed``, across row groups and files);
 ``finish``, the launches and the deferred checks stay on the consumer
 thread; the staging copies run on the worker, on the consumer's stream.
+
+The scan options: ``row_filter`` prunes row groups (footer statistics) and
+page runs (page-header statistics, ``scanplan.plan_page_pruning``; skipped
+pages are never decompressed, staged or decoded); a ``scanplan.ScanPlan``
+memoizes each group's pruning and each chunk's ship route and kernel
+family, and ``plan=`` replays it; ``on_data_error`` / ``quarantine``
+contain a row group's data error (``ParquetError``) in the iteration APIs
+and ``scan_files`` (``quarantine.Quarantine``).
 """
 
 from __future__ import annotations
@@ -62,7 +70,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import logging
-import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -75,22 +82,26 @@ import torch
 from . import native
 from . import torch_kernels as K
 from .alloc import AllocTracker, InFlightBudget
-from .chunk_decode import (_check_crc, require_full, row_group_chunks,
-                           walk_pages)
-from .errors import error_context
+from .chunk_decode import _check_crc, require_full, walk_pages
+from .errors import DataIntegrityError, annotate_data_error, error_context
 from .column import ByteArrayData
 from .compress import decompress_block
 from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
                            SNAPPY_OPS_BYTES, bp_groups_pad, fused_count_pad,
                            fused_narrow_count_pad, fused_narrow_words,
                            fused_plain_words, hybrid_unpack_combine)
-from .footer import ParquetError, read_file_metadata
+from .footer import ParquetError
 from .format import CompressionCodec, Encoding, PageType, Type, parse_encoding
 from .kernels import bitpack
 from .kernels.delta import _read_uvarint
-from .pipeline import PipelineStats, SharedReader, prefetch_map
-from .reader import apply_selection, resolve_validate
-from .schema.core import Schema, SchemaNode
+from .pipeline import PipelineStats, prefetch_map
+from .quarantine import Quarantine
+# a chunk's data error riding the ordered chunk feed: ``_prepare_row_group``
+# raises it, so the scan pipeline contains both paths alike
+from .reader import FileReader, _ChunkFailed as _FailedChunk
+from .scanplan import (int_stats_span as _int_stats_span, plan_page_pruning,
+                       predicate_fingerprint, row_group_chunks)
+from .schema.core import SchemaNode
 from .ship import (
     ChunkFacts, FUSED_ROUTES, ROUTE_DEVICE_SNAPPY, ROUTE_FUSED_NARROW_SNAPPY,
     ROUTE_FUSED_PLAIN, ROUTE_NARROW, ROUTE_NARROW_SNAPPY, ROUTE_PLAIN,
@@ -152,31 +163,6 @@ def _narrow_max_k(width: int) -> int:
     """Largest transcoded byte width still worth the host pass (shared by
     the stats hint and the narrow plan function, which must agree)."""
     return width - (_NARROW_SAVE_BYTES if width == 8 else 2)
-
-
-def _int_stats_span(statistics, leaf) -> "tuple[int, int] | None":
-    """Chunk Statistics min/max as an int span hint, if plausible.
-
-    Returns (min, max) for INT32/INT64 leaves whose stats carry well-formed
-    PLAIN-encoded bounds, else None.  A planning INPUT only (it routes the
-    narrow transcode), never trusted for correctness."""
-    if (statistics is None
-            or leaf.physical_type not in (Type.INT32, Type.INT64)):
-        return None
-    width = 8 if leaf.physical_type == Type.INT64 else 4
-    dt = "<i8" if width == 8 else "<i4"
-    lo = (statistics.min_value if statistics.min_value is not None
-          else statistics.min)
-    hi = (statistics.max_value if statistics.max_value is not None
-          else statistics.max)
-    if (not isinstance(lo, (bytes, bytearray)) or len(lo) != width
-            or not isinstance(hi, (bytes, bytearray)) or len(hi) != width):
-        return None
-    lo_v = int(np.frombuffer(lo, dt)[0])
-    hi_v = int(np.frombuffer(hi, dt)[0])
-    if lo_v > hi_v:
-        return None
-    return lo_v, hi_v
 
 
 @dataclass
@@ -275,7 +261,7 @@ class _PinnedPool:
     group's first strip.  A dropped buffer goes back to PyTorch's pinned
     allocator, which itself waits for the copies recorded against it.
     ``held_bytes`` (and its peak) counts the pinned bytes the pool owns:
-    free, or out with a copy not yet given back."""
+    free, or out with a copy not yet given back (``out_bytes``)."""
 
     KEEP = 12
 
@@ -284,6 +270,8 @@ class _PinnedPool:
         self._lock = threading.Lock()
         self.held_bytes = 0
         self.peak_held_bytes = 0
+        # bytes of the buffers taken and not yet given back
+        self.out_bytes = 0
 
     def take(self, nbytes: int) -> torch.Tensor:
         with self._lock:
@@ -294,15 +282,19 @@ class _PinnedPool:
                         or buf.numel() < self._free[best][0].numel()):
                     best = i
             if best is not None:
-                return self._free.pop(best)[0]
+                buf = self._free.pop(best)[0]
+                self.out_bytes += buf.numel()
+                return buf
             room = max(_bucket_bytes(nbytes, 1 << 20), nbytes)
             self.held_bytes += room
+            self.out_bytes += room
             self.peak_held_bytes = max(self.peak_held_bytes,
                                        self.held_bytes)
         return torch.empty(room, dtype=torch.uint8, pin_memory=True)
 
     def give(self, buf: torch.Tensor, event) -> None:
         with self._lock:
+            self.out_bytes -= buf.numel()
             self._free.append((buf, event))
             if len(self._free) > self.KEEP:
                 self._free.sort(key=lambda e: e[0].numel())
@@ -459,6 +451,15 @@ class _RowGroupStager:
             self._flushed += self.STRIP
             self._strip_futs.append(
                 self._ex.submit(self._ship, lo, self.STRIP))
+
+    def abandon(self) -> None:
+        """Drop a row group whose host phase failed: join the strips in
+        flight (their pinned buffers go back to the pool as each copy is
+        enqueued) and free their device halves.  A strip's own failure
+        (a CUDA error) is raised, never swallowed."""
+        futs, self._strip_futs = self._strip_futs, []
+        for fut in futs:
+            fut.result()
 
     def stage(self, device: "torch.device | None" = None,
               pool: "_PinnedPool | None" = None) -> torch.Tensor:
@@ -1066,14 +1067,19 @@ class _Plan:
     chunk's decode over the staged buffer (``dyn`` holds its byte bases and
     counts), then ``build(result)`` makes the column on the host side.
     Sub-plans that a column's plan composes (index and level streams)
-    carry ``build=None``."""
+    carry ``build=None``.  ``family`` names the plan's kernel family
+    (``plain``, ``snappy_resolve``, ``narrow``, ``fused``, ``gather``,
+    ``unpack``; a composed column takes its value plan's)."""
 
-    __slots__ = ("fn", "dyn", "build")
+    __slots__ = ("fn", "dyn", "build", "family")
 
-    def __init__(self, fn, dyn, build):
+    def __init__(self, fn, dyn, build, family: str = "plain"):
         self.fn = fn
         self.dyn = tuple(dyn)
         self.build = build
+        # the kernel family the reference names for this plan's key
+        # (its _KERNEL_FAMILIES): the ScanPlan route memo records it
+        self.family = family
 
 
 def _run_plans(plans, buf_dev):
@@ -1109,7 +1115,7 @@ def _compose_column(value_plan: "_Plan", d_plan, r_plan) -> "_Plan":
 
     dyn = (value_plan.dyn + (d_plan.dyn if d_plan is not None else ())
            + (r_plan.dyn if r_plan is not None else ()))
-    return _Plan(fn, dyn, build)
+    return _Plan(fn, dyn, build, family=value_plan.family)
 
 
 def _fused_words_cast(words: torch.Tensor, dtype: str) -> torch.Tensor:
@@ -1146,6 +1152,7 @@ class _ChunkAssembler:
         self._bytes_walk: "tuple | None" = None
         # pages whose compressed payload shipped (device-side expansion)
         self.pages_kept_compressed = 0
+        self.pages_pruned = 0  # data pages page-level pushdown skipped
         # fused routes that degraded to their unfused twin (kernel caps,
         # level lanes, i32 ceilings) — a counter, never a crash
         self.fused_fallbacks = 0
@@ -1153,9 +1160,24 @@ class _ChunkAssembler:
         # AllocTracker: the link-recompression copies count against the
         # budget too (set by _collect_chunk)
         self.alloc = None
+        # the planner's modelled seconds per feasible route (preship)
+        self._ship_costs: dict = {}
+        # a replayed ScanPlan's memoized route: preship puts it first
+        self._route_hint: "str | None" = None
 
     def _record_ship(self, route: str, logical: int, shipped: int) -> None:
         self.ship_records.append((route, int(logical), int(shipped)))
+
+    def _apply_route_hint(self) -> None:
+        """Move a replayed route memo to the head of the preference order.
+
+        Only a route the model priced feasible for this chunk moves up (a
+        hint recorded for other data never forces an impossible build); the
+        rest of the ranked order stays behind it as the fallback."""
+        h = self._route_hint
+        if (h and self._ship_pref and h in self._ship_costs
+                and self._ship_pref[0] != h):
+            self._ship_pref = [h] + [r for r in self._ship_pref if r != h]
 
     def _route_enabled(self, route: str) -> bool:
         """Whether the planner ranked ``route`` ahead of the plain tail
@@ -1266,13 +1288,19 @@ class _ChunkAssembler:
             at += p.defined * k
         return k, mn, out
 
-    def preship(self, planner: ShipPlanner, pipe_stats=None) -> None:
+    def preship(self, planner: ShipPlanner, pipe_stats=None,
+                route_hint: "str | None" = None) -> None:
         """Route choice + link-byte host work for this chunk (ship.py):
         stores the ordered route preference plus any host-built artifacts;
         ``finish`` executes the routes in order, falling through on
         infeasibility.  Host-only: with prefetch it runs on the worker that
         collected the chunk, and its compression seconds land in
-        ``pipe_stats``' ``recompress`` stage."""
+        ``pipe_stats``' ``recompress`` stage.
+
+        ``route_hint`` (a replayed ScanPlan's memoized route) leads the
+        order when the model still prices it feasible; a forced route
+        (``TPQ_FORCE_ROUTE``) wins over any memo."""
+        self._route_hint = route_hint if planner.force is None else None
         self._preship_dict(planner, pipe_stats)
         if not self.pages:
             return
@@ -1302,7 +1330,8 @@ class _ChunkAssembler:
             comp_bytes=comp_bytes, native=native.available(),
             flat=leaf.max_def == 0 and leaf.max_rep == 0,
         )
-        self._ship_pref = planner.routes(facts)
+        self._ship_pref, self._ship_costs = planner.plan(facts)
+        self._apply_route_hint()
         for route in self._ship_pref:
             if route in (ROUTE_NARROW, ROUTE_NARROW_SNAPPY,
                          ROUTE_FUSED_NARROW_SNAPPY):
@@ -1363,7 +1392,8 @@ class _ChunkAssembler:
                          if p.comp is not None)
         facts = ChunkFacts(logical=logical, width=0, comp_bytes=comp_bytes,
                            native=True)
-        self._ship_pref = planner.routes(facts)
+        self._ship_pref, self._ship_costs = planner.plan(facts)
+        self._apply_route_hint()
         for route in self._ship_pref:
             if route == ROUTE_DEVICE_SNAPPY:
                 if comp_bytes:
@@ -1626,6 +1656,7 @@ class _ChunkAssembler:
                 dtype=name, count=count, n_pages=pages_pad),
             (info.tbase,),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
+            family="snappy_resolve",
         )
 
     def _plan_recompress_fixed(self, common, stager, name: str):
@@ -1760,7 +1791,7 @@ class _ChunkAssembler:
                     lambda buf, tb_d, bias_d: _snappy_narrow_staged(
                         buf, tb_d, bias_d, n_ops=n_ops, out_pad=out_pad,
                         iters=iters, k=k, dtype=name, count=count),
-                    (info.tbase, bias), build)
+                    (info.tbase, bias), build, family="narrow")
             # op planning fell through: ship the narrow bytes uncompressed
         base = stager.add(out)
         stager.note_read_extent(base, count * k)
@@ -1768,7 +1799,7 @@ class _ChunkAssembler:
         return _Plan(
             lambda buf, base_d, bias_d: _plain_narrow(
                 buf, base_d, bias_d, k=k, dtype=name, count=count),
-            (base, bias), build)
+            (base, bias), build, family="narrow")
 
     def _plan_fused_plain(self, common, stager, name: str):
         """ONE K2 pass for a PLAIN fixed-width chunk (route ``fused_plain``):
@@ -1804,6 +1835,7 @@ class _ChunkAssembler:
         return _Plan(
             fn, (base, defined),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
+            family="fused",
         )
 
     def _plan_fused_narrow(self, common, stager, name: str, k: int, mn,
@@ -1848,6 +1880,7 @@ class _ChunkAssembler:
         return _Plan(
             fn, (tbase, pbase, int(mn), defined),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
+            family="fused",
         )
 
     def _finish_plain_bytes(self, common, stager):
@@ -1964,7 +1997,7 @@ class _ChunkAssembler:
             lambda buf, lb_d, tb_d: _snappy_bytes_staged(
                 buf, lb_d, tb_d, count_pad=count_pad, heap_pad=heap_pad,
                 n_ops=n_ops, out_pad=out_pad, iters=iters, n_pages=n_pages),
-            (lens_base, info.tbase), build)
+            (lens_base, info.tbase), build, family="snappy_resolve")
 
     def _finish_plain_bytes_host(self, common, stager):
         """PLAIN BYTE_ARRAY without the native length walk: the host
@@ -2171,7 +2204,7 @@ class _ChunkAssembler:
                                     dict_dtype=dict_dtype, n_values=prefix,
                                     **common)
 
-        return _Plan(fn, tuple(idx_dyn) + (table_dyn,), build)
+        return _Plan(fn, tuple(idx_dyn) + (table_dyn,), build, family="gather")
 
     def _finish_dict_ragged(self, common, stager, idx_fn, idx_dyn,
                             prefix: int, need_max: bool):
@@ -2221,7 +2254,8 @@ class _ChunkAssembler:
                                     dict_heap=dheap, n_values=prefix,
                                     **common)
 
-        return _Plan(fn, tuple(idx_dyn) + (roff_base, heap_dyn), build)
+        return _Plan(fn, tuple(idx_dyn) + (roff_base, heap_dyn), build,
+                     family="gather")
 
     def _value_segments(self, stager: _RowGroupStager) -> np.ndarray:
         """Register all pages' value streams back to back; returns their
@@ -2410,7 +2444,7 @@ class _ChunkAssembler:
                 deferred.append((mx, dict_len, path_name))
             return DeviceColumnData(values=vals, **common)
 
-        return _Plan(fn, tuple(dyn), build)
+        return _Plan(fn, tuple(dyn), build, family="gather")
 
     def _finish_host(self, common):
         """Host decode page by page (BYTE_STREAM_SPLIT, delta byte arrays,
@@ -2540,13 +2574,14 @@ class _ChunkAssembler:
             (tbase,),
             lambda v: DeviceColumnData(values=v, n_values=total_real,
                                        **common),
+            family="unpack",
         )
 
 
 def _collect_chunk(buf: bytes, codec: int, total_values: int,
                    leaf: SchemaNode, deferred_checks: list,
                    validate_crc: bool = False, alloc=None,
-                   statistics=None, context=None,
+                   statistics=None, skip_pages=None, context=None,
                    device=None) -> _ChunkAssembler:
     """Walk a chunk's pages into an assembler (host phase): CRC checks,
     the dictionary page, and each data page's level and index structure.
@@ -2557,8 +2592,11 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
     every raise (``errors.error_context``), with the failing page's ordinal
     and absolute byte offset.  ``alloc`` (an ``AllocTracker``) registers
     each page's decompressed size before the page is decompressed, and the
-    assembler's link-recompression copies.  Host-only: with prefetch this
-    runs on a worker thread."""
+    assembler's link-recompression copies.  ``skip_pages``: the data-page
+    ordinals (the dictionary page not counted) page-level pushdown pruned;
+    they are counted in ``pages_pruned`` and never decompressed, parsed or
+    staged, and a chunk with no page left is still returned.  Host-only:
+    with prefetch this runs on a worker thread."""
     ctx = dict(context or {})
     if "column" not in ctx and leaf.path:
         ctx["column"] = ".".join(leaf.path)
@@ -2595,6 +2633,10 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
                                  max(header.uncompressed_page_size or 0, 0))
             continue
         if pt in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
+            if skip_pages and data_ordinal in skip_pages:
+                asm.pages_pruned += 1
+                data_ordinal += 1
+                continue
             with error_context(page=data_ordinal,
                                offset=chunk_offset + ps.payload_start, **ctx):
                 asm.pages.append(
@@ -2646,10 +2688,14 @@ class ReaderStats:
     chunks: int = 0
     pages: int = 0
     pages_device_expanded: int = 0  # pages shipped compressed
+    pages_pruned: int = 0           # pages skipped by page-level pushdown
     rows: int = 0
     compressed_bytes: int = 0      # chunk bytes read from the file
     staged_bytes: int = 0          # bytes registered for the device buffers
     host_seconds: float = 0.0      # read + decompress + parse + planning
+    # page-pruning planning (header walks, filter-chunk reads); within
+    # host_seconds on the sequential path, on the feed's consumer otherwise
+    prune_seconds: float = 0.0
     stage_seconds: float = 0.0     # fill + enqueue of the host->device copy
     dispatch_seconds: float = 0.0  # enqueue of the decode launches
     wall_seconds: float = 0.0
@@ -2686,6 +2732,7 @@ class ReaderStats:
             "row_groups": self.row_groups, "chunks": self.chunks,
             "pages": self.pages,
             "pages_device_expanded": self.pages_device_expanded,
+            "pages_pruned": self.pages_pruned,
             "rows": self.rows,
             "compressed_bytes": self.compressed_bytes,
             "staged_bytes": self.staged_bytes,
@@ -2700,6 +2747,7 @@ class ReaderStats:
             "fused_fallbacks": self.fused_fallbacks,
             "planner_link_mbps": round(self.planner_link_mbps, 1),
             "host_seconds": round(self.host_seconds, 6),
+            "prune_seconds": round(self.prune_seconds, 6),
             "stage_seconds": round(self.stage_seconds, 6),
             "dispatch_seconds": round(self.dispatch_seconds, 6),
             "wall_seconds": round(self.wall_seconds, 6),
@@ -2731,40 +2779,50 @@ class DeviceFileReader:
     row group on a one-thread staging worker while the consumer prepares
     the next (``_scan_pipeline``).
 
+    With ``row_filter`` (a ``predicate`` expression) pruning is two-level:
+    row groups whose chunk statistics prove no match are skipped whole,
+    and inside a surviving FLAT row group the page headers' statistics
+    drop maximal provably-false row runs aligned to page edges of every
+    selected column (``scanplan.plan_page_pruning``): those pages are never
+    decompressed, staged or decoded (``ReaderStats.pages_pruned``).  The
+    yielded rows are a superset of the matching rows, the same rows in
+    every column; columns whose page grids share no interior edge are not
+    page-pruned.  ``plan`` replays a ``scanplan.ScanPlan`` (group pruning,
+    page-pruning skip sets, ship routes); ``metadata`` skips the footer
+    read.  ``on_data_error`` / ``quarantine`` contain data errors
+    (``ParquetError``) to their row group in the iteration APIs.
+
+    The footer, schema, filter, plan and containment engine live in a host
+    ``reader.FileReader`` this reader holds, as the reference's does.
+
     Where the port differs from the reference on purpose: an explicit
     ``device``, and a pool of pinned host buffers (``_PinnedPool``) under
-    the copies."""
+    the copies.  Left out of the reference: ``profile_dir``, ``trace``,
+    ``sample_ms``, ``hang_s``, ``hang_policy``, ``store``, ``dict_cache``,
+    ``result_cache`` and ``cancel``."""
 
     def __init__(self, source, columns=None, validate_crc=None, device=None,
-                 max_memory: int = 0, prefetch: int = 0):
+                 max_memory: int = 0, prefetch: int = 0, row_filter=None,
+                 metadata=None, plan=None, on_data_error=None,
+                 quarantine=None):
         self.device = _resolve_device(device)
-        if isinstance(source, (str, os.PathLike)):
-            self._f = open(source, "rb")
-            self._owns_file = True
-            self._source_name = os.fspath(source)
-        elif isinstance(source, (bytes, bytearray, memoryview)):
-            import io
-
-            self._f = io.BytesIO(bytes(source))
-            self._owns_file = False
-            self._source_name = "<memory>"
-        else:
-            self._f = source
-            self._owns_file = False
-            self._source_name = getattr(source, "name", None) or "<stream>"
-        try:
-            self.validate_crc = resolve_validate(validate_crc)
-            self.metadata = read_file_metadata(self._f)
-            self.schema = Schema.from_file_metadata(self.metadata)
-            self.set_selected_columns(columns)
-        except BaseException:
-            if self._owns_file:
-                self._f.close()
-            raise
+        self._host = FileReader(source, columns=columns,
+                                validate_crc=validate_crc,
+                                max_memory=max_memory,
+                                row_filter=row_filter, metadata=metadata,
+                                plan=plan, on_data_error=on_data_error,
+                                quarantine=quarantine)
+        h = self._host
+        self.metadata, self.schema = h.metadata, h.schema
+        self.validate_crc = h.validate_crc
+        # the containment engine, shared with the host half
+        self.quarantine = h.quarantine
+        # one ledger with the host reader: chunk bytes, each page's
+        # decompressed size, link-recompression copies, device buffers
+        self.alloc = h.alloc
         # positioned reads: the chunk pool's workers and the consumer
         # share the source without sharing a position
-        self._sr = SharedReader(self._f)
-        self.alloc = AllocTracker(max_memory)
+        self._f, self._sr, self._source_name = h._f, h._sr, h._source_name
         self._prefetch = int(prefetch)
         self._pipe_stats = PipelineStats(prefetch=self._prefetch,
                                          budget_bytes=int(max_memory))
@@ -2784,16 +2842,29 @@ class DeviceFileReader:
         self._stats.planner_link_mbps = self._ship_planner.link_mbps
         self._pinned = _PinnedPool() if self.device.type == "cuda" else None
 
+    @property
+    def _plan(self):
+        """The scan plan IR (footer slice, pruning verdicts, route memo):
+        the host reader's, rebuilt by ``set_selected_columns``."""
+        return self._host._plan
+
+    @property
+    def row_filter(self):
+        return self._host.row_filter
+
+    def row_group_selected(self, index: int) -> bool:
+        """False when ``row_filter`` proves row group ``index`` cannot
+        match (its bytes are never read)."""
+        return self._host.row_group_selected(index)
+
     def set_selected_columns(self, columns) -> None:
-        """Project to ``columns`` (None = all)."""
-        apply_selection(self.schema, columns)
+        """Project to ``columns`` (None = all); the plan is rebuilt."""
+        self._host.set_selected_columns(columns)
 
     def close(self) -> None:
         # deferred-finalize scans (scan_files) release the ledger here
         self._release_device_outstanding(all_bytes=True)
-        if self._owns_file:
-            self._f.close()
-            self._owns_file = False
+        self._host.close()
 
     def __enter__(self):
         return self
@@ -2815,17 +2886,52 @@ class DeviceFileReader:
         ``prefetch`` > 0 routes the host phase through the chunk pool."""
         return self._pipe_stats
 
+    def _plan_page_pruning(self, rg, leaves, f=None, index=None):
+        """Page-level pushdown planning through the plan IR
+        (``scanplan.plan_page_pruning``) with its per-row-group memo: a
+        replayed plan skips the header walks and adopts the recorded skip
+        sets, and returns no filter-chunk buffers (the decode loop reads
+        those chunks itself, as without a filter).  Returns ``(skip sets
+        by column path, rows dropped, filter-chunk buffers by path)``.
+        ``f``: a positioned-read file view (the chunk feed passes its
+        own); the header walks never seek the shared file object."""
+        pred = self._host.row_filter
+        if pred is None:
+            return None, 0, {}
+        t0 = time.perf_counter()
+        plan = self._plan
+        memo_ok = (plan is not None and index is not None
+                   and plan.filter_fp is not None
+                   and plan.filter_fp == predicate_fingerprint(pred))
+        hint = plan.pruning_hint(index) if memo_ok else None
+        if hint is not None:
+            (skip, rows_dropped), bufs = hint, {}
+        else:
+            if f is None:
+                f = self._sr.as_file()
+            skip, rows_dropped, bufs = plan_page_pruning(
+                rg, leaves, self.schema, pred, f)
+            if memo_ok:
+                plan.note_pruning(index, skip, rows_dropped)
+        with self._stats_lock:
+            self._stats.prune_seconds += time.perf_counter() - t0
+        return skip, rows_dropped, bufs
+
     def _prepare_row_group(self, index: int, executor=None, collected=None):
         """Host phase: read, decompress and parse every selected chunk of the
         row group, registering all byte regions with ONE stager.
 
         With ``executor`` (the staging worker) the stager streams completed
         strips to the device while this thread still parses later chunks.
-        With ``collected`` (the chunk feed's output: IO, CRC, decompression,
-        page parse and ship planning already done on the pool) this
-        collapses to stager registration and plan construction.  Only the
-        host-decode path (``_finish_host``) touches the device here, on
-        this thread's current stream."""
+        With ``collected`` (the chunk feed's output: page pruning, IO, CRC,
+        decompression, page parse and ship planning already done on the
+        pool) this collapses to stager registration and plan construction.
+        Only the host-decode path (``_finish_host``) touches the device
+        here, on this thread's current stream.
+
+        A raise (a data error the scan may contain) abandons the stager:
+        its in-flight strips are joined and their pinned buffers returned
+        before the error leaves."""
         rg = self.metadata.row_groups[index]
         t0 = time.perf_counter()
         if self._t0 is None:
@@ -2834,9 +2940,36 @@ class DeviceFileReader:
         out: dict[str, DeviceColumnData] = {}
         f = self._sr.as_file()
         self.alloc.reset()
+        if collected is None:
+            skip_pages, rows_dropped, planned_bufs = self._plan_page_pruning(
+                rg, leaves, index=index)
+        else:
+            skip_pages, planned_bufs = None, {}
+            rows_dropped = collected["rows_dropped"]
         stager = _RowGroupStager(executor, self.device, self._pinned)
+        try:
+            plans = self._plan_chunks(index, rg, leaves, f, collected,
+                                      skip_pages, planned_bufs, stager, out)
+        except BaseException:
+            stager.abandon()
+            raise
+        self._stats.row_groups += 1
+        self._stats.rows += (rg.num_rows or 0) - rows_dropped
+        self._stats.staged_bytes += stager.total
+        now = time.perf_counter()
+        self._stats.host_seconds += now - t0
+        self._stats.wall_seconds = now - self._t0
+        return out, plans, stager
+
+    def _plan_chunks(self, index, rg, leaves, f, collected, skip_pages,
+                     planned_bufs, stager, out) -> list:
+        """``_prepare_row_group``'s chunk loop: each selected chunk's
+        assembler (collected here, or taken from the feed), its plan on
+        ``stager``, the counters, and the route memo.  An empty or fully
+        pruned chunk becomes a placeholder column in ``out``."""
         plans: list[tuple[str, _Plan]] = []
         for path, leaf, _chunk, md, offset in row_group_chunks(rg, leaves):
+            name = ".".join(path)
             if collected is not None:
                 entry = collected["chunks"].get(path)
                 if entry is None:
@@ -2844,58 +2977,69 @@ class DeviceFileReader:
                     # run on the consumer thread: a caller bug)
                     raise ParquetError(
                         f"prefetched row group {index} missing chunk "
-                        f"{'.'.join(path)}")
+                        f"{name}")
                 md, asm = entry
+                if isinstance(asm, _FailedChunk):
+                    # a data error the feed carried: raised here, so the
+                    # scan pipeline contains both paths alike
+                    raise asm.exc
                 self._stats.chunks += 1
                 self._stats.compressed_bytes += md.total_compressed_size
                 self.alloc.register(md.total_compressed_size)
             else:
-                f.seek(offset)
-                buf = require_full(f.read(md.total_compressed_size),
-                                   offset, md.total_compressed_size,
-                                   context=f"column {'.'.join(path)}")
+                # the pruning planner already read the filter chunks
+                buf = planned_bufs.get(path)
+                if buf is None:
+                    f.seek(offset)
+                    buf = f.read(md.total_compressed_size)
+                require_full(buf, offset, md.total_compressed_size,
+                             context=f"column {name}")
                 self._stats.chunks += 1
                 self._stats.compressed_bytes += md.total_compressed_size
                 self.alloc.register(md.total_compressed_size)
                 ctx = {"file": self._source_name, "row_group": index,
-                       "column": ".".join(path), "chunk_offset": offset}
+                       "column": name, "chunk_offset": offset}
                 asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
                                      self._deferred,
                                      validate_crc=self.validate_crc,
                                      alloc=self.alloc,
-                                     statistics=md.statistics, context=ctx,
-                                     device=self.device)
-                asm.preship(self._ship_planner, self._pipe_stats)
+                                     statistics=md.statistics,
+                                     skip_pages=(skip_pages or {}).get(path),
+                                     context=ctx, device=self.device)
+                asm.preship(self._ship_planner, self._pipe_stats,
+                            route_hint=self._plan.route_hint(index, name))
             self._stats.pages += len(asm.pages)
-            name = ".".join(path)
+            self._stats.pages_pruned += asm.pages_pruned
             if not asm.pages:
+                # empty or fully pruned: an empty int64 placeholder
+                # whatever the column's type, as the reference's
                 out[name] = DeviceColumnData(
-                    values=torch.zeros(
-                        0, dtype=_TORCH_DTYPES[_PTYPE_TO_NAME.get(
-                            leaf.physical_type, "int64")],
-                        device=self.device),
+                    values=torch.zeros(0, dtype=torch.int64,
+                                       device=self.device),
                     max_def=leaf.max_def, max_rep=leaf.max_rep,
                     num_leaf_slots=0,
                 )
                 continue
-            plans.append((name, asm.finish(stager)))
+            plan = asm.finish(stager)
+            plans.append((name, plan))
             self._stats.pages_device_expanded += asm.pages_kept_compressed
             self._stats.fused_fallbacks += asm.fused_fallbacks
+            best_route, best_bytes = None, -1
             for rec in asm.ship_records:
                 self._stats.count_route(*rec)
+                if rec[2] > best_bytes:
+                    best_route, best_bytes = rec[0], rec[2]
+            # memoize the decision: a replay starts preship from the
+            # column's dominant (most-shipped-bytes) route
+            self._plan.note_route(index, name, best_route or ROUTE_PLAIN,
+                                  plan.family)
         seen = set(out) | {name for name, _ in plans}
         missing = {".".join(p) for p in leaves} - seen
         if missing:
             raise ParquetError(
                 f"row group {index} missing columns {sorted(missing)}"
             )
-        self._stats.row_groups += 1
-        self._stats.rows += rg.num_rows or 0
-        self._stats.staged_bytes += stager.total
-        now = time.perf_counter()
-        self._stats.host_seconds += now - t0
-        self._stats.wall_seconds = now - self._t0
-        return out, plans, stager
+        return plans
 
     def _note_staged(self, stager: _RowGroupStager) -> None:
         """A staged row-group buffer is on the device: into the ledger,
@@ -2991,17 +3135,23 @@ class DeviceFileReader:
         through the one-deep pipeline: row group N is staged on the staging
         worker (strips streamed while it is parsed) while the consumer
         prepares N+1, and with ``prefetch`` > 0 the chunk pool reads and
-        parses ahead.  Each scan starts fresh ``pipeline_stats()``."""
+        parses ahead.  Row groups ``row_filter`` pruned are skipped unread,
+        and under a skip policy a row group with a data error is recorded
+        and skipped.  Each scan starts fresh ``pipeline_stats()``."""
         self._pipe_stats = PipelineStats(prefetch=self._prefetch,
                                          budget_bytes=self.alloc.max_size)
-        if not self.num_row_groups:
+        indices = [i for i in range(self.num_row_groups)
+                   if self.row_group_selected(i)]
+        self.quarantine.begin_scan(len(indices))
+        if not indices:
             self.finalize()
             return
         with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
             for _, out in _scan_pipeline(
-                    ((self, None, i) for i in range(self.num_row_groups)),
+                    ((self, None, i) for i in indices),
                     ex, finalize_each=finalize_each, prefetch=self._prefetch,
-                    budget_bytes=self.alloc.max_size):
+                    budget_bytes=self.alloc.max_size,
+                    quarantine=self.quarantine):
                 yield out
 
     def iter_batches(self, batch_size: int, columns=None):
@@ -3117,7 +3267,15 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
     pool keeps working while the consumer registers, stages and dispatches
     the current group.  Yields ``(reader, path, index, collected)`` in work
     order, where ``collected`` is what ``_prepare_row_group(collected=...)``
-    takes: ``{"chunks": {column path: (md, _ChunkAssembler)}}``.
+    takes: ``{"chunks": {column path: (md, _ChunkAssembler or
+    _FailedChunk)}, "rows_dropped": n}``.
+
+    Page-pruning planning runs on the consumer thread as items are pulled
+    (it precedes its group's reads), its header walks through the
+    reader's positioned reads; the filter chunks it read are handed to
+    their items and never read twice.  A data error of a chunk's
+    collection becomes a ``_FailedChunk`` when the reader's policy
+    contains it.
 
     The same flatten/regroup protocol as ``reader.FileReader.
     _decode_row_groups``, with other payloads.  Everything on the workers
@@ -3169,14 +3327,18 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
             fed.add(r)
             rg = r.metadata.row_groups[i]
             leaves = {l.path: l for l in r.schema.selected_leaves()}
-            items = [(r, i, p, leaf, md, offset)
+            skip_pages, rows_dropped, planned_bufs = r._plan_page_pruning(
+                rg, leaves, f=r._sr.as_file(), index=i)
+            items = [(r, i, p, leaf, md, offset,
+                      (skip_pages or {}).get(p), planned_bufs.get(p))
                      for p, leaf, _chunk, md, offset
                      in row_group_chunks(rg, leaves)]
             pending[(id(r), i)] = {"r": r, "path": path, "i": i,
-                                   "todo": max(len(items), 1), "chunks": {}}
+                                   "todo": max(len(items), 1), "chunks": {},
+                                   "rows_dropped": rows_dropped}
             if not items:
                 # sentinel so an empty group still comes out in order
-                items.append((r, i, None, None, None, None))
+                items.append((r, i, None, None, None, None, None, None))
             yield from items
 
     def cost(item):
@@ -3187,26 +3349,41 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
         return comp + max(md.total_uncompressed_size or 0, comp)
 
     def collect(item):
-        r, i, p, leaf, md, offset = item
+        r, i, p, leaf, md, offset, skip, buf0 = item
         if md is None:
             return (id(r), i), None, None
         stats = r._pipe_stats
         ctx = {"file": r._source_name, "row_group": i,
                "column": ".".join(p), "chunk_offset": offset}
-        tracker = AllocTracker(r.alloc.max_size)
-        tracker.register(md.total_compressed_size)
-        with stats.timed("io"):
-            buf = r._sr.pread(offset, md.total_compressed_size)
-        require_full(buf, offset, md.total_compressed_size,
-                     context=f"column {'.'.join(p)}")
-        with stats.timed("decompress"):
-            asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
-                                 r._deferred, validate_crc=r.validate_crc,
-                                 alloc=tracker, statistics=md.statistics,
-                                 context=ctx, device=r.device)
+        try:
+            tracker = AllocTracker(r.alloc.max_size)
+            tracker.register(md.total_compressed_size)
+            if buf0 is not None:
+                buf = buf0  # the pruning planner already read this chunk
+            else:
+                with stats.timed("io"):
+                    buf = r._sr.pread(offset, md.total_compressed_size)
+            require_full(buf, offset, md.total_compressed_size,
+                         context=f"column {'.'.join(p)}")
+            with stats.timed("decompress"):
+                asm = _collect_chunk(buf, md.codec, md.num_values, leaf,
+                                     r._deferred,
+                                     validate_crc=r.validate_crc,
+                                     alloc=tracker, statistics=md.statistics,
+                                     skip_pages=skip, context=ctx,
+                                     device=r.device)
+        except ParquetError as e:
+            # containment seam: a marker instead of a raise keeps the feed
+            # flowing; the consumer records the unit
+            if not r.quarantine.contains or isinstance(e,
+                                                       DataIntegrityError):
+                raise
+            return (id(r), i), p, (md, _FailedChunk(annotate_data_error(
+                e, **{k: v for k, v in ctx.items() if k != "chunk_offset"})))
         # ship planning on the same worker (its compression seconds land
         # in the recompress lane): overlaps the consumer's stage/dispatch
-        asm.preship(r._ship_planner, stats)
+        asm.preship(r._ship_planner, stats,
+                    route_hint=r._plan.route_hint(i, ".".join(p)))
         stats.count_chunk()
         return (id(r), i), p, (md, asm)
 
@@ -3223,7 +3400,9 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
                 r = slot["r"]
                 r._pipe_stats.note_peak(budget)
                 r._pipe_stats.touch_wall()
-                yield r, slot["path"], slot["i"], {"chunks": slot["chunks"]}
+                yield r, slot["path"], slot["i"], {
+                    "chunks": slot["chunks"],
+                    "rows_dropped": slot["rows_dropped"]}
     finally:
         # un-bind the dead feed's budget from every reader it fed
         for r in fed:
@@ -3234,7 +3413,8 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
 def _scan_pipeline(work, ex, finalize_each: bool = False,
                    close_finished: bool = False,
                    defer_finalize: bool = False,
-                   prefetch: int = 0, budget_bytes: int = 0):
+                   prefetch: int = 0, budget_bytes: int = 0,
+                   quarantine=None):
     """The one-deep prepare/stage/dispatch pipeline shared by
     ``DeviceFileReader.iter_row_groups`` (one reader) and :func:`scan_files`
     (many).  ``work`` yields ``(reader, path, row_group_index)``; this yields
@@ -3251,14 +3431,41 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
     boundary, per group with ``finalize_each``, or at the end; never with
     ``defer_finalize``, whose caller runs them once).  With
     ``close_finished`` a reader is closed as soon as its last row group is
-    delivered: all of its chunk reads precede that yield."""
+    delivered: all of its chunk reads precede that yield.
+
+    Containment: a data error (``ParquetError``) raised by a row group's
+    host phase is recorded in ``quarantine`` (else the reader's own
+    engine) and the group skipped, when the policy contains it;
+    ``skip_file`` also skips the rest of that reader's groups (counted,
+    never read).  A budget-exhausted ``DataIntegrityError`` always
+    propagates, and so does everything that is not a ``ParquetError``
+    (a kernel build or launch failure, a CUDA error)."""
     stream = (_chunk_feed(work, prefetch, budget_bytes) if prefetch > 0
               else ((r, path, i, None) for r, path, i in work))
+    dead: set = set()  # readers quarantined whole (skip_file)
     try:
         prev = None  # (reader, path, prepared, staging future)
         for r, path, i, collected in stream:
-            prepared = r._prepare_row_group(i, executor=ex,
-                                            collected=collected)
+            q = quarantine if quarantine is not None else r.quarantine
+            if id(r) in dead:
+                # collateral skip of a skip_file-quarantined file:
+                # accounted, never decoded, never a new record
+                q.note_unit_skipped(
+                    int(r.metadata.row_groups[i].num_rows or 0))
+                continue
+            try:
+                prepared = r._prepare_row_group(i, executor=ex,
+                                                collected=collected)
+            except ParquetError as e:
+                if not q.contains or isinstance(e, DataIntegrityError):
+                    raise
+                q.note(e, file=r._source_name, row_group=i)
+                q.note_unit_skipped(
+                    int(r.metadata.row_groups[i].num_rows or 0))
+                if q.policy == "skip_file":
+                    q.note_file_skipped()
+                    dead.add(id(r))
+                continue
             fut = (ex.submit(_timed_stage, r, prepared[2])
                    if prepared[1] else None)
             if prev is not None:
@@ -3286,7 +3493,8 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
 
 
 def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
-               with_path: bool = False, prefetch: int = 0, device=None):
+               row_filter=None, with_path: bool = False, prefetch: int = 0,
+               on_data_error=None, quarantine=None, device=None):
     """Scan several files' row groups through ONE continuous pipeline.
 
     ``paths`` is a path, a list of paths, or a dataset: a
@@ -3310,13 +3518,21 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
     raised.  Close the generator explicitly, or run it to the end, to get
     the ``ParquetError``.
 
-    Left out of the reference: ``row_filter``, ``trace``, ``sample_ms``,
-    ``hang_s``, ``hang_policy``, ``store``, ``on_data_error``,
-    ``quarantine`` and ``plan_cache``."""
+    ``row_filter`` prunes each file's row groups (a pruned group, or a
+    whole pruned file, is not read past its footer) and pages, as
+    ``DeviceFileReader``'s.  ``on_data_error`` / ``quarantine``: ONE
+    containment engine spans the scan, shared by every file's reader, so
+    the budget and the ledger are the scan's (only the absolute budget
+    binds: the unit total is not known up front).
+
+    Left out of the reference: ``trace``, ``sample_ms``, ``hang_s``,
+    ``hang_policy``, ``store`` and ``plan_cache``."""
     from .write.manifest import expand_dataset
 
     paths, _manifest = expand_dataset(paths)
     dev = _resolve_device(device, "scan_files")
+    q = quarantine if quarantine is not None else Quarantine(on_data_error)
+    q.begin_scan()
     readers: list[DeviceFileReader] = []
     pool = _PinnedPool() if dev.type == "cuda" else None
 
@@ -3324,20 +3540,23 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
         for path in paths:
             r = DeviceFileReader(path, columns=columns,
                                  validate_crc=validate_crc, device=dev,
-                                 max_memory=max_memory)
+                                 max_memory=max_memory,
+                                 row_filter=row_filter, quarantine=q)
             # one pinned pool for the whole dataset: the next file's
             # strips reuse the last file's buffers
             r._pinned = pool
             readers.append(r)
             for i in range(r.num_row_groups):
-                yield r, path, i
+                if r.row_group_selected(i):
+                    yield r, path, i
 
     try:
         with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
             for pp, out in _scan_pipeline(work(), ex, close_finished=True,
                                           defer_finalize=True,
                                           prefetch=int(prefetch),
-                                          budget_bytes=int(max_memory)):
+                                          budget_bytes=int(max_memory),
+                                          quarantine=q):
                 yield (pp, out) if with_path else out
         _finalize_many(readers)
     finally:

@@ -15,9 +15,26 @@ class ParquetError(ValueError):
     """Malformed parquet input."""
 
 
+class DataIntegrityError(ParquetError):
+    """A scan's data-error budget is exhausted: corruption is no longer
+    containable.
+
+    Raised by :class:`tpu_parquet_torch.quarantine.Quarantine` when the
+    number of contained data errors exceeds the budget
+    (``TPQ_DATA_ERROR_BUDGET``: absolute count and fraction of units): a
+    file set failing everywhere aborts the run with the evidence instead of
+    skipping itself to an empty result.  ``records`` carries the structured
+    quarantine records (file, row group, column, page, offset, error class,
+    message) noted during the scan."""
+
+    def __init__(self, message: str, records: "list | None" = None):
+        super().__init__(message)
+        self.records = list(records or [])
+
+
 # ---------------------------------------------------------------------------
-# decode-site context on every raise (the reference's quarantine.error_context,
-# without the containment policy)
+# decode-site context on every raise (re-exported by ``quarantine``, whose
+# policy engine reads it)
 # ---------------------------------------------------------------------------
 
 # record keys in report order

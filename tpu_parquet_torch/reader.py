@@ -1,19 +1,27 @@
 """FileReader: the host-side reader, with row iteration.
 
-The counterpart of ``tpu_parquet.reader.FileReader`` on its sequential path,
-and the port's second entry point beside the device reader.  It decodes on
-the host into numpy (``ColumnData``), with no device.  Options mirror the Go
-reference's FileReader (file_reader.go:65-149): ``columns`` (projection),
+The counterpart of ``tpu_parquet.reader.FileReader``, and the port's second
+entry point beside the device reader.  It decodes on the host into numpy
+(``ColumnData``), with no device.  Options mirror the Go reference's
+FileReader (file_reader.go:65-149): ``columns`` (projection),
 ``validate_crc``, ``max_memory`` (WithMaximumMemorySize) and ``metadata``
 (WithFileMetaData); a row-group cursor (seek, skip, preload) and the footer
 accessors.  Columnar first: ``read_row_group`` / ``read_all`` return decoded
 columns per row group, and rows (``iter_rows``, NextRow parity) are
 assembled on top of them by ``assembly``.
 
+``row_filter`` (a ``predicate`` expression) prunes whole row groups from
+the footer's statistics: the iteration APIs skip them and never read their
+bytes.  ``plan`` replays a ``scanplan.ScanPlan`` (its group-pruning verdict
+is adopted when its projection and filter match).  ``on_data_error`` /
+``quarantine`` contain data errors to their row group
+(``quarantine.Quarantine``).
+
 ``prefetch=K`` runs the chunk reads and decodes K-deep on a thread pool
 (``pipeline.prefetch_map``), flattened across row groups, as the
-reference's ``_decode_row_groups``; without the reference's quarantine,
-result cache, range coalescing and fetch engine.
+reference's ``_decode_row_groups``.  Left out of the reference: the span
+tracer, the byte stores of ``iostore`` (with range coalescing and the
+async fetch engine), cancellation, and the dictionary and result caches.
 """
 
 from __future__ import annotations
@@ -26,51 +34,30 @@ import numpy as np
 
 from .alloc import AllocTracker, InFlightBudget
 from .chunk_decode import (ChunkDecoder, read_chunk, require_full,
-                           row_group_chunks, validate_chunk_meta)
+                           validate_chunk_meta)
 from .column import ByteArrayData, ColumnData
+from .errors import DataIntegrityError
 from .footer import ParquetError, read_file_metadata
 from .format import FileMetaData
 from .pipeline import PipelineStats, SharedReader, prefetch_map
+from .quarantine import Quarantine, resolve_validate
+from .scanplan import (apply_selection, build_scan_plan,
+                       predicate_fingerprint, row_group_chunks)
 from .schema.core import Schema, SchemaNode
 
-_VALIDATE_ON = ("1", "on", "true", "crc", "yes")
-_VALIDATE_OFF = ("0", "off", "false", "no")
 
+class _ChunkFailed:
+    """In-band marker for a quarantined chunk riding the ordered prefetch
+    stream (a raise would end the pool).  Carries the annotated exception;
+    the consumer notes exactly one quarantine record per failed unit (its
+    first failing chunk in column order), so the ledger is the same at
+    every prefetch depth.  The device reader's chunk feed carries it too
+    (``device_reader._FailedChunk``)."""
 
-def resolve_validate(validate_crc=None) -> bool:
-    """A reader's ``validate_crc`` as a bool: ``None`` reads
-    ``TPQ_VALIDATE`` (default ``crc``: page CRCs are verified when present;
-    an unknown value keeps the default), a bool is itself, and the strings
-    ``crc``/``on``/``off``/... are strict."""
-    if validate_crc is None:
-        raw = os.environ.get("TPQ_VALIDATE", "crc").lower()
-        return raw not in _VALIDATE_OFF
-    if isinstance(validate_crc, bool):
-        return validate_crc
-    v = str(validate_crc).lower()
-    if v in _VALIDATE_ON:
-        return True
-    if v in _VALIDATE_OFF:
-        return False
-    raise ValueError(f"validate_crc must be a bool, 'crc', or 'off'; "
-                     f"got {validate_crc!r}")
+    __slots__ = ("exc",)
 
-
-def apply_selection(schema: Schema, columns) -> None:
-    """Validate, then apply, a column projection (dotted names or paths;
-    ``None`` = all): a failed call leaves the selection as it was."""
-    if columns is None:
-        schema.set_selected(None)
-        return
-    paths = [tuple(c.split(".")) if isinstance(c, str) else tuple(c)
-             for c in columns]
-    if not schema.selection_matches(paths):
-        known = [".".join(l.path) for l in schema.leaves]
-        raise ParquetError(
-            f"selected columns {['.'.join(p) for p in paths]} "
-            f"match no schema columns; available: {known}"
-        )
-    schema.set_selected(paths)
+    def __init__(self, exc: BaseException):
+        self.exc = exc
 
 
 class FileReader:
@@ -84,7 +71,8 @@ class FileReader:
     flight on the prefetch pool (backpressure, not an error).
 
     ``prefetch`` is the depth of the chunk pipeline (0 = sequential); the
-    read calls take it per call too."""
+    read calls take it per call too.  ``row_filter``, ``plan``,
+    ``on_data_error`` and ``quarantine``: see the module docstring."""
 
     def __init__(
         self,
@@ -93,7 +81,11 @@ class FileReader:
         validate_crc=None,
         max_memory: int = 0,
         metadata: Optional[FileMetaData] = None,
+        row_filter=None,
         prefetch: int = 0,
+        on_data_error=None,
+        quarantine=None,
+        plan=None,
     ):
         if isinstance(source, (str, os.PathLike)):
             self._f: BinaryIO = open(source, "rb")
@@ -108,6 +100,11 @@ class FileReader:
             self._owns_file = False
             self._source_name = getattr(source, "name", None) or "<stream>"
         try:
+            # one containment engine: ``quarantine=`` shares one across
+            # readers (scan_files, the device reader's host half), so the
+            # budget and the ledger are global to the scan
+            self.quarantine = (quarantine if quarantine is not None
+                               else Quarantine(on_data_error))
             self.validate_crc = resolve_validate(validate_crc)
             self.metadata = (metadata if metadata is not None
                              else read_file_metadata(self._f))
@@ -123,9 +120,37 @@ class FileReader:
             self.prefetch = int(prefetch)
             self._pipe_stats = PipelineStats(prefetch=self.prefetch,
                                              budget_bytes=int(max_memory))
+            # group pruning: groups whose footer stats prove the predicate
+            # can never match are skipped by the iteration APIs
+            self.row_filter = row_filter
+            fp = predicate_fingerprint(row_filter)
+            cols_sig = tuple(sorted(
+                ".".join(l.path) for l in self.schema.selected_leaves()))
+            fp_match = ((row_filter is None and plan is not None
+                         and plan.filter_fp is None)
+                        or (fp is not None and plan is not None
+                            and plan.filter_fp == fp))
+            if plan is not None and fp_match and plan.columns == cols_sig:
+                # replay: the group-pruning verdict is adopted, never
+                # recomputed; a plan whose projection or filter does not
+                # match falls through to a fresh build
+                self._plan = plan
+                self._rg_keep = (list(plan.rg_keep)
+                                 if plan.rg_keep is not None else None)
+            else:
+                if row_filter is not None:
+                    from .predicate import prune_row_groups
+
+                    self._rg_keep = prune_row_groups(
+                        self.metadata, self.schema, row_filter)
+                else:
+                    self._rg_keep = None
+                self._plan = build_scan_plan(
+                    self.metadata, self.schema, row_filter=row_filter,
+                    filter_fp=fp, rg_keep=self._rg_keep)
         except BaseException:
-            # a constructor failure (bad footer, bad projection) must not
-            # leak the file this reader opened
+            # a constructor failure (bad footer, bad projection, bad filter)
+            # must not leak the file this reader opened
             if self._owns_file:
                 self._f.close()
             raise
@@ -133,9 +158,29 @@ class FileReader:
     def set_selected_columns(self, columns) -> None:
         """Re-project mid-read (SetSelectedColumns parity): later row-group
         reads decode only these columns.  ``None`` restores all columns.
-        Clears any preloaded group."""
+        Clears any preloaded group and rebuilds the scan plan (a footer
+        walk) for the new projection."""
         apply_selection(self.schema, columns)
         self._preloaded = None
+        # during __init__ the constructor builds the first plan right after
+        if hasattr(self, "_plan"):
+            self._plan = build_scan_plan(self.metadata, self.schema,
+                                         row_filter=self.row_filter,
+                                         rg_keep=self._rg_keep)
+
+    def row_group_selected(self, index: int) -> bool:
+        """False when ``row_filter`` proves row group ``index`` cannot match."""
+        return self._rg_keep is None or self._rg_keep[index]
+
+    @property
+    def num_selected_rows(self) -> int:
+        """Rows in the row groups that survive ``row_filter``: what the
+        iteration APIs yield (``num_rows`` stays the footer total; surviving
+        groups may still hold rows the predicate rejects)."""
+        if self._rg_keep is None:
+            return self.metadata.num_rows
+        return sum(rg.num_rows for rg, keep in
+                   zip(self.metadata.row_groups, self._rg_keep) if keep)
 
     # -- context management ---------------------------------------------------
 
@@ -184,7 +229,7 @@ class FileReader:
         never used."""
         return self._pipe_stats
 
-    def _decode_row_groups(self, indices, k: int):
+    def _decode_row_groups(self, indices, k: int, contain: bool = True):
         """Chunk-granular overlapped decode (the prefetch pipeline).
 
         Work items are (row group, chunk) pairs flattened across
@@ -198,11 +243,19 @@ class FileReader:
         (the per-chunk decompression-bomb guard), and the bytes in flight
         across chunks are bounded by an ``InFlightBudget`` over the same
         budget.  ``device_reader._chunk_feed`` mirrors this flatten/regroup
-        protocol with other payloads."""
+        protocol with other payloads.
+
+        Containment (``contain`` and a skip policy): a chunk's data error
+        rides the stream as a ``_ChunkFailed``; the consumer records its
+        unit once and skips it (``skip_file``: and the rest of the file)."""
         stats = PipelineStats(prefetch=k, budget_bytes=self.alloc.max_size)
         self._pipe_stats = stats
         budget = InFlightBudget(self.alloc.max_size)
         sr = self._sr
+        q = self.quarantine
+        contain = contain and q.contains
+        if contain:
+            q.begin_scan(len(indices) if hasattr(indices, "__len__") else None)
         pending: dict[int, dict] = {}  # row group -> regrouping slot
 
         def gen_items():
@@ -242,32 +295,60 @@ class FileReader:
             if chunk is None:
                 return i, None, None
             name = ".".join(path)
-            md, offset = validate_chunk_meta(chunk, leaf)
-            alloc = AllocTracker(self.alloc.max_size)
-            alloc.register(md.total_compressed_size)
-            with stats.timed("io"):
-                buf = sr.pread(offset, md.total_compressed_size)
-            require_full(buf, offset, md.total_compressed_size,
-                         context=f"column {name}")
-            with stats.timed("decompress"):
-                dec = ChunkDecoder(
-                    leaf, validate_crc=self.validate_crc, alloc=alloc,
-                    context={"file": self._source_name, "row_group": i,
-                             "column": name, "chunk_offset": offset})
-                cd = dec.decode(buf, md.codec, md.num_values)
+            try:
+                md, offset = validate_chunk_meta(chunk, leaf)
+                alloc = AllocTracker(self.alloc.max_size)
+                alloc.register(md.total_compressed_size)
+                with stats.timed("io"):
+                    buf = sr.pread(offset, md.total_compressed_size)
+                require_full(buf, offset, md.total_compressed_size,
+                             context=f"column {name}")
+                with stats.timed("decompress"):
+                    dec = ChunkDecoder(
+                        leaf, validate_crc=self.validate_crc, alloc=alloc,
+                        context={"file": self._source_name, "row_group": i,
+                                 "column": name, "chunk_offset": offset})
+                    cd = dec.decode(buf, md.codec, md.num_values)
+            except ParquetError as e:
+                # containment seam: under a skip policy the failure rides
+                # the stream as a marker; the consumer notes it in order
+                if not contain or isinstance(e, DataIntegrityError):
+                    raise
+                return i, name, _ChunkFailed(e)
             stats.count_chunk()
             return i, name, cd
 
         stats.touch_wall()
+        order = list(indices)
         for i, name, cd in prefetch_map(gen_items(), decode_item, k,
                                         budget=budget, cost=chunk_cost,
                                         stats=stats):
             slot = pending[i]
             if name is not None:
-                slot["out"][name] = cd
+                if isinstance(cd, _ChunkFailed):
+                    slot.setdefault("failed", cd)
+                else:
+                    slot["out"][name] = cd
             slot["todo"] -= 1
             if slot["todo"] == 0:
                 del pending[i]
+                failed = slot.get("failed")
+                if failed is not None:
+                    # one record (the first failing chunk), nothing
+                    # yielded; note() raises DataIntegrityError when the
+                    # budget runs out
+                    q.note(failed.exc, file=self._source_name, row_group=i)
+                    q.note_unit_skipped(
+                        int(self.metadata.row_groups[i].num_rows or 0))
+                    if q.policy == "skip_file":
+                        # collateral: the file's later groups (results come
+                        # in order, so none of them was yielded)
+                        q.note_file_skipped()
+                        for j in order[order.index(i) + 1:]:
+                            q.note_unit_skipped(int(
+                                self.metadata.row_groups[j].num_rows or 0))
+                        break
+                    continue
                 missing = slot["expect"] - set(slot["out"])
                 if missing:
                     raise ParquetError(
@@ -283,12 +364,14 @@ class FileReader:
         """Decode all selected column chunks of one row group:
         ``{dotted column path: ColumnData}``, one contiguous read and one
         batch decode per chunk.  With ``prefetch`` > 0 (the argument, else
-        the reader's setting) the group's chunks decode on the pool."""
+        the reader's setting) the group's chunks decode on the pool.  A
+        requested group always raises its data error: the skip policies
+        belong to the iteration APIs."""
         if not 0 <= index < self.num_row_groups:
             raise IndexError(f"row group {index} of {self.num_row_groups}")
         k = self.prefetch if prefetch is None else int(prefetch)
         if k > 0:
-            feed = self._decode_row_groups([index], k)
+            feed = self._decode_row_groups([index], k, contain=False)
             try:
                 return next(feed)[1]
             finally:
@@ -311,19 +394,46 @@ class FileReader:
         return out
 
     def iter_row_groups(self, prefetch: Optional[int] = None):
+        """Yield each surviving row group's columns (pruned groups are
+        skipped unread; a quarantined group is skipped under a skip
+        policy)."""
         k = self.prefetch if prefetch is None else int(prefetch)
+        selected = [i for i in range(self.num_row_groups)
+                    if self.row_group_selected(i)]
         if k > 0:
-            for _i, out in self._decode_row_groups(
-                    range(self.num_row_groups), k):
+            for _i, out in self._decode_row_groups(selected, k):
                 yield out
             return
-        for i in range(self.num_row_groups):
-            yield self.read_row_group(i, prefetch=0)
+        q = self.quarantine
+        q.begin_scan(len(selected))
+        for i in selected:
+            if not q.contains:
+                yield self.read_row_group(i, prefetch=0)
+                continue
+            try:
+                out = self.read_row_group(i, prefetch=0)
+            except ParquetError as e:
+                # the unit is recorded and skipped; a budget-exhausted
+                # DataIntegrityError aborts
+                if isinstance(e, DataIntegrityError):
+                    raise
+                q.note(e, file=self._source_name, row_group=i)
+                q.note_unit_skipped(
+                    int(self.metadata.row_groups[i].num_rows or 0))
+                if q.policy == "skip_file":
+                    q.note_file_skipped()
+                    for j in selected[selected.index(i) + 1:]:
+                        q.note_unit_skipped(int(
+                            self.metadata.row_groups[j].num_rows or 0))
+                    return
+                continue
+            yield out
 
     def read_all(self, prefetch: Optional[int] = None
                  ) -> dict[str, ColumnData]:
-        """Concatenate all row groups' columns (convenience for small
-        files).  ``prefetch`` overrides the reader's depth for this call."""
+        """Concatenate the surviving row groups' columns (convenience for
+        small files).  ``prefetch`` overrides the reader's depth for this
+        call."""
         groups = list(self.iter_row_groups(prefetch=prefetch))
         if not groups:
             return {

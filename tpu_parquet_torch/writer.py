@@ -357,3 +357,60 @@ class FileWriter:
         elif self._owns_file:
             self._f.close()
         return False
+
+
+def corrupt_page(path, row_group: int = 0, column=0, page: int = 0,
+                 mode: str = "bitflip", seed: int = 0) -> tuple[int, int]:
+    """Deterministically corrupt ONE page's payload of a written file,
+    in place — the fault-injection helper behind the quarantine tests and
+    ``chip_smoke.py``'s contained scans.
+
+    ``column`` is a leaf ordinal or dotted name; ``page`` a data-page
+    ordinal within the chunk (``-1`` corrupts the dictionary page).  The
+    corruption is :func:`tpu_parquet_torch.quarantine.corrupt_bytes` over the
+    page's COMPRESSED payload — length-preserving, so the file still
+    parses structurally and the integrity tier (CRC when written,
+    decode-time sanity otherwise) is what must catch it.  Returns the
+    corrupted span's absolute ``(offset, length)``.
+    """
+    from .chunk_decode import validate_chunk_meta, walk_pages
+    from .footer import read_file_metadata
+    from .format import PageType
+    from .quarantine import corrupt_bytes
+    from .schema.core import Schema
+
+    with open(path, "r+b") as f:
+        md = read_file_metadata(f)
+        schema = Schema.from_file_metadata(md)
+        leaves = schema.leaves
+        if isinstance(column, str):
+            want = tuple(column.split("."))
+            idx = next((i for i, l in enumerate(leaves) if l.path == want),
+                       None)
+            if idx is None:
+                raise KeyError(f"no such column {column!r}")
+            column = idx
+        leaf = leaves[column]
+        rg = md.row_groups[row_group]
+        chunk = next(
+            c for c in rg.columns
+            if c.meta_data is not None
+            and tuple(c.meta_data.path_in_schema or ()) == leaf.path)
+        cmd, offset = validate_chunk_meta(chunk, leaf)
+        f.seek(offset)
+        buf = f.read(cmd.total_compressed_size)
+        data_pages, dict_page = [], None
+        for ps in walk_pages(buf, cmd.num_values):
+            if ps.header.type == PageType.DICTIONARY_PAGE:
+                dict_page = ps
+            elif ps.header.type in (PageType.DATA_PAGE,
+                                    PageType.DATA_PAGE_V2):
+                data_pages.append(ps)
+        ps = dict_page if page == -1 else data_pages[page]
+        if ps is None:
+            raise IndexError("chunk has no dictionary page")
+        payload = buf[ps.payload_start : ps.payload_end]
+        bad = corrupt_bytes(bytes(payload), mode, seed)
+        f.seek(offset + ps.payload_start)
+        f.write(bad)
+    return offset + ps.payload_start, len(bad)
