@@ -128,9 +128,30 @@ Phases:
     policy), and ``scan_files`` with the clean file under ``skip_unit``
     and ``skip_file``; after every pass no ``tpq-`` thread, no pinned
     buffer out of its pool and no byte in a reader's device ledger;
-13. one JSON line listing every ported kernel (with phase 11's launches as
-    ``pipeline_launches`` and phase 12's as ``filter_launches``), then the
-    result line.
+13. reads through byte stores (``iostore``, ``iostore_async``,
+    ``resilience``), reusing the files of phases 3, 5, 6 and 11: (a)
+    lineitem16 SF1 through ``FaultInjectingStore(LocalStore(f),
+    FaultSpec(latency_s=0.020))`` at prefetch 0, K threaded
+    (``TPQ_IO_ASYNC=0``) and K through the fetch engine, beside the same
+    reads through a plain ``LocalStore``: every read bit-equal (checked
+    against the generator, then on the card), launches, routes, staged and
+    link bytes equal, rows/s, requests, coalesced spans, the engine's peak
+    in flight and the device's idle share; (b) the fault matrix
+    (``fail_first=2``, ``torn_first=1``, both) on phase 3's file and the K3
+    file at prefetch 0 and K, threaded and through the engine, each
+    bit-equal with the clean read's launches; (c) one lineitem16 chunk
+    failing past its retries: ``RetryExhaustedError`` with its attempt
+    log; (d) the K3 file through the engine, ended by a timer's
+    ``cancel()`` and by ``CancelToken.with_timeout``; (e)
+    ``FaultSpec(corrupt="bitflip")`` on one K3 chunk under ``skip_unit``:
+    one record, K3 launched twice less; (f) phase 11's seven shards through
+    ``scan_files`` under ``ChaosSchedule.store_factory``.  After every
+    read: no ``tpq-`` thread (the engine shut down, with the outputs alive
+    on the card), no pinned buffer out, an empty device ledger, no budget;
+    a clean re-read after each failure bit-equal;
+14. one JSON line listing every ported kernel (with phase 11's launches as
+    ``pipeline_launches``, phase 12's as ``filter_launches`` and phase
+    13's as ``store_launches``), then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -3443,6 +3464,455 @@ def read_quarantine(torch, ck, work: str, smi: str, k3_path: str, k3_groups,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: reads through byte stores
+# ---------------------------------------------------------------------------
+
+# the remote-shaped store's fixed latency per request (13a, 13d)
+STORE_LATENCY_S = 0.020
+# the fault matrix's store settings (13b): 1 ms backoffs and no per-scan
+# retry cap (at prefetch 0 the K3 file's 552 chunk reads at two faults
+# each pass the default budget of 64 retries)
+MATRIX_CONFIG = {"backoff_ms": 1.0, "retry_budget": 0}
+EXHAUST_GROUP = 3  # lineitem16's row group whose l_shipmode chunk fails
+
+
+def fault_factory(spec: dict, stores: list, **config):
+    """A ``store=`` factory: ``FaultInjectingStore(LocalStore(f),
+    FaultSpec(**spec), config=IOConfig(**config))``, each store kept in
+    ``stores``."""
+    from tpu_parquet_torch.iostore import (FaultInjectingStore, FaultSpec,
+                                           IOConfig, LocalStore)
+
+    def make(f):
+        st = FaultInjectingStore(LocalStore(f), FaultSpec(**spec),
+                                 config=IOConfig(**config))
+        stores.append(st)
+        return st
+    return make
+
+
+def io_sum(stores) -> dict:
+    """The stores' ``IOStats`` counters, summed."""
+    out: dict = {}
+    for st in stores:
+        for k, v in st.stats.as_dict().items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def stop_engine(label: str) -> None:
+    """Shut the default fetch engine down (the reads' CUDA tensors still
+    alive) and check that its thread is gone: the next engine-routed read
+    starts a fresh one."""
+    import threading
+
+    from tpu_parquet_torch.iostore_async import shutdown_default_engine
+
+    shutdown_default_engine()
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("tpq-fetch")]
+    if left:
+        raise fail(f"{label}: the fetch engine's thread outlived its "
+                   f"shutdown: {left}")
+
+
+def store_pass(torch, ck, path: str, columns, prefetch: int, mode: str,
+               stop=None, **reader_kw) -> dict:
+    """One ``DeviceFileReader(..., **reader_kw).iter_row_groups()`` read
+    with ``TPQ_IO_ASYNC=mode`` (``"0"`` threaded, ``"1"`` the fetch
+    engine), timed end to end.  An IO, cancel or deadline error ends the
+    pass and is returned as ``error``; afterwards the engine is shut down
+    and the reader checked released (no thread, no pinned buffer out, an
+    empty device ledger, no budget).  ``stop``, a token, is cancelled when
+    the pass ends (a timer that did not fire)."""
+    from tpu_parquet_torch import iostore_async
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+    from tpu_parquet_torch.errors import (CancelledError,
+                                          DeadlineExceededError,
+                                          RetryExhaustedError)
+
+    before = os.environ.get("TPQ_IO_ASYNC")
+    os.environ["TPQ_IO_ASYNC"] = mode
+    outs, err = [], None
+    try:
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        with DeviceFileReader(path, columns=columns, prefetch=prefetch,
+                              **reader_kw) as r:
+            try:
+                for g in r.iter_row_groups():
+                    outs.append(g)
+            except (RetryExhaustedError, CancelledError,
+                    DeadlineExceededError) as e:
+                err = e
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = dict(ck.launches)
+            st = r.stats().as_dict()
+            budget = r._live_budget
+            records = r.quarantine.log.snapshot()
+    finally:
+        if stop is not None:
+            stop.cancel()
+        if before is None:
+            os.environ.pop("TPQ_IO_ASYNC", None)
+        else:
+            os.environ["TPQ_IO_ASYNC"] = before
+    eng = iostore_async.default_engine_if_running()
+    peak = eng.stats.inflight_peak if eng is not None else None
+    label = f"{os.path.basename(path)} prefetch {prefetch} TPQ_IO_ASYNC={mode}"
+    stop_engine(label)
+    check_released([r], label)
+    if budget is not None:
+        raise fail(f"{label}: the chunk feed's budget outlived the scan")
+    return dict(outs=outs, seconds=seconds, stats=st, counts=counts,
+                peak=peak, records=records, error=err)
+
+
+def same_read(torch, label: str, got: dict, base: dict) -> None:
+    """A store read against the clean ``LocalStore`` read: every tensor on
+    the card, the launches, the routes, staged, compressed and link
+    bytes."""
+    if got["error"] is not None:
+        raise fail(f"{label}: {type(got['error']).__name__}: "
+                   f"{got['error']}")
+    same_on_card(torch, got["outs"], base["outs"], label)
+    if got["counts"] != base["counts"]:
+        raise fail(f"{label}: launches {got['counts']}, want "
+                   f"{base['counts']}")
+    for key in ("ship_routes", "staged_bytes", "compressed_bytes",
+                "link_bytes_logical", "link_bytes_shipped", "chunks",
+                "pages"):
+        if got["stats"][key] != base["stats"][key]:
+            raise fail(f"{label}: {key} {got['stats'][key]}, want "
+                       f"{base['stats'][key]}")
+
+
+def store_remote(torch, ck, smi: str, path: str, groups, launched: dict):
+    """Phase 13(a): lineitem16 SF1 through ``FaultInjectingStore(
+    LocalStore(f), FaultSpec(latency_s=STORE_LATENCY_S))`` at prefetch 0, K
+    threaded and K through the fetch engine, beside the same reads through
+    a plain ``LocalStore``.  Returns (the checked LocalStore read, rows/s
+    by pass, idle shares)."""
+    k = pipeline_depth()
+    label = "store lineitem16 SF1"
+    base = store_pass(torch, ck, path, L16_COLUMNS, 0, "0")
+    rows, _ = check_groups(base["outs"], groups, L16_COLUMNS,
+                           f"{label} LocalStore p0")
+    add_launches(launched, base["counts"])
+    rates = {}
+    runs = [("LocalStore p0", 0, "0", None),
+            (f"LocalStore p{k}", k, "0", None)]
+    runs += [(f"store {n}", p, m, {"latency_s": STORE_LATENCY_S})
+             for n, p, m in (("p0", 0, "0"), (f"p{k} threaded", k, "0"),
+                             (f"p{k} engine", k, "1"))]
+    for name, p, mode, spec in runs:
+        stores: list = []
+        kw = {} if spec is None else {"store": fault_factory(spec, stores)}
+        got = store_pass(torch, ck, path, L16_COLUMNS, p, mode, **kw)
+        same_read(torch, f"{label} {name}", got, base)
+        got["outs"] = None
+        add_launches(launched, got["counts"])
+        rates[name] = rows / got["seconds"]
+        extra = ""
+        if stores:
+            d = io_sum(stores)
+            if (d["bytes_read"] != got["stats"]["compressed_bytes"]
+                    or d["retries"] or d["exhausted"]):
+                raise fail(f"{label} {name}: store counters {d}")
+            extra = (f"; {d['reads']} requests ({d['coalesced_spans']} "
+                     f"coalesced spans, {d['coalesced_bytes']} bytes) for "
+                     f"{got['stats']['chunks']} chunks; engine peak in "
+                     f"flight {got['peak']}")
+        log(f"{label} {name}: bit-equal to the LocalStore read; launches, "
+            f"routes, staged and link bytes equal; {got['seconds']:.4f} s = "
+            f"{rates[name]:.1f} rows/s{extra} ({smi})")
+    idle = {}
+    for name, p, mode, spec in (
+            ("LocalStore p0", 0, "0", None),
+            ("store p0", 0, "0", {"latency_s": STORE_LATENCY_S}),
+            (f"store p{k} engine", k, "1", {"latency_s": STORE_LATENCY_S})):
+        os.environ["TPQ_IO_ASYNC"] = mode
+        try:
+            kw = {} if spec is None else {"store": fault_factory(spec, [])}
+            idle[name] = device_breakdown(torch, path, f"{label} {name}",
+                                          L16_COLUMNS, prefetch=p,
+                                          **kw)["idle"]
+        finally:
+            os.environ.pop("TPQ_IO_ASYNC", None)
+        stop_engine(f"{label} {name} profiled")
+    return base, rates, idle
+
+
+def store_matrix(torch, ck, smi: str, label: str, path: str, columns,
+                 base: dict, launched: dict) -> None:
+    """Phase 13(b) on one file: ``fail_first=2``, ``torn_first=1`` and
+    both, at prefetch 0 and K, threaded and through the engine (prefetch 0
+    reads on the consumer thread: its one pass stands for both)."""
+    k = pipeline_depth()
+    for sname, spec in (("fail_first=2", {"fail_first": 2}),
+                        ("torn_first=1", {"torn_first": 1}),
+                        ("both", {"fail_first": 2, "torn_first": 1})):
+        for p, mode, how in ((0, "0", ""), (k, "0", " threaded"),
+                             (k, "1", " engine")):
+            name = f"{label} {sname} p{p}{how}"
+            stores: list = []
+            got = store_pass(torch, ck, path, columns, p, mode,
+                             store=fault_factory(spec, stores,
+                                                 **MATRIX_CONFIG))
+            same_read(torch, name, got, base)
+            got["outs"] = None
+            add_launches(launched, got["counts"])
+            d = io_sum(stores)
+            if (d["exhausted"] or ("fail_first" in spec and not d["retries"])
+                    or ("torn_first" in spec and not d["short_reads"])):
+                raise fail(f"{name}: store counters {d}")
+            log(f"{name}: bit-equal, launches equal the clean read; "
+                f"{d['reads']} requests, {d['retries']} retries, "
+                f"{d['short_reads']} torn re-reads, {d['transient_errors']} "
+                f"transient errors; {got['seconds']:.4f} s ({smi})")
+
+
+def store_exhaust(torch, ck, smi: str, path: str, base: dict,
+                  launched: dict) -> None:
+    """Phase 13(c): row group ``EXHAUST_GROUP``'s ``l_shipmode`` chunk
+    (and any span holding it) fails on every attempt, more than the
+    retries: the scan ends in ``RetryExhaustedError`` with its attempt log
+    after the earlier groups were staged, and leaves nothing; a clean
+    re-read is bit-equal."""
+    from tpu_parquet_torch.footer import read_file_metadata
+
+    with open(path, "rb") as f:
+        rg = read_file_metadata(f).row_groups[EXHAUST_GROUP]
+    victim = next(c.meta_data.data_page_offset for c in rg.columns
+                  if c.meta_data.path_in_schema == ["l_shipmode"])
+    k = pipeline_depth()
+    for p, mode, how in ((0, "0", ""), (k, "1", " engine")):
+        label = f"store exhaustion p{p}{how}"
+        stores: list = []
+        got = store_pass(torch, ck, path, L16_COLUMNS, p, mode,
+                         store=fault_factory(
+                             {"fail_first": 99,
+                              "match": lambda o, s: o <= victim < o + s},
+                             stores, backoff_ms=1.0))
+        err = got["error"]
+        if (type(err).__name__ != "RetryExhaustedError"
+                or not err.offset <= victim < err.offset + err.size
+                or len(err.attempts) != 5
+                or len(got["outs"]) > EXHAUST_GROUP or got["records"]):
+            raise fail(f"{label}: {err!r}, {len(got['outs'])} row groups, "
+                       f"records {got['records']}")
+        d = io_sum(stores)
+        log(f"{label}: RetryExhaustedError after {len(got['outs'])} row "
+            f"groups: {err}; attempt log {[a['error'] for a in err.attempts]}"
+            f"; exhausted {d['exhausted']}, coalesce_fallbacks "
+            f"{d['coalesce_fallbacks']}; nothing left: no thread, pinned "
+            f"buffer, ledger byte or budget ({smi})")
+    got = store_pass(torch, ck, path, L16_COLUMNS, k, "1",
+                     store=fault_factory({}, []))
+    same_read(torch, "store exhaustion clean re-read", got, base)
+    add_launches(launched, got["counts"])
+    log(f"store exhaustion: the clean re-read bit-equal, "
+        f"{got['seconds']:.4f} s ({smi})")
+
+
+def store_cancel(torch, ck, smi: str, path: str, base: dict,
+                 launched: dict) -> dict:
+    """Phase 13(d): the K3 file through the engine at K over a
+    ``STORE_LATENCY_S`` store, ended mid-scan by a timer thread's
+    ``cancel()`` (``CancelledError``) and by ``CancelToken.with_timeout``
+    (``DeadlineExceededError``, within the deadline and one row group),
+    at a quarter and two fifths of the clean read's time: nothing left,
+    and a re-read is bit-equal."""
+    import threading
+
+    from tpu_parquet_torch.resilience import CancelToken
+
+    k = pipeline_depth()
+    out = {}
+    # a quarter and two fifths of the clean read's time at K: mid-scan on
+    # any card
+    fire = round(base["seconds"] * 0.25, 3)
+    deadline = round(base["seconds"] * 0.4, 3)
+    for name, fire, timeout, want in (
+            (f"cancel at {fire} s", fire, None, "CancelledError"),
+            (f"deadline {deadline} s", None, deadline,
+             "DeadlineExceededError")):
+        label = f"store {name}"
+        tok = CancelToken.with_timeout(timeout)
+        timer = threading.Timer(fire, tok.cancel) if fire else None
+        stores: list = []
+        if timer is not None:
+            timer.start()
+        got = store_pass(torch, ck, path, K3_COLUMNS, k, "1", stop=timer,
+                         cancel=tok,
+                         store=fault_factory({"latency_s": STORE_LATENCY_S},
+                                             stores))
+        err = got["error"]
+        # one unit: a row group of the clean read at K, plus a request
+        unit = base["seconds"] / len(base["outs"]) + STORE_LATENCY_S
+        if (type(err).__name__ != want or got["records"]
+                or (timeout is not None
+                    and got["seconds"] > timeout + unit + 0.25)):
+            raise fail(f"{label}: {err!r} after {got['seconds']:.4f} s, "
+                       f"records {got['records']}")
+        if any("inflight_offset" in st.stats.sample() for st in stores):
+            raise fail(f"{label}: a range is still in flight")
+        out[name] = got["seconds"]
+        log(f"{label}: {want}: {err} after {len(got['outs'])} of "
+            f"{len(base['outs'])} row groups, {got['seconds']:.4f} s (a "
+            f"unit: {unit:.4f} s); no thread, pinned buffer, ledger byte, "
+            f"budget charge or range in flight left ({smi})")
+    got = store_pass(torch, ck, path, K3_COLUMNS, k, "1",
+                     store=fault_factory({"latency_s": STORE_LATENCY_S}, []))
+    same_read(torch, "store cancel re-read", got, base)
+    add_launches(launched, got["counts"])
+    log(f"store cancel: a re-read through the engine bit-equal, "
+        f"{got['seconds']:.4f} s ({smi})")
+    return out
+
+
+def store_corrupt(torch, ck, smi: str, path: str, groups, base: dict,
+                  launched: dict) -> None:
+    """Phase 13(e): ``FaultSpec(corrupt="bitflip", match=...)`` on the
+    read that starts at row group 40's ``dates`` chunk of the K3 file
+    (``coalesce_gap=0``: the chunk alone at prefetch 0; through the engine
+    the span of the group's adjacent chunks, which a zero gap still
+    merges, as in the reference) under ``skip_unit``, at prefetch 0 and K
+    through the engine: one quarantine record of phase 12(f)'s form, K3 launched
+    less than on the clean read by group 40's own launches (its ``dates``
+    and ``dates32``), the other groups bit-exact."""
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+    from tpu_parquet_torch.footer import read_file_metadata
+
+    g40 = QUARANTINE_GROUP
+    with open(path, "rb") as f:
+        rg = read_file_metadata(f).row_groups[g40]
+    victim = rg.columns[K3_COLUMNS.index("dates")].meta_data.data_page_offset
+    k = pipeline_depth()
+    survivors = [g for i, g in enumerate(groups) if i != g40]
+    fields = {"file", "column", "row_group", "page", "offset", "error",
+              "message"}
+    clean_k3 = base["counts"]["fused_narrow_words"]
+    ck.reset_launches()
+    with DeviceFileReader(path, columns=K3_COLUMNS) as r:
+        r.read_row_group(g40)
+    k3_g40 = ck.launches["fused_narrow_words"]
+    for p, mode, how in ((0, "0", ""), (k, "1", " engine")):
+        label = f"store corrupt skip_unit p{p}{how}"
+        got = store_pass(
+            torch, ck, path, K3_COLUMNS, p, mode, on_data_error="skip_unit",
+            store=fault_factory({"corrupt": "bitflip", "corrupt_seed": g40,
+                                 "match": lambda o, s: o == victim},
+                                [], coalesce_gap=0))
+        add_launches(launched, got["counts"])
+        check_groups(got["outs"], survivors, K3_COLUMNS, label)
+        got["outs"] = None
+        recs = got["records"]
+        if (got["error"] is not None or len(recs) != 1
+                or set(recs[0]) != fields or recs[0]["row_group"] != g40
+                or recs[0]["column"] != "dates"
+                or got["counts"]["fused_narrow_words"] != clean_k3 - k3_g40):
+            raise fail(f"{label}: {got['error']!r}, records {recs}, K3 "
+                       f"launches {got['counts']['fused_narrow_words']} "
+                       f"(clean {clean_k3})")
+        log(f"{label}: one record {recs[0]}; the other {len(survivors)} row "
+            f"groups bit-exact against the generator; K3 launched "
+            f"{got['counts']['fused_narrow_words']} = {clean_k3} - {k3_g40} "
+            f"(row group {g40}'s); {got['seconds']:.4f} s ({smi})")
+
+
+def store_chaos(torch, ck, smi: str, shard_dir: str, base: dict,
+                l16: dict, launched: dict) -> None:
+    """Phase 13(f): phase 11's seven shards through ``scan_files`` with
+    ``ChaosSchedule.store_factory`` over a transient burst (the first 40
+    read ordinals fail twice, then heal), at prefetch 0 and K through the
+    engine: bit-equal to 13(a)'s read, launches equal to phase 11's
+    ``scan_files`` pass."""
+    from tpu_parquet_torch.iostore import IOConfig
+    from tpu_parquet_torch.resilience import ChaosPhase, ChaosSchedule
+
+    paths = sorted(os.path.join(shard_dir, n) for n in os.listdir(shard_dir)
+                   if n.endswith(".parquet"))
+    schedule = ChaosSchedule([ChaosPhase(0, 40, "transient", intensity=2)],
+                             seed=13)
+    for p, mode, how in ((0, "0", ""), (pipeline_depth(), "1", " engine")):
+        label = f"store chaos scan_files p{p}{how}"
+        factory = schedule.store_factory(
+            paths, config=IOConfig(backoff_ms=1.0, retry_budget=0))
+        made: list = []
+        os.environ["TPQ_IO_ASYNC"] = mode
+        try:
+            outs, seconds, counts, _, _, rows = scan_pass(
+                torch, ck, paths, p, made=made, store=factory)
+        finally:
+            os.environ.pop("TPQ_IO_ASYNC", None)
+        stop_engine(label)
+        check_released(made, label)
+        same_on_card(torch, outs, base["outs"], label)
+        del outs
+        add_launches(launched, counts)
+        if counts != l16["counts"] or rows != SF1_ROWS:
+            raise fail(f"{label}: launches {counts}, want phase 11's "
+                       f"{l16['counts']}; {rows} rows")
+        d = io_sum(factory.stores)
+        if d["exhausted"] or not d["transient_errors"]:
+            raise fail(f"{label}: store counters {d}")
+        log(f"{label}: every row group bit-equal to 13(a)'s; launches equal "
+            f"phase 11's; {d['reads']} requests, {d['transient_errors']} "
+            f"transient errors, {d['retries']} retries over "
+            f"{len(factory.stores)} stores; {seconds:.4f} s = "
+            f"{rows / seconds:.1f} rows/s ({smi})")
+
+
+def read_store_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                     l16_groups, l16: dict, req_path: str, req_groups,
+                     k3_path: str, k3_groups) -> dict:
+    """Phase 13: the port's reads through byte stores on the card."""
+    t0 = time.perf_counter()
+    k = pipeline_depth()
+    launched: dict = {}
+    log(f"store: FaultInjectingStore over LocalStore; latency "
+        f"{STORE_LATENCY_S * 1e3:.0f} ms per request; K = {k}; default "
+        f"IOConfig (retries 4, backoff 25 ms, coalesce gap 64 KiB) but in "
+        f"the fault matrix, {MATRIX_CONFIG}")
+    l16_base, rates, idle = store_remote(torch, ck, smi, l16_path,
+                                         l16_groups, launched)
+    store_exhaust(torch, ck, smi, l16_path, l16_base, launched)
+    store_chaos(torch, ck, smi, os.path.join(work, "lineitem16_sf1_shards"),
+                l16_base, l16, launched)
+    del l16_base
+    req_base = store_pass(torch, ck, req_path, COLUMNS, k, "0")
+    check_groups(req_base["outs"], req_groups, COLUMNS,
+                 "store REQUIRED lineitem LocalStore")
+    add_launches(launched, req_base["counts"])
+    store_matrix(torch, ck, smi, "store REQUIRED lineitem", req_path,
+                 COLUMNS, req_base, launched)
+    del req_base
+    k3_base = store_pass(torch, ck, k3_path, K3_COLUMNS, k, "0")
+    check_groups(k3_base["outs"], k3_groups, K3_COLUMNS,
+                 "store K3 file LocalStore")
+    add_launches(launched, k3_base["counts"])
+    store_matrix(torch, ck, smi, "store K3 file", k3_path, K3_COLUMNS,
+                 k3_base, launched)
+    cancels = store_cancel(torch, ck, smi, k3_path, k3_base, launched)
+    store_corrupt(torch, ck, smi, k3_path, k3_groups, k3_base, launched)
+    del k3_base
+    for kname in ("hybrid_unpack_combine", "fused_plain_words",
+                  "fused_narrow_words"):
+        if not launched.get(kname):
+            raise fail(f"phase 13 never launched {kname}")
+    wall = time.perf_counter() - t0
+    log(f"store summary ({smi}): lineitem16 SF1 rows/s " + ", ".join(
+        f"{n} {v:.1f}" for n, v in rates.items()) + "; idle share "
+        + ", ".join(f"{n} {v}" for n, v in idle.items())
+        + f"; cancel/deadline seconds {cancels}; phase 13 launches "
+        f"{launched}; phase 13 wall {wall:.2f} s")
+    return dict(launched=launched, rates=rates, idle=idle, wall=wall)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -3566,6 +4036,13 @@ def main() -> int:
     filt = read_filter_phase(torch, ck, work, smi, l16_path=l16_path,
                              l16_groups=l16_groups, k3_path=k3_path,
                              k3_groups=k3_groups, k3_main=k3_main)
+
+    # phase 13: reads through byte stores (retries, torn reads, coalescing,
+    # the fetch engine, cancel and deadline, corrupt data, chaos)
+    store = read_store_phase(
+        torch, ck, work, smi, l16_path=l16_path, l16_groups=l16_groups,
+        l16=l16, req_path=req_path, req_groups=groups, k3_path=k3_path,
+        k3_groups=k3_groups)
     del l16_groups
 
     # the kernels line and the result line
@@ -3632,10 +4109,12 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phases 11's and 12's launches beside each kernel's main-path count
+    # phases 11's, 12's and 13's launches beside each kernel's main-path
+    # count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
         entry["filter_launches"] = filt["launched"].get(entry["name"], 0)
+        entry["store_launches"] = store["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,8 +12,8 @@ The counterpart of ``tpu_parquet.alloc``, cut to what the port runs:
 - :class:`InFlightBudget`, the prefetch pipeline's backpressure
   (``pipeline.prefetch_map``).
 
-Left out: the live-instance registries of the flight recorder, the
-watchdog's ``abort`` and the cancel token of ``acquire``.
+Left out: the live-instance registries of the flight recorder and the
+watchdog's ``abort`` (Queue 1 item 5.5).
 """
 
 from __future__ import annotations
@@ -137,8 +137,12 @@ class InFlightBudget:
             self.peak = max(self.peak, self.held)
             return True
 
-    def acquire(self, nbytes: int) -> None:
-        """Block until ``nbytes`` fit under the cap, then take them."""
+    def acquire(self, nbytes: int, cancel=None) -> None:
+        """Block until ``nbytes`` fit under the cap, then take them.
+
+        ``cancel`` (a :class:`~tpu_parquet_torch.resilience.CancelToken`)
+        slices the wait, so a cancelled or expired request raises its
+        typed verdict instead of waiting out another item's drain."""
         if self.max_bytes <= 0:
             return
         n = self._charge(nbytes)
@@ -146,7 +150,9 @@ class InFlightBudget:
             self._waiters += 1
             try:
                 while not self._fits(n):
-                    self._cv.wait()
+                    if cancel is not None:
+                        cancel.check()
+                    self._cv.wait(0.05 if cancel is not None else None)
             finally:
                 self._waiters -= 1
             self.held += n

@@ -25,6 +25,7 @@ from .compress import decompress_block
 from .errors import error_context
 from .footer import ParquetError
 from .format import Encoding, PageHeader, PageType, Type, parse_encoding
+from .iostore import require_full
 from .kernels import bitpack, bytearray as ba_codec, delta, plain, rle
 from .schema.core import SchemaNode
 from .thrift import ThriftError, read_struct
@@ -186,21 +187,6 @@ def _byte_stream_split_decode(raw: bytes, ptype: Type, count: int,
         return flat.view("<i8").copy()
     offsets = np.arange(count + 1, dtype=np.int64) * width
     return ByteArrayData(offsets=offsets, heap=flat)
-
-
-def require_full(buf: bytes, offset: int, size: int,
-                 context: str = "") -> bytes:
-    """Raise a clear ``ParquetError`` when a range read came back short: a
-    truncated file is named as such, with offset, got and want, before a
-    short buffer reaches the decoder as a confusing CRC or structure
-    error."""
-    if len(buf) != size:
-        where = f" reading {context}" if context else ""
-        raise ParquetError(
-            f"truncated file{where}: wanted {size} bytes at offset "
-            f"{offset}, got {len(buf)} — the file is shorter than its "
-            f"metadata claims")
-    return buf
 
 
 class ChunkDecoder:

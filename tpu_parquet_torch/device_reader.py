@@ -82,7 +82,7 @@ import torch
 from . import native
 from . import torch_kernels as K
 from .alloc import AllocTracker, InFlightBudget
-from .chunk_decode import _check_crc, require_full, walk_pages
+from .chunk_decode import _check_crc, walk_pages
 from .errors import DataIntegrityError, annotate_data_error, error_context
 from .column import ByteArrayData
 from .compress import decompress_block
@@ -92,6 +92,8 @@ from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
                            fused_plain_words, hybrid_unpack_combine)
 from .footer import ParquetError
 from .format import CompressionCodec, Encoding, PageType, Type, parse_encoding
+from .iostore import CoalescedFetcher, require_full
+from .iostore_async import engine_for_store
 from .kernels import bitpack
 from .kernels.delta import _read_uvarint
 from .pipeline import PipelineStats, prefetch_map
@@ -2792,26 +2794,39 @@ class DeviceFileReader:
     read.  ``on_data_error`` / ``quarantine`` contain data errors
     (``ParquetError``) to their row group in the iteration APIs.
 
-    The footer, schema, filter, plan and containment engine live in a host
-    ``reader.FileReader`` this reader holds, as the reference's does.
+    ``store`` picks the byte store every chunk byte enters through, the
+    sequential path's and the pruning planner's header walks included
+    (``iostore.resolve_store``; the footer is read from the file); a
+    ``GenericRangeStore`` coalesces each row group's chunk reads and, at
+    ``prefetch`` > 0, routes them through the async fetch engine.
+    ``cancel`` (a ``resilience.CancelToken``) rides every store read and
+    is checked at every row group (and, with the chunk pool, every chunk):
+    its ``CancelledError`` / ``DeadlineExceededError``, like an exhausted
+    retry's ``RetryExhaustedError``, ends the scan and is never contained;
+    the staging worker is joined and the scan's staged bytes leave the
+    device ledger before it propagates.
+
+    The footer, schema, filter, plan, store and containment engine live in
+    a host ``reader.FileReader`` this reader holds, as the reference's do.
 
     Where the port differs from the reference on purpose: an explicit
-    ``device``, and a pool of pinned host buffers (``_PinnedPool``) under
-    the copies.  Left out of the reference: ``profile_dir``, ``trace``,
-    ``sample_ms``, ``hang_s``, ``hang_policy``, ``store``, ``dict_cache``,
-    ``result_cache`` and ``cancel``."""
+    ``device``, a pool of pinned host buffers (``_PinnedPool``) under the
+    copies, and the cancel check per row group on the sequential path.
+    Left out of the reference: ``profile_dir``, ``trace``, ``sample_ms``,
+    ``hang_s``, ``hang_policy``, ``dict_cache`` and ``result_cache``."""
 
     def __init__(self, source, columns=None, validate_crc=None, device=None,
                  max_memory: int = 0, prefetch: int = 0, row_filter=None,
                  metadata=None, plan=None, on_data_error=None,
-                 quarantine=None):
+                 quarantine=None, store=None, cancel=None):
         self.device = _resolve_device(device)
         self._host = FileReader(source, columns=columns,
                                 validate_crc=validate_crc,
                                 max_memory=max_memory,
                                 row_filter=row_filter, metadata=metadata,
                                 plan=plan, on_data_error=on_data_error,
-                                quarantine=quarantine)
+                                quarantine=quarantine, store=store,
+                                cancel=cancel)
         h = self._host
         self.metadata, self.schema = h.metadata, h.schema
         self.validate_crc = h.validate_crc
@@ -2820,9 +2835,11 @@ class DeviceFileReader:
         # one ledger with the host reader: chunk bytes, each page's
         # decompressed size, link-recompression copies, device buffers
         self.alloc = h.alloc
-        # positioned reads: the chunk pool's workers and the consumer
-        # share the source without sharing a position
+        # the host reader's store-backed positioned reads: the chunk
+        # pool's workers and the consumer share the source without sharing
+        # a position, and every byte goes through the one store
         self._f, self._sr, self._source_name = h._f, h._sr, h._source_name
+        self._store = h._store
         self._prefetch = int(prefetch)
         self._pipe_stats = PipelineStats(prefetch=self._prefetch,
                                          budget_bytes=int(max_memory))
@@ -3109,7 +3126,8 @@ class DeviceFileReader:
         collected = None
         if self._prefetch > 0:
             feed = _chunk_feed(iter([(self, None, index)]), self._prefetch,
-                               self.alloc.max_size)
+                               self.alloc.max_size,
+                               cancel=self._host._cancel)
             try:
                 _r, _p, _i, collected = next(feed)
             finally:
@@ -3140,19 +3158,32 @@ class DeviceFileReader:
         and skipped.  Each scan starts fresh ``pipeline_stats()``."""
         self._pipe_stats = PipelineStats(prefetch=self._prefetch,
                                          budget_bytes=self.alloc.max_size)
+        # a fresh scan token (retry budget, coalescing ladder, abort
+        # poison) on both paths, carrying the request's deadline and cancel
+        cancel = self._host._cancel
+        self._sr.set_scan(self._store.begin_scan(cancel=cancel))
         indices = [i for i in range(self.num_row_groups)
                    if self.row_group_selected(i)]
         self.quarantine.begin_scan(len(indices))
         if not indices:
             self.finalize()
             return
-        with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
-            for _, out in _scan_pipeline(
-                    ((self, None, i) for i in indices),
-                    ex, finalize_each=finalize_each, prefetch=self._prefetch,
-                    budget_bytes=self.alloc.max_size,
-                    quarantine=self.quarantine):
-                yield out
+        try:
+            with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
+                for _, out in _scan_pipeline(
+                        ((self, None, i) for i in indices),
+                        ex, finalize_each=finalize_each,
+                        prefetch=self._prefetch,
+                        budget_bytes=self.alloc.max_size,
+                        quarantine=self.quarantine, cancel=cancel):
+                    yield out
+        except Exception:
+            # a scan ended by an error (an exhausted retry, a cancel, a
+            # deadline, an uncontained data error): the staging worker is
+            # joined, so every strip's pinned buffer is back in the pool;
+            # the staged bytes of groups never finalized leave the ledger
+            self._release_device_outstanding(all_bytes=True)
+            raise
 
     def iter_batches(self, batch_size: int, columns=None):
         """Yield fixed-size device batches ``{column: tensor[batch_size]}``.
@@ -3258,7 +3289,7 @@ def _timed_stage(reader: DeviceFileReader, stager: _RowGroupStager):
     return buf_dev
 
 
-def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
+def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
     """Chunk-granular prefetch over the ``(reader, path, index)`` stream.
 
     The host half of the pipeline: IO, CRC, decompression, page parse and
@@ -3284,12 +3315,38 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
     by an ``InFlightBudget`` over ``budget_bytes`` (backpressure), and each
     worker chunk registers against its own ``AllocTracker`` (the
     decompression-bomb guard without sharing the reader's per-row-group
-    counter across threads)."""
+    counter across threads).
+
+    Every read goes through the reader's store with a scan token minted
+    when the feed first meets the reader (carrying its cancel token).  For
+    a store that coalesces, each row group's chunk ranges are planned into
+    spans (``CoalescedFetcher``; chunks the pruning planner already read
+    never join one), and a store with the async primitive puts them in
+    flight on the fetch engine when the group is planned; the pool's
+    workers then read through the fetcher.  ``cancel`` is checked at every
+    chunk and handed to the budget's wait."""
     budget = InFlightBudget(budget_bytes)
     fed: set = set()  # readers whose _live_budget is this feed's
     pending: dict = {}
     current = {"stats": None}  # stats of the reader whose item submits
     depth_owner = {"stats": None}  # the stats whose queue gauge was set
+    feedbox = {"eng": None}  # the fetch engine, once a store routes to it
+
+    class _Feed:
+        """Late-binding look-ahead gate for ``prefetch_map``: a multi-file
+        stream may mix engine-routed and plain stores, and the engine is
+        known only once a routed group is planned; until then the gate
+        reports no appetite (the threaded behaviour)."""
+
+        @property
+        def max_inflight(self):
+            eng = feedbox["eng"]
+            return eng.max_inflight if eng is not None else 0
+
+        @staticmethod
+        def want_more():
+            eng = feedbox["eng"]
+            return eng is not None and eng.want_more()
 
     class _StatsFwd:
         """Route prefetch_map's stall, peak and queue-depth accounting to
@@ -3324,22 +3381,50 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
         for r, path, i in work:
             current["stats"] = r._pipe_stats
             r._live_budget = budget
-            fed.add(r)
+            sr = r._sr
+            if r not in fed:
+                # this scan's token: its own retry budget and coalescing
+                # ladder, carrying the reader's deadline and cancel
+                fed.add(r)
+                sr.set_scan(sr.store.begin_scan(cancel=r._host._cancel))
             rg = r.metadata.row_groups[i]
             leaves = {l.path: l for l in r.schema.selected_leaves()}
             skip_pages, rows_dropped, planned_bufs = r._plan_page_pruning(
-                rg, leaves, f=r._sr.as_file(), index=i)
-            items = [(r, i, p, leaf, md, offset,
-                      (skip_pages or {}).get(p), planned_bufs.get(p))
-                     for p, leaf, _chunk, md, offset
-                     in row_group_chunks(rg, leaves)]
+                rg, leaves, f=sr.as_file(), index=i)
+            items = []
+            ranges = []
+            for p, leaf, _chunk, md, offset in row_group_chunks(rg, leaves):
+                buf0 = planned_bufs.get(p)
+                items.append([r, i, p, leaf, md, offset,
+                              (skip_pages or {}).get(p), buf0, None])
+                if buf0 is None:
+                    # chunks the pruning planner read are in hand: they
+                    # never join a span
+                    ranges.append((offset, md.total_compressed_size))
+            st, tok = sr.store, sr._scan
+            eng = engine_for_store(st)
+            if eng is not None:
+                feedbox["eng"] = eng
+            use_coalesce = (st.prefers_coalescing
+                            and not (tok.coalesce_disabled if tok is not None
+                                     else st.coalesce_disabled)
+                            and len(ranges) > 1)
+            if ranges and (use_coalesce or eng is not None):
+                # engine mode submits the group's fetches now (spans, or
+                # single ranges once the ladder stops merging)
+                fetcher = CoalescedFetcher(st, ranges, scan=tok, engine=eng,
+                                           coalesce=use_coalesce)
+                for it in items:
+                    if it[7] is None:
+                        it[8] = fetcher
             pending[(id(r), i)] = {"r": r, "path": path, "i": i,
                                    "todo": max(len(items), 1), "chunks": {},
                                    "rows_dropped": rows_dropped}
             if not items:
                 # sentinel so an empty group still comes out in order
-                items.append((r, i, None, None, None, None, None, None))
-            yield from items
+                items.append([r, i, None, None, None, None, None, None,
+                              None])
+            yield from map(tuple, items)
 
     def cost(item):
         md = item[4]
@@ -3349,7 +3434,7 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
         return comp + max(md.total_uncompressed_size or 0, comp)
 
     def collect(item):
-        r, i, p, leaf, md, offset, skip, buf0 = item
+        r, i, p, leaf, md, offset, skip, buf0, fetcher = item
         if md is None:
             return (id(r), i), None, None
         stats = r._pipe_stats
@@ -3362,7 +3447,9 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
                 buf = buf0  # the pruning planner already read this chunk
             else:
                 with stats.timed("io"):
-                    buf = r._sr.pread(offset, md.total_compressed_size)
+                    buf = (fetcher.read(offset, md.total_compressed_size)
+                           if fetcher is not None
+                           else r._sr.pread(offset, md.total_compressed_size))
             require_full(buf, offset, md.total_compressed_size,
                          context=f"column {'.'.join(p)}")
             with stats.timed("decompress"):
@@ -3390,7 +3477,8 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0):
     try:
         for key, p, payload in prefetch_map(gen_items(), collect, prefetch,
                                             budget=budget, cost=cost,
-                                            stats=_StatsFwd()):
+                                            stats=_StatsFwd(),
+                                            cancel=cancel, feed=_Feed()):
             slot = pending[key]
             if p is not None:
                 slot["chunks"][p] = payload
@@ -3414,7 +3502,7 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
                    close_finished: bool = False,
                    defer_finalize: bool = False,
                    prefetch: int = 0, budget_bytes: int = 0,
-                   quarantine=None):
+                   quarantine=None, cancel=None):
     """The one-deep prepare/stage/dispatch pipeline shared by
     ``DeviceFileReader.iter_row_groups`` (one reader) and :func:`scan_files`
     (many).  ``work`` yields ``(reader, path, row_group_index)``; this yields
@@ -3439,13 +3527,22 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
     ``skip_file`` also skips the rest of that reader's groups (counted,
     never read).  A budget-exhausted ``DataIntegrityError`` always
     propagates, and so does everything that is not a ``ParquetError``
-    (a kernel build or launch failure, a CUDA error)."""
-    stream = (_chunk_feed(work, prefetch, budget_bytes) if prefetch > 0
+    (a kernel build or launch failure, a CUDA error, an exhausted retry, a
+    cancel or a deadline).
+
+    ``cancel`` is checked before every row group's host phase (the
+    reference checks it only in the chunk feed and the store's retry loop,
+    so its sequential path over a ``LocalStore`` never sees it) and goes
+    to the chunk feed."""
+    stream = (_chunk_feed(work, prefetch, budget_bytes, cancel=cancel)
+              if prefetch > 0
               else ((r, path, i, None) for r, path, i in work))
     dead: set = set()  # readers quarantined whole (skip_file)
     try:
         prev = None  # (reader, path, prepared, staging future)
         for r, path, i, collected in stream:
+            if cancel is not None:
+                cancel.check()  # unit boundary: stop before the host phase
             q = quarantine if quarantine is not None else r.quarantine
             if id(r) in dead:
                 # collateral skip of a skip_file-quarantined file:
@@ -3494,7 +3591,7 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
 
 def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
                row_filter=None, with_path: bool = False, prefetch: int = 0,
-               on_data_error=None, quarantine=None, device=None):
+               on_data_error=None, quarantine=None, device=None, store=None):
     """Scan several files' row groups through ONE continuous pipeline.
 
     ``paths`` is a path, a list of paths, or a dataset: a
@@ -3525,8 +3622,12 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
     the budget and the ledger are the scan's (only the absolute budget
     binds: the unit total is not known up front).
 
+    ``store=`` picks each file's byte store (``iostore.resolve_store``):
+    pass a factory (``lambda f: MyRangeStore(...)``) so each file gets its
+    own store; one shared instance would mix the files' bytes.
+
     Left out of the reference: ``trace``, ``sample_ms``, ``hang_s``,
-    ``hang_policy``, ``store`` and ``plan_cache``."""
+    ``hang_policy`` and ``plan_cache``."""
     from .write.manifest import expand_dataset
 
     paths, _manifest = expand_dataset(paths)
@@ -3541,7 +3642,8 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
             r = DeviceFileReader(path, columns=columns,
                                  validate_crc=validate_crc, device=dev,
                                  max_memory=max_memory,
-                                 row_filter=row_filter, quarantine=q)
+                                 row_filter=row_filter, quarantine=q,
+                                 store=store)
             # one pinned pool for the whole dataset: the next file's
             # strips reuse the last file's buffers
             r._pinned = pool

@@ -32,6 +32,83 @@ class DataIntegrityError(ParquetError):
         self.records = list(records or [])
 
 
+class TransientIOError(IOError):
+    """A single range-read attempt failed in a way that is worth retrying.
+
+    Raised by :class:`tpu_parquet_torch.iostore.ByteStore` implementations
+    (and the fault injector) for what real object stores do: connection
+    resets, throttling, torn or short responses, per-attempt deadline
+    overruns.  ``GenericRangeStore.read_range`` catches it and retries with
+    backoff; it only reaches callers wrapped in a
+    :class:`RetryExhaustedError`.  Rooted at ``IOError``, not ParquetError:
+    the file is fine, the transport hiccuped, and quarantine never contains
+    it."""
+
+
+class RetryExhaustedError(IOError):
+    """A range read failed after exhausting its retries, deadline or budget.
+
+    Raised by :class:`tpu_parquet_torch.iostore.GenericRangeStore` when a
+    read's bounded retries, its per-request deadline
+    (``TPQ_IO_DEADLINE_S``) or the per-scan retry budget
+    (``TPQ_IO_RETRY_BUDGET``) runs out.  ``attempts`` carries the attempt
+    log (one dict per try: error, elapsed, backoff); ``offset`` / ``size``
+    name the range that could not be read.  Rooted at ``IOError``, not
+    ParquetError: the bytes were never readable, nothing was malformed."""
+
+    def __init__(self, message: str, attempts: "list | None" = None,
+                 offset: "int | None" = None, size: "int | None" = None):
+        super().__init__(message)
+        self.attempts = list(attempts or [])
+        self.offset = offset
+        self.size = size
+
+
+class DeadlineExceededError(TimeoutError):
+    """A request's end-to-end deadline expired before it finished.
+
+    Raised through a :class:`tpu_parquet_torch.resilience.CancelToken`
+    whose deadline passed: it rides the scan into every
+    ``ByteStore.read_range`` and is checked at unit boundaries in the
+    prefetch pipeline, so the request stops issuing IO, releases what it
+    held and surfaces here.  Rooted at TimeoutError, not ParquetError
+    (nothing is malformed) and not IOError (the transport is fine; the
+    caller's clock ran out).  ``deadline_s`` echoes the budget the request
+    was given."""
+
+    def __init__(self, message: str, deadline_s: "float | None" = None):
+        super().__init__(message)
+        self.deadline_s = deadline_s
+
+
+class CancelledError(RuntimeError):
+    """The caller cancelled its own request (``CancelToken.cancel()``).
+
+    The same containment contract as :class:`DeadlineExceededError`: the
+    request stops issuing IO at the next unit boundary and releases what it
+    held.  A type distinct from ``concurrent.futures.CancelledError`` on
+    purpose: this is an application-level verdict, never a pool internal."""
+
+
+class CircuitOpenError(RuntimeError):
+    """A per-file circuit breaker is open: the file keeps failing and
+    requests touching it fast-fail instead of paying the full retry and
+    deadline cost again.
+
+    Raised by :class:`tpu_parquet_torch.resilience.BreakerBoard` once it
+    has seen N classified failures inside its window
+    (``TPQ_CIRCUIT_FAILS`` / ``TPQ_CIRCUIT_WINDOW_S``).  ``file`` names the
+    file, ``retry_after_s`` the cooldown left until a half-open probe is
+    admitted.  Not a ParquetError: it reports the breaker's memory of
+    earlier failures, not a fresh diagnosis."""
+
+    def __init__(self, message: str, file: "str | None" = None,
+                 retry_after_s: "float | None" = None):
+        super().__init__(message)
+        self.file = file
+        self.retry_after_s = retry_after_s
+
+
 # ---------------------------------------------------------------------------
 # decode-site context on every raise (re-exported by ``quarantine``, whose
 # policy engine reads it)

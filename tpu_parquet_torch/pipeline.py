@@ -14,9 +14,8 @@ The counterpart of ``tpu_parquet.pipeline``, shared by the host
   recompress / stage / dispatch / finalize), stall time and the in-flight
   high-water mark, surfaced by both readers' ``pipeline_stats()``;
 - :class:`SharedReader` — thread-safe positioned reads over one byte
-  source: ``os.pread`` on real files (parallel, never touches the shared
-  descriptor's position), a lock around seek+read otherwise (``BytesIO``,
-  wrapped streams).
+  source, through a ``iostore.ByteStore`` (``LocalStore``'s ``os.pread``
+  by default).
 
 Memory is bounded by :class:`alloc.InFlightBudget`: the submitter acquires
 each item's estimated bytes before handing it to the pool and releases
@@ -24,16 +23,16 @@ them when the consumer takes the result.  The budget is only awaited in the
 consumer thread while nothing is in flight, else the window head is drained
 first, so it cannot deadlock against itself.
 
-Left out of the reference: tracer spans, the flight recorder, the
+``prefetch_map`` takes a ``cancel`` token (checked at unit boundaries)
+and a ``feed`` (the async fetch engine's look-ahead gate).
+
+Left out of the reference: tracer spans, the flight recorder and the
 per-stage latency histograms (so ``as_dict()`` has no
-``stage_histograms``), the byte stores of ``iostore`` behind
-``SharedReader`` (this module reads local sources only), and
-``prefetch_map``'s ``cancel`` and ``feed``.
+``stage_histograms``).
 """
 
 from __future__ import annotations
 
-import io
 import os
 import threading
 import time
@@ -176,32 +175,36 @@ class PipelineStats:
         }
 
 
-def _real_fileno(f) -> "int | None":
-    """The OS descriptor behind ``f`` that ``os.pread`` can serve, or None
-    (``BytesIO``, streams without one, a pipe, no ``os.pread``)."""
-    try:
-        fd = f.fileno()
-        os.pread(fd, 0, 0)
-    except (AttributeError, OSError, TypeError, ValueError,
-            io.UnsupportedOperation):
-        return None
-    return fd
-
-
 class SharedReader:
-    """Thread-safe positioned reads over one local byte source: ``os.pread``
-    where the source has a real descriptor (parallel, and a thread doing
-    its own seek+read on the raw file stays correct), a lock around
-    seek+read otherwise.  ``parallel`` is False on the locked path."""
+    """Thread-safe positioned reads over one byte source, through a
+    :class:`~tpu_parquet_torch.iostore.ByteStore`.
 
-    def __init__(self, f):
+    ``LocalStore`` by default (``os.pread`` on real files: fully parallel,
+    the shared descriptor's position is never touched; a lock around
+    seek+read for sources without one).  A ``GenericRangeStore`` puts the
+    retry, backoff and deadline core under the same readers and pipeline:
+    no decode layer sees the difference.  ``parallel`` is False on the
+    locked path."""
+
+    def __init__(self, f, store=None):
         self._f = f
-        self._fd = _real_fileno(f)
-        self._lock = threading.Lock()
+        if store is None:
+            from .iostore import LocalStore
+
+            store = LocalStore(f)
+        self.store = store
+        # the current scan's iostore.ScanToken (set by the reader at each
+        # scan's start): rides every pread, so a store shared between
+        # scans charges this scan's retry budget and honours this
+        # request's deadline and cancel
+        self._scan = None
+
+    def set_scan(self, token) -> None:
+        self._scan = token
 
     @property
     def parallel(self) -> bool:
-        return self._fd is not None
+        return self.store.parallel
 
     def as_file(self) -> "_PReadFile":
         """A minimal file-like (seek/read pairs) whose every read goes
@@ -209,19 +212,9 @@ class SharedReader:
         return _PReadFile(self)
 
     def pread(self, offset: int, size: int) -> bytes:
-        if self._fd is not None:
-            parts = []
-            got = 0
-            while got < size:
-                b = os.pread(self._fd, size - got, offset + got)
-                if not b:
-                    break  # end of file: the caller checks the length
-                parts.append(b)
-                got += len(b)
-            return parts[0] if len(parts) == 1 else b"".join(parts)
-        with self._lock:
-            self._f.seek(offset)
-            return self._f.read(size)
+        if self._scan is not None:
+            return self.store.read_range(offset, size, scan=self._scan)
+        return self.store.read_range(offset, size)
 
 
 class _PReadFile:
@@ -249,6 +242,8 @@ def prefetch_map(
     budget: Optional[InFlightBudget] = None,
     cost: Optional[Callable[[T], int]] = None,
     stats: Optional[PipelineStats] = None,
+    cancel=None,
+    feed=None,
 ) -> Iterator[R]:
     """Ordered overlapped map: run ``fn`` over ``items`` on a bounded pool.
 
@@ -266,50 +261,91 @@ def prefetch_map(
     alone).  ``stats`` takes the stall time, the budget's peak and the
     queue depth.
 
+    ``cancel`` (a :class:`~tpu_parquet_torch.resilience.CancelToken`) is
+    checked at every unit boundary (before each submission and each yield)
+    and handed to the budget's blocking wait: a cancelled or expired
+    request stops issuing work and raises its typed verdict at the
+    consumer, after the same cleanup (window drained, budget released, pool
+    joined).
+
+    ``feed`` (an ``iostore_async.FetchEngine``, or any object with
+    ``want_more()`` and ``max_inflight``) decouples IO depth from decode
+    depth: pulling an item is what submits its IO (an engine-mode
+    ``CoalescedFetcher`` puts its ranges in flight when it is built), so
+    while the feed reports free fetch slots, items are pulled ahead of the
+    ``prefetch``-deep window into a ready queue.  Those pulls charge
+    ``budget`` without blocking and stop at its first refusal.
+
     Workers are named ``tpq-prefetch`` and capped at the machine's cores:
     queued-but-not-running items keep the lookahead without convoying on
     the GIL.  ``prefetch <= 0`` is a plain sequential map with no threads.
     """
     if prefetch <= 0:
         for item in items:
+            if cancel is not None:
+                cancel.check()
             yield fn(item)
         return
 
     it = iter(items)
     pending: deque = deque()  # (future, charged cost)
+    ready: deque = deque()  # (item, cost): charged, IO submitted, no slot
     carried: Optional[tuple] = None  # (item, cost) awaiting budget headroom
+    exhausted = False
     workers = max(1, min(prefetch, os.cpu_count() or 1))
     ex = ThreadPoolExecutor(max_workers=workers,
                             thread_name_prefix="tpq-prefetch")
+
+    def pull(block_ok: bool) -> bool:
+        """Move ONE item from the generator through its budget charge to
+        the ready queue; False when the generator is dry or the budget
+        said not now.  A blocking wait only with nothing in flight."""
+        nonlocal carried, exhausted
+        if carried is None:
+            try:
+                item = next(it)
+            except StopIteration:
+                exhausted = True
+                return False
+            carried = (item, int(cost(item)) if cost is not None else 0)
+        item, c = carried
+        if budget is not None and c:
+            if not budget.try_acquire(c):
+                if not block_ok or pending:
+                    return False  # drain the head; its release frees room
+                t0 = time.perf_counter()
+                budget.acquire(c, cancel=cancel)
+                if stats is not None:
+                    stats.add_stall(time.perf_counter() - t0)
+            if stats is not None:
+                stats.note_peak(budget)
+        carried = None
+        ready.append((item, c))
+        return True
+
     try:
-        exhausted = False
         while True:
-            while len(pending) < prefetch and not exhausted:
-                if carried is None:
-                    try:
-                        item = next(it)
-                    except StopIteration:
-                        exhausted = True
-                        break
-                    carried = (item,
-                               int(cost(item)) if cost is not None else 0)
-                item, c = carried
-                if budget is not None and c:
-                    if not budget.try_acquire(c):
-                        if pending:
-                            break  # drain the head; its release frees room
-                        t0 = time.perf_counter()
-                        budget.acquire(c)
-                        if stats is not None:
-                            stats.add_stall(time.perf_counter() - t0)
-                    if stats is not None:
-                        stats.note_peak(budget)
-                carried = None
+            if cancel is not None:
+                # the unit-boundary gate; the finally below still drains
+                # the window and releases every charged byte
+                cancel.check()
+            while len(pending) < prefetch:
+                if not ready and (exhausted or not pull(block_ok=True)):
+                    break
+                item, c = ready.popleft()
                 pending.append((ex.submit(fn, item), c))
                 if stats is not None:
                     stats.set_queue_depth(len(pending))
+            if feed is not None:
+                # the engine-backed lookahead: pulling submits IO, so keep
+                # pulling while the engine has free slots; never block
+                while (not exhausted and len(ready) < feed.max_inflight
+                       and feed.want_more() and pull(block_ok=False)):
+                    pass
             if not pending:
-                break
+                if exhausted and carried is None and not ready:
+                    break
+                continue  # a carried item with an empty window: block
             fut, c = pending.popleft()
             if stats is not None:
                 stats.set_queue_depth(len(pending))
@@ -330,3 +366,7 @@ def prefetch_map(
                 budget.release(c)
             if not fut.cancelled():
                 fut.exception()  # retrieve, so failures are not lost
+        for _item, c in ready:
+            # pulled ahead, never submitted: refund the charge
+            if budget is not None and c:
+                budget.release(c)

@@ -26,8 +26,10 @@ out-of-range dictionary index or a truncated chunk raises a
   (``TPQ_QUARANTINE_LOG``); :func:`summarize_quarantine_log` aggregates it.
 
 Only data errors are contained: ``ParquetError`` and its subclasses.  A
-kernel build or launch failure, or a CUDA error, is never a
-``ParquetError`` and always propagates.
+kernel build or launch failure, a CUDA error, an exhausted retry
+(``RetryExhaustedError``), a deadline (``DeadlineExceededError``) or a
+cancel (``CancelledError``) is never a ``ParquetError`` and always
+propagates.
 
 The coordinates come from the exception itself: :func:`error_context`
 (kept in ``errors``, re-exported here) annotates every ``ParquetError``
@@ -46,6 +48,7 @@ import os
 import threading
 from .errors import (_CTX_KEYS, DataIntegrityError, annotate_data_error,
                      error_context)
+from .obs import warn_env_once
 
 __all__ = [
     "ErrorBudget", "Quarantine", "QuarantineLog", "annotate_data_error",
@@ -54,21 +57,6 @@ __all__ = [
 ]
 
 POLICIES = ("raise", "skip_unit", "skip_file")
-
-
-_env_warned: set = set()
-
-
-def _warn_once(name: str, raw: str, fallback) -> None:
-    """One warning line per bad (env var, value) pair: a typo never raises
-    and never floods the log."""
-    key = (name, raw)
-    if key not in _env_warned:
-        _env_warned.add(key)
-        import logging
-
-        logging.getLogger(__name__).warning(
-            "%s=%r is not valid; using %r", name, raw, fallback)
 
 
 def resolve_policy(policy=None) -> str:
@@ -86,7 +74,7 @@ def resolve_policy(policy=None) -> str:
     if not raw:
         return "raise"
     if raw not in POLICIES:
-        _warn_once("TPQ_ON_DATA_ERROR", raw, "raise")
+        warn_env_once("TPQ_ON_DATA_ERROR", raw, "raise")
         return "raise"
     return raw
 
@@ -112,7 +100,7 @@ def resolve_validate(validate_crc=None) -> bool:
             return True
         if raw in _VALIDATE_OFF:
             return False
-        _warn_once("TPQ_VALIDATE", raw, "crc")
+        warn_env_once("TPQ_VALIDATE", raw, "crc")
         return True
     if isinstance(validate_crc, bool):
         return validate_crc
@@ -155,7 +143,7 @@ class ErrorBudget:
             if max_errors < 0 or not 0.0 <= max_fraction <= 1.0:
                 raise ValueError(raw)
         except (TypeError, ValueError):
-            _warn_once("TPQ_DATA_ERROR_BUDGET", raw, "64,0.5")
+            warn_env_once("TPQ_DATA_ERROR_BUDGET", raw, "64,0.5")
             return cls()
         return cls(max_errors, max_fraction)
 

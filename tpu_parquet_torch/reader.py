@@ -19,9 +19,18 @@ is adopted when its projection and filter match).  ``on_data_error`` /
 
 ``prefetch=K`` runs the chunk reads and decodes K-deep on a thread pool
 (``pipeline.prefetch_map``), flattened across row groups, as the
-reference's ``_decode_row_groups``.  Left out of the reference: the span
-tracer, the byte stores of ``iostore`` (with range coalescing and the
-async fetch engine), cancellation, and the dictionary and result caches.
+reference's ``_decode_row_groups``.
+
+``store`` picks the byte store every chunk byte enters through
+(``iostore.resolve_store``: None for ``LocalStore``, a ``ByteStore``, or a
+factory called with the open file); a ``GenericRangeStore`` retries,
+re-reads torn ranges, coalesces a row group's adjacent chunks
+(``CoalescedFetcher``) and, at ``prefetch`` > 0, routes through the async
+fetch engine (``iostore_async``).  ``cancel`` (a
+``resilience.CancelToken``) rides every store read and is checked at each
+unit boundary; its ``CancelledError`` / ``DeadlineExceededError`` ends the
+scan and is never contained.  Left out of the reference: the span tracer,
+and the dictionary and result caches.
 """
 
 from __future__ import annotations
@@ -33,12 +42,13 @@ from typing import BinaryIO, Iterable, Optional, Sequence, Union
 import numpy as np
 
 from .alloc import AllocTracker, InFlightBudget
-from .chunk_decode import (ChunkDecoder, read_chunk, require_full,
-                           validate_chunk_meta)
+from .chunk_decode import ChunkDecoder, read_chunk, validate_chunk_meta
 from .column import ByteArrayData, ColumnData
 from .errors import DataIntegrityError
 from .footer import ParquetError, read_file_metadata
 from .format import FileMetaData
+from .iostore import CoalescedFetcher, require_full, resolve_store
+from .iostore_async import engine_for_store
 from .pipeline import PipelineStats, SharedReader, prefetch_map
 from .quarantine import Quarantine, resolve_validate
 from .scanplan import (apply_selection, build_scan_plan,
@@ -72,7 +82,9 @@ class FileReader:
 
     ``prefetch`` is the depth of the chunk pipeline (0 = sequential); the
     read calls take it per call too.  ``row_filter``, ``plan``,
-    ``on_data_error`` and ``quarantine``: see the module docstring."""
+    ``on_data_error``, ``quarantine``, ``store`` and ``cancel``: see the
+    module docstring.  A store this reader resolved (None or a factory) is
+    closed with it; a ``ByteStore`` instance stays the caller's."""
 
     def __init__(
         self,
@@ -86,6 +98,8 @@ class FileReader:
         on_data_error=None,
         quarantine=None,
         plan=None,
+        store=None,
+        cancel=None,
     ):
         if isinstance(source, (str, os.PathLike)):
             self._f: BinaryIO = open(source, "rb")
@@ -99,6 +113,9 @@ class FileReader:
             self._f = source
             self._owns_file = False
             self._source_name = getattr(source, "name", None) or "<stream>"
+        # the request's cancel token: checked at every unit boundary and
+        # carried by the scan token into every store read
+        self._cancel = cancel
         try:
             # one containment engine: ``quarantine=`` shares one across
             # readers (scan_files, the device reader's host half), so the
@@ -114,9 +131,12 @@ class FileReader:
                 self.set_selected_columns(columns)
             self.alloc = AllocTracker(max_memory)
             self._current_row_group = 0
-            # positioned reads: the prefetch pool's workers and the
-            # sequential path share the source without sharing a position
-            self._sr = SharedReader(self._f)
+            # the byte store every chunk byte enters through; positioned
+            # reads, so the prefetch pool's workers and the sequential
+            # path share the source without sharing a position
+            self._owns_store = store is None or callable(store)
+            self._store = resolve_store(self._f, store)
+            self._sr = SharedReader(self._f, store=self._store)
             self.prefetch = int(prefetch)
             self._pipe_stats = PipelineStats(prefetch=self.prefetch,
                                              budget_bytes=int(max_memory))
@@ -150,7 +170,9 @@ class FileReader:
                     filter_fp=fp, rg_keep=self._rg_keep)
         except BaseException:
             # a constructor failure (bad footer, bad projection, bad filter)
-            # must not leak the file this reader opened
+            # must not leak the file or the store this reader opened
+            if getattr(self, "_owns_store", False):
+                self._store.close()
             if self._owns_file:
                 self._f.close()
             raise
@@ -185,6 +207,9 @@ class FileReader:
     # -- context management ---------------------------------------------------
 
     def close(self):
+        if self._owns_store:
+            self._store.close()
+            self._owns_store = False
         if self._owns_file:
             self._f.close()
             self._owns_file = False
@@ -252,6 +277,14 @@ class FileReader:
         self._pipe_stats = stats
         budget = InFlightBudget(self.alloc.max_size)
         sr = self._sr
+        store = self._store
+        # this scan's token: its own retry budget and coalescing ladder,
+        # carrying the request's deadline and cancel into every read
+        scan_tok = store.begin_scan(cancel=self._cancel)
+        sr.set_scan(scan_tok)
+        # the async fetch engine, for stores with the async primitive:
+        # a row group's ranges go in flight when it is planned
+        eng = engine_for_store(store)
         q = self.quarantine
         contain = contain and q.contains
         if contain:
@@ -274,13 +307,31 @@ class FileReader:
                     leaf = by_path.get(path)
                     if leaf is None:
                         continue  # unselected: its bytes are never read
-                    items.append((i, path, chunk, leaf))
+                    items.append([i, path, chunk, leaf, None])
+                # range coalescing: the group's adjacent chunk reads merge
+                # into fewer, larger, retryable fetches, for stores that
+                # ask for it (the local path pays nothing)
+                use_coalesce = (store.prefers_coalescing
+                                and not (scan_tok.coalesce_disabled
+                                         if scan_tok is not None
+                                         else store.coalesce_disabled)
+                                and len(items) > 1)
+                if items and (use_coalesce or eng is not None):
+                    ranges = []
+                    for it in items:
+                        md, offset = validate_chunk_meta(it[2], it[3])
+                        ranges.append((offset, md.total_compressed_size))
+                    fetcher = CoalescedFetcher(store, ranges, scan=scan_tok,
+                                               engine=eng,
+                                               coalesce=use_coalesce)
+                    for it in items:
+                        it[4] = fetcher
                 pending[i] = {"expect": {".".join(p) for p in by_path},
                               "todo": max(len(items), 1), "out": {}}
                 if not items:
                     # sentinel so an empty group still comes out in order
-                    items.append((i, None, None, None))
-                yield from items
+                    items.append([i, None, None, None, None])
+                yield from map(tuple, items)
 
         def chunk_cost(item):
             chunk = item[2]
@@ -291,7 +342,7 @@ class FileReader:
             return comp + max(md.total_uncompressed_size or 0, comp)
 
         def decode_item(item):
-            i, path, chunk, leaf = item
+            i, path, chunk, leaf, fetcher = item
             if chunk is None:
                 return i, None, None
             name = ".".join(path)
@@ -300,7 +351,9 @@ class FileReader:
                 alloc = AllocTracker(self.alloc.max_size)
                 alloc.register(md.total_compressed_size)
                 with stats.timed("io"):
-                    buf = sr.pread(offset, md.total_compressed_size)
+                    buf = (fetcher.read(offset, md.total_compressed_size)
+                           if fetcher is not None
+                           else sr.pread(offset, md.total_compressed_size))
                 require_full(buf, offset, md.total_compressed_size,
                              context=f"column {name}")
                 with stats.timed("decompress"):
@@ -322,7 +375,8 @@ class FileReader:
         order = list(indices)
         for i, name, cd in prefetch_map(gen_items(), decode_item, k,
                                         budget=budget, cost=chunk_cost,
-                                        stats=stats):
+                                        stats=stats, cancel=self._cancel,
+                                        feed=eng):
             slot = pending[i]
             if name is not None:
                 if isinstance(cd, _ChunkFailed):
@@ -379,9 +433,14 @@ class FileReader:
         rg = self.metadata.row_groups[index]
         self.alloc.reset()
         by_path = {l.path: l for l in self.schema.selected_leaves()}
+        # every byte enters through the store, sequential path included;
+        # the "scan" here is one row group (a fresh retry budget each)
+        self._sr.set_scan(self._store.begin_scan(cancel=self._cancel))
         f = self._sr.as_file()
         out: dict[str, ColumnData] = {}
         for path, leaf, chunk, md, offset in row_group_chunks(rg, by_path):
+            if self._cancel is not None:
+                self._cancel.check()  # unit boundary: stop issuing IO
             out[".".join(path)] = read_chunk(
                 f, chunk, leaf, validate_crc=self.validate_crc,
                 alloc=self.alloc,
