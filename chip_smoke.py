@@ -149,9 +149,33 @@ Phases:
     read: no ``tpq-`` thread (the engine shut down, with the outputs alive
     on the card), no pinned buffer out, an empty device ledger, no budget;
     a clean re-read after each failure bit-equal;
-14. one JSON line listing every ported kernel (with phase 11's launches as
-    ``pipeline_launches``, phase 12's as ``filter_launches`` and phase
-    13's as ``store_launches``), then the result line.
+14. the read caches (``serve.PlanCache``, ``serve.ResultCache``), reusing
+    the files of phases 6, 8 and 11: (a) lineitem16 SF1's 16 columns
+    through ``PlanCache(result_cache_mb=0, result_cache_hbm_mb=2048)
+    .reader_kwargs(path, device=True)``, once cold (launches equal phase
+    6's) and twice warm (no store read, no launch, no byte allocated, every
+    tensor equal to the cold read's), and the bytes the cache keeps
+    allocated against the bytes its tier counts; rows/s uncached, cold and
+    warm; (b) the same reads through a 256 MiB device tier: evictions
+    inside it, its ledger never over the cap, bit-equal, and the device
+    memory back to its level once the cache is dropped; (c) phase 8's
+    pyarrow-layout file through the dictionary cache alone, twice: the
+    second read adopts every dictionary, bit-equal, with equal launches and
+    routes; (d) TPC-H Q6 through ``scan_files(plan_cache=)`` over phase
+    11's seven shards, two sweeps at prefetch 0 and two at K through the
+    fetch engine, with the plan cache alone (the second sweep walks no
+    footer and no page header) and with a device tier (the second reads
+    nothing and launches nothing), each bit-equal to the unfiltered read;
+    (e) one shard rewritten with a new seed and ``note_mutation``: its
+    entries dropped and counted exactly, the re-read bit-equal to the new
+    generator; (f) a warm read on a non-default stream, bit-equal.  After
+    every pass: no ``tpq-`` thread, no pinned buffer out, an empty device
+    ledger in every reader, and the cache's ledger holding its tier's
+    bytes;
+15. one JSON line listing every ported kernel (with phase 11's launches as
+    ``pipeline_launches``, phase 12's as ``filter_launches``, phase 13's
+    as ``store_launches`` and phase 14's as ``cache_launches``), then the
+    result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -947,11 +971,12 @@ def check_k3(torch, ck, flush, rng, smi: str, dates) -> dict:
 # phases 3-4: the main path over TPC-H lineitem
 # ---------------------------------------------------------------------------
 
-def draw_lineitem16(rows: int, rows_per_group: int = ROWS_PER_GROUP):
+def draw_lineitem16(rows: int, rows_per_group: int = ROWS_PER_GROUP,
+                    seed: int = 4):
     """Yield per-row-group dicts of ``bench.py`` ``gen_lineitem16``'s 16
-    columns, drawn exactly as it draws them (seed 4): the integer and float
-    columns as arrays, each STRING column as ``(pool, indices)`` (the strings
-    are ``pool[indices]``; :func:`lineitem_strings` builds them)."""
+    columns, drawn exactly as it draws them (its seed is 4): the integer and
+    float columns as arrays, each STRING column as ``(pool, indices)`` (the
+    strings are ``pool[indices]``; :func:`lineitem_strings` builds them)."""
     import numpy as np
 
     flags = [b"A", b"N", b"R"]
@@ -962,7 +987,7 @@ def draw_lineitem16(rows: int, rows_per_group: int = ROWS_PER_GROUP):
     words = [f"word{i}".encode() for i in range(64)]
     comment_pool = [b" ".join(words[j % 64] for j in range(i, i + 5))
                     for i in range(256)]
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     key = 0
     for lo in range(0, rows, rows_per_group):
         n = min(rows_per_group, rows - lo)
@@ -2972,6 +2997,18 @@ Q6_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate"]
 QUARANTINE_GROUP = 40  # the K3 file's row group whose dates page is corrupt
 
 
+def collected_bytes(torch) -> int:
+    """Run a garbage collection and return the device bytes it freed: the
+    tensors of earlier passes that only reference cycles still held."""
+    import gc
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.synchronize()
+    return before - torch.cuda.memory_allocated()
+
+
 def tpq_threads() -> list:
     import threading
 
@@ -3138,6 +3175,8 @@ def read_filter_phase(torch, ck, work: str, smi: str, *, l16_path: str,
     from tpu_parquet_torch.reader import FileReader
     from tpu_parquet_torch.scanplan import ScanPlan
 
+    log(f"filter: {collected_bytes(torch)} bytes on the card freed by a "
+        f"garbage collection at the phase's start ({smi})")
     k = pipeline_depth()
     launched: dict = {}
     out = {"k": k}
@@ -3517,6 +3556,23 @@ def stop_engine(label: str) -> None:
                    f"shutdown: {left}")
 
 
+def detached(exc: BaseException) -> BaseException:
+    """``exc`` with its traceback and those of the exceptions chained to
+    it dropped, for a caller that keeps it.  A traceback's frames hold
+    their callers, up to the frame that keeps ``exc``: the cycle would keep
+    every tensor of the read's frames on the card until the next garbage
+    collection."""
+    todo, seen = [exc], set()
+    while todo:
+        e = todo.pop()
+        if e is None or id(e) in seen:
+            continue
+        seen.add(id(e))
+        e.__traceback__ = None
+        todo += [e.__cause__, e.__context__]
+    return exc
+
+
 def store_pass(torch, ck, path: str, columns, prefetch: int, mode: str,
                stop=None, **reader_kw) -> dict:
     """One ``DeviceFileReader(..., **reader_kw).iter_row_groups()`` read
@@ -3546,7 +3602,7 @@ def store_pass(torch, ck, path: str, columns, prefetch: int, mode: str,
                     outs.append(g)
             except (RetryExhaustedError, CancelledError,
                     DeadlineExceededError) as e:
-                err = e
+                err = detached(e)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = dict(ck.launches)
@@ -3874,6 +3930,8 @@ def read_store_phase(torch, ck, work: str, smi: str, *, l16_path: str,
     t0 = time.perf_counter()
     k = pipeline_depth()
     launched: dict = {}
+    log(f"store: {collected_bytes(torch)} bytes on the card freed by a "
+        f"garbage collection at the phase's start ({smi})")
     log(f"store: FaultInjectingStore over LocalStore; latency "
         f"{STORE_LATENCY_S * 1e3:.0f} ms per request; K = {k}; default "
         f"IOConfig (retries 4, backoff 25 ms, coalesce gap 64 KiB) but in "
@@ -3911,6 +3969,482 @@ def read_store_phase(torch, ck, work: str, smi: str, *, l16_path: str,
         + f"; cancel/deadline seconds {cancels}; phase 13 launches "
         f"{launched}; phase 13 wall {wall:.2f} s")
     return dict(launched=launched, rates=rates, idle=idle, wall=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the read caches
+# ---------------------------------------------------------------------------
+
+CACHE_HBM_MB = 2048  # 14(a): the device tier holds all of lineitem16 SF1
+SMALL_HBM_MB = 256  # 14(b): a tier smaller than the file's columns
+MUTATED_SHARD = 3  # 14(e): the shard rewritten with MUTATION_SEED
+MUTATION_SEED = 14
+
+
+def counting_local_factory(reads: list):
+    """A ``store=`` factory of ``LocalStore``s (the default read path) that
+    count their ``read_range`` calls into ``reads[0]``."""
+    from tpu_parquet_torch.iostore import LocalStore
+
+    class CountingLocalStore(LocalStore):
+        def read_range(self, offset, size, *args, **kwargs):
+            reads[0] += 1
+            return super().read_range(offset, size, *args, **kwargs)
+
+    return CountingLocalStore
+
+
+def check_cache_ledger(cache, label: str) -> None:
+    """The cache's own device ledger holds its tier's bytes and nothing
+    else."""
+    held = cache.results.counters()["device"]["held_bytes"]
+    in_use = cache.results.tracker.device_snapshot()[0]
+    if in_use != held:
+        raise fail(f"{label}: the cache's device ledger holds {in_use} "
+                   f"bytes, its tier {held}")
+
+
+def cache_pass(torch, ck, cache, path: str, columns, label: str,
+               prefetch: int = 0, stream=None) -> dict:
+    """One read of ``path`` through ``cache.reader_kwargs(path,
+    device=True)`` (the footer, plan, dictionary and result caches),
+    timed end to end from the cache lookups to a synchronize, under
+    ``stream`` when given.  Returns the outputs, seconds, launches, store
+    reads, reader stats and the device memory the pass left allocated;
+    the reader is checked released and the cache's ledger its tier's."""
+    import contextlib
+    import gc
+
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    reads = [0]
+    gc.collect()
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    before = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    ctx = (torch.cuda.stream(stream) if stream is not None
+           else contextlib.nullcontext())
+    with ctx:
+        t0 = time.perf_counter()
+        kw = cache.reader_kwargs(path, columns=columns, device=True)
+        with DeviceFileReader(path, columns=columns, prefetch=prefetch,
+                              store=counting_local_factory(reads),
+                              **kw) as r:
+            outs = list(r.iter_row_groups())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = dict(ck.launches)
+            st = r.stats().as_dict()
+    check_released([r], label)
+    check_cache_ledger(cache, label)
+    return dict(outs=outs, seconds=seconds, counts=counts, reads=reads[0],
+                stats=st, added=torch.cuda.memory_allocated() - before,
+                grown=torch.cuda.memory_reserved() - reserved)
+
+
+def cached_tensors(cache, label: str) -> int:
+    """The device tier's tensors, each checked to own its whole storage
+    (a view would pin the buffer it views); returns their number."""
+    from tpu_parquet_torch.serve.result_cache import DEVICE_TENSOR_ATTRS
+
+    n = 0
+    for key, (col, _n, _t, _u) in cache.results._entries.items():
+        if key[0] != "chunk":
+            continue
+        for attr in DEVICE_TENSOR_ATTRS:
+            t = getattr(col, attr, None)
+            if t is None:
+                continue
+            n += 1
+            if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+                raise fail(f"{label}: cached {key[3]}.{attr} of row group "
+                           f"{key[2]} views {t.untyped_storage().nbytes()} "
+                           f"bytes for {t.numel() * t.element_size()}")
+    return n
+
+
+def cache_lineitem16(torch, ck, smi: str, l16_path: str, l16: dict,
+                     launched: dict) -> dict:
+    """Phase 14(a), (b) and (f): lineitem16 SF1's 16 columns through a
+    2 GiB device tier (a cold read, two warm ones, one warm on a
+    non-default stream), then through a 256 MiB tier."""
+    import gc
+
+    from tpu_parquet_torch.serve import PlanCache
+
+    label = "cache (a) lineitem16 SF1"
+    base, plain_s, _ = timed_pass(torch, l16_path, L16_COLUMNS)
+    cache = PlanCache(result_cache_mb=0, result_cache_hbm_mb=CACHE_HBM_MB)
+    gc.collect()
+    torch.cuda.synchronize()
+    before_cache = torch.cuda.memory_allocated()
+    cold = cache_pass(torch, ck, cache, l16_path, L16_COLUMNS,
+                      f"{label} cold")
+    add_launches(launched, cold["counts"])
+    if cold["counts"] != l16["counts"]:
+        raise fail(f"{label}: cold launches {cold['counts']}, want phase "
+                   f"6's {l16['counts']}")
+    same_on_card(torch, cold["outs"], base, f"{label} cold")
+    # tensors published as copies: the cold read's were views
+    cloned = sum(
+        t.data_ptr() != getattr(g[key[3]], attr).data_ptr()
+        for key, (col, _n, _t, _u) in cache.results._entries.items()
+        if key[0] == "chunk"
+        for g in (cold["outs"][key[2]],)
+        for attr, t in vars(col).items() if isinstance(t, torch.Tensor))
+    rc = cache.results.counters()
+    dev = rc["device"]
+    n_chunks = len(base) * len(L16_COLUMNS)
+    if (dev["entries"] != n_chunks or dev["evictions"] or dev["rejected"]
+            or rc["host"]["evictions"]):
+        raise fail(f"{label}: the device tier after the cold read {rc}")
+    warm = []
+    for i in (1, 2):
+        w = cache_pass(torch, ck, cache, l16_path, L16_COLUMNS,
+                       f"{label} warm {i}")
+        if w["reads"] or any(w["counts"].values()) or w["added"]:
+            raise fail(f"{label} warm {i}: {w['reads']} store reads, "
+                       f"launches {w['counts']}, {w['added']} bytes "
+                       f"allocated")
+        same_on_card(torch, w["outs"], cold["outs"], f"{label} warm {i}")
+        w["outs"] = None
+        warm.append(w)
+    dev = cache.results.counters()["device"]
+    if dev["hits"] != 2 * n_chunks:
+        raise fail(f"{label}: {dev['hits']} device hits, want "
+                   f"{2 * n_chunks}")
+    cold_outs = cold.pop("outs")
+    del cold_outs
+    gc.collect()
+    torch.cuda.synchronize()
+    pinned_by_cache = torch.cuda.memory_allocated() - before_cache
+    tensors = cached_tensors(cache, label)
+    # the allocator rounds a block up to 512 bytes and may leave up to 1 MiB
+    # of a large segment unsplit in it; a cached view of a staged buffer
+    # would keep the whole buffer (tens of MiB) allocated
+    if not dev["held_bytes"] <= pinned_by_cache <= (dev["held_bytes"]
+                                                     + (1 << 20) * tensors):
+        raise fail(f"{label}: {pinned_by_cache} bytes left allocated by "
+                   f"the cache, its tier counts {dev['held_bytes']} in "
+                   f"{tensors} tensors")
+    out = dict(plain=SF1_ROWS / plain_s, cold=SF1_ROWS / cold["seconds"],
+               warm=[SF1_ROWS / w["seconds"] for w in warm],
+               held=dev["held_bytes"], pinned=pinned_by_cache,
+               cold_reads=cold["reads"], cloned=cloned, grown=cold["grown"])
+    log(f"{label}: cold read (fills the tier) launches equal phase 6's, "
+        f"{cold['reads']} store reads, bit-equal to an uncached read, "
+        f"{cloned} tensors published as copies of views, the allocator's "
+        f"reserve grown {cold['grown']} bytes in it; two "
+        f"warm reads: 0 store reads, 0 launches, 0 bytes allocated, every "
+        f"tensor equal to the cold read's; the tier holds {n_chunks} "
+        f"chunks, {dev['held_bytes']} bytes in {tensors} tensors, each "
+        f"owning its storage; {pinned_by_cache} bytes allocated after the "
+        f"cold outputs are dropped; rows/s uncached "
+        f"{out['plain']:.1f} (phase 6's warm pass "
+        f"{l16['rows_per_s']:.1f}), cold {out['cold']:.1f}, warm "
+        + ", ".join(f"{v:.1f}" for v in out["warm"]) + f" ({smi})")
+
+    # (f) a warm read on a non-default stream
+    label_f = "cache (f) warm read on a non-default stream"
+    stream = torch.cuda.Stream()
+    w = cache_pass(torch, ck, cache, l16_path, L16_COLUMNS, label_f,
+                   stream=stream)
+    if w["reads"] or any(w["counts"].values()):
+        raise fail(f"{label_f}: {w['reads']} store reads, launches "
+                   f"{w['counts']}")
+    with torch.cuda.stream(stream):
+        same_on_card(torch, w["outs"], base, label_f)
+    out["stream"] = SF1_ROWS / w["seconds"]
+    del w
+    log(f"{label_f}: bit-equal to the uncached read, compared on that "
+        f"stream; {out['stream']:.1f} rows/s ({smi})")
+    del cache
+    gc.collect()
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != before_cache:
+        raise fail(f"{label}: {torch.cuda.memory_allocated() - before_cache}"
+                   f" bytes still allocated after the cache was dropped")
+
+    # (b) a 256 MiB device tier: evictions inside it
+    label = "cache (b) lineitem16 SF1, 256 MiB device tier"
+    cache = PlanCache(result_cache_mb=0, result_cache_hbm_mb=SMALL_HBM_MB)
+    cap = SMALL_HBM_MB << 20
+    passes = []
+    for i in range(2):
+        p = cache_pass(torch, ck, cache, l16_path, L16_COLUMNS,
+                       f"{label} read {i + 1}")
+        add_launches(launched, p["counts"])
+        same_on_card(torch, p["outs"], base, f"{label} read {i + 1}")
+        p["outs"] = None
+        passes.append(p)
+    rc = cache.results.counters()
+    in_use, peak = cache.results.tracker.device_snapshot()
+    if (not rc["device"]["evictions"] or rc["host"]["evictions"]
+            or peak > cap or in_use > cap):
+        raise fail(f"{label}: device evictions {rc['device']['evictions']}, "
+                   f"host evictions {rc['host']['evictions']}, ledger "
+                   f"{in_use} bytes, peak {peak} against a {cap}-byte cap")
+    out["small"] = dict(evictions=rc["device"]["evictions"],
+                        hits=rc["device"]["hits"], peak=peak,
+                        held=rc["device"]["held_bytes"],
+                        rates=[SF1_ROWS / p["seconds"] for p in passes])
+    del cache, passes, p
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before_cache
+    if left:
+        raise fail(f"{label}: {left} bytes still allocated after the cache "
+                   f"was dropped")
+    log(f"{label}: both reads bit-equal to the uncached read; "
+        f"{out['small']['evictions']} device evictions, 0 host; device "
+        f"hits {out['small']['hits']}; the ledger's peak {peak} bytes "
+        f"under the {cap}-byte cap; rows/s " + ", ".join(
+            f"{v:.1f}" for v in out["small"]["rates"])
+        + f"; allocation back to its level before the cache ({smi})")
+    del base
+    return out
+
+
+def cache_dictionaries(torch, ck, smi: str, pa_path: str, pa_layout: dict,
+                       launched: dict) -> dict:
+    """Phase 14(c): phase 8's pyarrow-layout file through the dictionary
+    cache alone, twice: the second read adopts every dictionary."""
+    from tpu_parquet_torch.serve import PlanCache
+
+    label = "cache (c) dictionaries, lineitem16 pyarrow layout"
+    cache = PlanCache(result_cache_mb=0, result_cache_hbm_mb=0)
+    first = cache_pass(torch, ck, cache, pa_path, L16_COLUMNS,
+                       f"{label} read 1")
+    c1 = cache.counters()
+    second = cache_pass(torch, ck, cache, pa_path, L16_COLUMNS,
+                        f"{label} read 2")
+    c2 = cache.counters()
+    for p in (first, second):
+        add_launches(launched, p["counts"])
+    same_on_card(torch, second["outs"], first["outs"], label)
+    del first["outs"], second["outs"]
+    if (c1["dict_hits"] or not c1["dict_misses"]
+            or c2["dict_hits"] != c1["dict_misses"]
+            or c2["dict_misses"] != c1["dict_misses"]):
+        raise fail(f"{label}: dictionary counters {c1} then {c2}")
+    if (first["counts"] != pa_layout["counts"]
+            or second["counts"] != first["counts"]
+            or second["stats"]["ship_routes"]
+            != first["stats"]["ship_routes"]):
+        raise fail(f"{label}: launches {first['counts']} then "
+                   f"{second['counts']} (phase 8's {pa_layout['counts']}), "
+                   f"or routes differ")
+    out = dict(dicts=c1["dict_misses"], first=SF1_ROWS / first["seconds"],
+               second=SF1_ROWS / second["seconds"],
+               host1=first["stats"]["host_seconds"],
+               host2=second["stats"]["host_seconds"])
+    log(f"{label}: read 2 adopted all {c1['dict_misses']} decoded "
+        f"dictionaries; bit-equal, launches and routes equal read 1's and "
+        f"phase 8's; rows/s {out['first']:.1f} then {out['second']:.1f}; "
+        f"host_seconds {out['host1']:.4f} then {out['host2']:.4f} ({smi})")
+    return out
+
+
+def q6_sweep(torch, ck, cache, shards, prefetch: int, mode: str,
+             label: str, launched: dict) -> dict:
+    """One ``scan_files(shards, row_filter=Q6, plan_cache=cache)`` sweep
+    through ``FaultInjectingStore``s with no fault (so ``TPQ_IO_ASYNC=1``
+    routes them through the fetch engine), counting page-header walks.
+    Returns the outputs, seconds, launches, store reads, header walks,
+    prune and host seconds summed over the shards' readers."""
+    from tpu_parquet_torch import device_reader as DR
+    from tpu_parquet_torch.predicate import col
+
+    q6 = ((col("l_shipdate") >= Q6_DATES[0])
+          & (col("l_shipdate") < Q6_DATES[1])
+          & col("l_discount").between(0.05, 0.07)
+          & (col("l_quantity") < 24))
+    stores: list = []
+    made: list = []
+    walks = [0]
+    real = DR.plan_page_pruning
+
+    def counted(*args, **kwargs):
+        walks[0] += 1
+        return real(*args, **kwargs)
+
+    DR.plan_page_pruning = counted
+    os.environ["TPQ_IO_ASYNC"] = mode
+    try:
+        outs, seconds, counts, _, _, rows = scan_pass(
+            torch, ck, shards, prefetch, made=made, row_filter=q6,
+            columns=Q6_COLUMNS, plan_cache=cache,
+            store=fault_factory({}, stores))
+    finally:
+        DR.plan_page_pruning = real
+        os.environ.pop("TPQ_IO_ASYNC", None)
+    stop_engine(label)
+    check_released(made, label)
+    check_cache_ledger(cache, label)
+    add_launches(launched, counts)
+    if rows != SF1_ROWS:
+        raise fail(f"{label}: {rows} rows, want {SF1_ROWS}: Q6 prunes "
+                   f"nothing")
+    return dict(outs=outs, seconds=seconds, counts=counts,
+                reads=io_sum(stores).get("reads", 0), walks=walks[0],
+                prune=sum(r.stats().prune_seconds for r in made),
+                host=sum(r.stats().host_seconds for r in made))
+
+
+def cache_q6(torch, ck, smi: str, l16_path: str, shard_dir: str,
+             launched: dict) -> dict:
+    """Phase 14(d) and (e): Q6 over phase 11's seven shards through
+    ``scan_files(plan_cache=)``, two sweeps at prefetch 0 and two at K
+    through the fetch engine, with the plan cache alone and with a device
+    tier; then one shard rewritten with a new seed and ``note_mutation``."""
+    import gc
+
+    from tpu_parquet_torch.serve import PlanCache
+
+    k = pipeline_depth()
+    shards = sorted(os.path.join(shard_dir, n) for n in os.listdir(shard_dir)
+                    if n.endswith(".parquet"))
+    want, _, _ = timed_pass(torch, l16_path, Q6_COLUMNS)
+    out: dict = {}
+    warm_cache = None
+    for p, mode, how in ((0, "0", ""), (k, "1", " engine")):
+        for tier_mb in (0, CACHE_HBM_MB):
+            tag = f"p{p}{how}, " + (f"{tier_mb} MiB device tier" if tier_mb
+                                    else "plan cache alone")
+            label = f"cache (d) Q6 scan_files {tag}"
+            cache = PlanCache(result_cache_mb=0,
+                              result_cache_hbm_mb=tier_mb)
+            sweeps = []
+            for i in (1, 2):
+                s = q6_sweep(torch, ck, cache, shards, p, mode,
+                             f"{label} sweep {i}", launched)
+                same_on_card(torch, s["outs"], want, f"{label} sweep {i}")
+                s["outs"] = None
+                s["counters"] = cache.counters()
+                sweeps.append(s)
+            s1, s2 = sweeps
+            if (s2["walks"] or s2["counters"]["footer_misses"]
+                    != s1["counters"]["footer_misses"]
+                    or s1["counters"]["footer_misses"] != len(shards)
+                    or not s1["walks"]):
+                raise fail(f"{label}: header walks {s1['walks']} then "
+                           f"{s2['walks']}, footer misses "
+                           f"{s1['counters']['footer_misses']} then "
+                           f"{s2['counters']['footer_misses']}")
+            if tier_mb and (s2["reads"] or any(s2["counts"].values())):
+                raise fail(f"{label}: the warm sweep made {s2['reads']} "
+                           f"store reads and launches {s2['counts']}")
+            if not tier_mb and s2["counts"] != s1["counts"]:
+                raise fail(f"{label}: launches {s1['counts']} then "
+                           f"{s2['counts']}")
+            out[tag] = dict(rates=[SF1_ROWS / s["seconds"] for s in sweeps],
+                            prune=[s["prune"] for s in sweeps],
+                            host=[s["host"] for s in sweeps],
+                            reads=[s["reads"] for s in sweeps])
+            log(f"{label}: both sweeps bit-equal to the unfiltered read; "
+                f"sweep 2 walked no footer and no page header (footer "
+                f"misses {s1['counters']['footer_misses']}, walks "
+                f"{s1['walks']} then 0); store reads {s1['reads']} then "
+                f"{s2['reads']}; launches {s1['counts']} then "
+                f"{s2['counts']}; prune_seconds {s1['prune']:.6f} then "
+                f"{s2['prune']:.6f} of host_seconds {s1['host']:.4f} then "
+                f"{s2['host']:.4f}; rows/s {out[tag]['rates'][0]:.1f} then "
+                f"{out[tag]['rates'][1]:.1f} ({smi})")
+            if tier_mb and p == k:
+                warm_cache = cache
+            del cache, sweeps, s1, s2
+    del want
+    gc.collect()
+
+    # (e) one shard rewritten with a new seed, then note_mutation
+    label = "cache (e) invalidation"
+    cache = warm_cache
+    target = os.path.abspath(shards[MUTATED_SHARD])
+    stale = [key for key in cache.results._entries if key[1][1] == target]
+    held = sum(1 for key in cache._entries if key[1][1] == target)
+    inv0 = cache.results.counters()
+    group = lineitem_strings(next(draw_lineitem16(ROWS_PER_GROUP,
+                                                  seed=MUTATION_SEED)))
+    write_lineitem16(target, [group])
+    dropped = cache.note_mutation(target)
+    inv1 = cache.results.counters()
+    invalidated = sum(inv1[t]["invalidations"] - inv0[t]["invalidations"]
+                      for t in ("host", "device"))
+    left = [key for key in cache.results._entries if key[1][1] == target]
+    if dropped != held or invalidated != len(stale) or left:
+        raise fail(f"{label}: dropped {dropped} of {held} plan-cache "
+                   f"entries, invalidated {invalidated} of {len(stale)} "
+                   f"results, {len(left)} left")
+    check_cache_ledger(cache, label)
+    s = q6_sweep(torch, ck, cache, shards, k, "1", f"{label} re-read",
+                 launched)
+    fresh = s["outs"][MUTATED_SHARD:MUTATED_SHARD + 1]
+    check_groups(fresh, [group], Q6_COLUMNS, f"{label} rewritten shard")
+    rest = s["outs"][:MUTATED_SHARD] + s["outs"][MUTATED_SHARD + 1:]
+    want, _, _ = timed_pass(torch, l16_path, Q6_COLUMNS)
+    same_on_card(torch, rest, want[:MUTATED_SHARD] + want[MUTATED_SHARD + 1:],
+                 f"{label} other shards")
+    del want, rest, fresh
+    s["outs"] = None
+    out["mutation"] = dict(dropped=dropped, invalidated=invalidated,
+                           reads=s["reads"], counts=s["counts"])
+    log(f"{label}: shard {MUTATED_SHARD} rewritten (seed {MUTATION_SEED}); "
+        f"note_mutation dropped its {dropped} footer and plan entries and "
+        f"invalidated its {invalidated} cached results ("
+        f"{inv1['device']['invalidations'] - inv0['device']['invalidations']}"
+        f" device chunks, "
+        f"{inv1['host']['invalidations'] - inv0['host']['invalidations']} "
+        f"dictionaries); the re-read bit-equal to the new generator on that "
+        f"shard and to the old read elsewhere, {s['reads']} store reads and "
+        f"launches {s['counts']} for the one cold shard ({smi})")
+    del cache, warm_cache, s
+    gc.collect()
+    return out
+
+
+def read_cache_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                     l16: dict, pa_layout: dict) -> dict:
+    """Phase 14: the read caches on the card."""
+    import gc
+
+    t0 = time.perf_counter()
+    launched: dict = {}
+    # the baseline is taken after a collection: garbage of earlier phases
+    # freed inside this one would read as a negative leak
+    freed = collected_bytes(torch)
+    before = torch.cuda.memory_allocated()
+    log(f"cache: PlanCache(result_cache_mb=0, result_cache_hbm_mb="
+        f"{CACHE_HBM_MB}) and {SMALL_HBM_MB}; K = {pipeline_depth()}; "
+        f"{freed} bytes on the card freed by a garbage collection at the "
+        f"phase's start ({smi})")
+    out = {"lineitem16": cache_lineitem16(torch, ck, smi, l16_path, l16,
+                                          launched)}
+    out["dicts"] = cache_dictionaries(
+        torch, ck, smi, os.path.join(work, "lineitem16_pyarrow_layout.parquet"),
+        pa_layout, launched)
+    out["q6"] = cache_q6(torch, ck, smi, l16_path,
+                         os.path.join(work, "lineitem16_sf1_shards"),
+                         launched)
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    if left:
+        raise fail(f"phase 14: {left} bytes still allocated after its "
+                   f"caches were dropped")
+    for kname in ("hybrid_unpack_combine", "fused_plain_words"):
+        if not launched.get(kname):
+            raise fail(f"phase 14 never launched {kname}")
+    out["launched"] = launched
+    out["wall"] = time.perf_counter() - t0
+    a = out["lineitem16"]
+    log(f"cache summary ({smi}): lineitem16 SF1 rows/s uncached "
+        f"{a['plain']:.1f}, cold {a['cold']:.1f}, warm "
+        + ", ".join(f"{v:.1f}" for v in a["warm"])
+        + f", warm on a side stream {a['stream']:.1f}; device tier "
+        f"{a['held']} bytes; phase 14 launches {launched}; phase 14 wall "
+        f"{out['wall']:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -4045,6 +4579,10 @@ def main() -> int:
         k3_groups=k3_groups)
     del l16_groups
 
+    # phase 14: the read caches (footers, plans, dictionaries, results)
+    cache = read_cache_phase(torch, ck, work, smi, l16_path=l16_path,
+                             l16=l16, pa_layout=pa_layout)
+
     # the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
@@ -4109,12 +4647,13 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phases 11's, 12's and 13's launches beside each kernel's main-path
-    # count
+    # phases 11's, 12's, 13's and 14's launches beside each kernel's
+    # main-path count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
         entry["filter_launches"] = filt["launched"].get(entry["name"], 0)
         entry["store_launches"] = store["launched"].get(entry["name"], 0)
+        entry["cache_launches"] = cache["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -27,6 +27,7 @@ first).  Held exactly:
   the cancel token at each row group even over a ``LocalStore``.
 """
 
+import asyncio
 import gc
 import threading
 import time
@@ -426,6 +427,44 @@ def test_corrupt_store_bytes_are_quarantined_as_the_reference(files,
     assert outs == _local(files, "k3", k)[0][:1]
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("k", [0, 4])
+def test_a_skipped_unit_leaves_no_tensor_in_a_cycle(files, io_env, k, mode):
+    """A contained data error is recorded and its unit skipped without its
+    traceback: no frame of the failed prepare (on the card, its staged
+    bytes) waits in a reference cycle for the garbage collector.  The
+    reference keeps the traceback; its records are held equal above."""
+    io_env.setenv("TPQ_IO_ASYNC", MODES[mode])
+    from tpu_parquet_torch.reader import FileReader
+
+    with FileReader(files["k3"]) as h:
+        victim = h.metadata.row_groups[1].columns[0].meta_data.data_page_offset
+    gc.collect()
+    gc.disable()
+    try:
+        with DR.DeviceFileReader(
+                files["k3"], device="cpu", prefetch=k,
+                on_data_error="skip_unit",
+                store=_factory(S, {"corrupt": "bitflip", "corrupt_seed": 3,
+                                   "match": lambda o, s: o == victim},
+                               [], coalesce_gap=0)) as r:
+            kept = sum(1 for _ in r.iter_row_groups())
+            skipped = r.quarantine.units_skipped
+        del r
+        shutdown_default_engine()
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        cyclic = [type(o).__name__ for o in gc.garbage
+                  if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+        gc.collect()
+    assert (kept, skipped) == (1, 1)
+    assert cyclic == []
+
+
 @pytest.mark.parametrize("k", [0, 4])
 def test_scan_files_under_a_chaos_schedule(files, io_env, k):
     paths = [files["required"], files["k3"], files["lineitem16"]]
@@ -450,12 +489,34 @@ def test_scan_files_under_a_chaos_schedule(files, io_env, k):
     assert got[0] == got[1] == clean
 
 
+class _OverlapStore(S.FaultInjectingStore):
+    """A ``FaultInjectingStore`` whose first async fetch waits, on the
+    engine's loop and for at most 5 s, until a second fetch has started:
+    the engine then has both row groups' spans in flight at once however
+    the threads are scheduled (without it a loaded worker could finish the
+    first span before the feed submits the second)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.started = 0  # touched on the engine's loop thread only
+
+    async def _fetch_once_async(self, offset, size, timeout):
+        self.started += 1
+        if self.started == 1:
+            deadline = time.monotonic() + 5.0
+            while self.started < 2 and time.monotonic() < deadline:
+                await asyncio.sleep(0.001)
+        return await super()._fetch_once_async(offset, size, timeout)
+
+
 def test_engine_scan_then_shutdown_leaks_nothing(files, io_env):
     io_env.setenv("TPQ_IO_ASYNC", "1")
     want = _local(files, "lineitem16", 4)
     got = _read(DR.DeviceFileReader(
         files["lineitem16"], device="cpu", prefetch=4,
-        store=_factory(S, {"latency_s": 0.002}, [])))
+        store=lambda f: _OverlapStore(
+            S.LocalStore(f), S.FaultSpec(latency_s=0.002),
+            config=S.IOConfig(backoff_ms=1.0, retry_budget=0))))
     assert got == want
     eng = default_engine_if_running()
     assert eng is not None and eng.stats.inflight_peak >= 2

@@ -199,7 +199,7 @@ class ChunkDecoder:
 
     def __init__(self, leaf: SchemaNode, validate_crc: bool = False,
                  alloc: Optional[AllocTracker] = None,
-                 context: Optional[dict] = None):
+                 context: Optional[dict] = None, dict_cache=None):
         self.leaf = leaf
         self.validate_crc = validate_crc
         self.alloc = alloc or AllocTracker(0)
@@ -207,6 +207,11 @@ class ChunkDecoder:
         if "column" not in self.context and leaf.path:
             self.context["column"] = ".".join(leaf.path)
         self.dictionary = None  # decoded dict values (array or ByteArrayData)
+        # read-through decoded-dictionary cache (serve.BoundDictCache duck
+        # type): get(rg, column, kind) / put(rg, column, kind, value,
+        # nbytes), keyed by this decoder's context coordinates — callers
+        # without a row_group/column context never hit it.
+        self.dict_cache = dict_cache
 
     # -- value decoding dispatch (getValuesDecoder, chunk_reader.go:106-159) --
 
@@ -268,7 +273,25 @@ class ChunkDecoder:
 
     # -- pages ----------------------------------------------------------------
 
+    def _dict_cache_key(self):
+        rg = self.context.get("row_group")
+        col = self.context.get("column")
+        if self.dict_cache is None or rg is None or col is None:
+            return None
+        # the CRC tier is part of the key: a validate_crc=True request must
+        # never be served a dictionary decoded without the check it asked for
+        return rg, col, f"host:v{1 if self.validate_crc else 0}"
+
     def _decode_dict_page(self, ps: PageSlice, buf: bytes, codec: int):
+        # a dictionary the cache already decoded for this (row group,
+        # column, CRC tier) of this file generation skips the decompress and
+        # the PLAIN decode; it is shared read-only (takes copy)
+        ck = self._dict_cache_key()
+        if ck is not None:
+            hit = self.dict_cache.get(*ck)
+            if hit is not None:
+                self.dictionary = hit
+                return
         header = ps.header
         payload = buf[ps.payload_start : ps.payload_end]
         _check_crc(header, payload, self.validate_crc)
@@ -284,6 +307,11 @@ class ChunkDecoder:
         self.dictionary = plain.decode(
             raw, self.leaf.physical_type, count, self.leaf.type_length
         )
+        if ck is not None:
+            d = self.dictionary
+            nbytes = (int(d.offsets.nbytes + d.heap.nbytes)
+                      if isinstance(d, ByteArrayData) else int(d.nbytes))
+            self.dict_cache.put(*ck, d, nbytes)
 
     def _decode_data_page_v1(self, ps: PageSlice, buf: bytes, codec: int):
         header = ps.header
@@ -457,7 +485,7 @@ def _concat_values(parts: list):
 def read_chunk(f: BinaryIO, chunk, leaf: SchemaNode,
                validate_crc: bool = False,
                alloc: Optional[AllocTracker] = None,
-               context: Optional[dict] = None,
+               context: Optional[dict] = None, dict_cache=None,
                meta: "Optional[tuple]" = None) -> ColumnData:
     """Read + decode one column chunk from an open file (readChunk parity).
 
@@ -477,5 +505,5 @@ def read_chunk(f: BinaryIO, chunk, leaf: SchemaNode,
         require_full(buf, offset, size,
                      context=f"column {'.'.join(leaf.path)}")
     dec = ChunkDecoder(leaf, validate_crc=validate_crc, alloc=alloc,
-                       context=ctx)
+                       context=ctx, dict_cache=dict_cache)
     return dec.decode(buf, md.codec, md.num_values)

@@ -63,6 +63,13 @@ memoizes each group's pruning and each chunk's ship route and kernel
 family, and ``plan=`` replays it; ``on_data_error`` / ``quarantine``
 contain a row group's data error (``ParquetError``) in the iteration APIs
 and ``scan_files`` (``quarantine.Quarantine``).
+
+The read caches (``serve``): ``dict_cache`` reads decoded dictionary pages
+through a shared cache (``_collect_chunk``); ``result_cache`` serves a row
+group whose every column its device tier holds without IO, staging or a
+launch, and publishes a decoded group after the finalize that checks it,
+once an event recorded behind its launches has completed (the range check
+runs on the host, so the finalize alone need not wait for the device).
 """
 
 from __future__ import annotations
@@ -73,7 +80,7 @@ import logging
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace as _dc_replace
 from typing import Optional
 
 import numpy as np
@@ -104,6 +111,8 @@ from .reader import FileReader, _ChunkFailed as _FailedChunk
 from .scanplan import (int_stats_span as _int_stats_span, plan_page_pruning,
                        predicate_fingerprint, row_group_chunks)
 from .schema.core import SchemaNode
+from .serve.result_cache import (DEVICE_TENSOR_ATTRS, device_column_nbytes,
+                                 device_tag)
 from .ship import (
     ChunkFacts, FUSED_ROUTES, ROUTE_DEVICE_SNAPPY, ROUTE_FUSED_NARROW_SNAPPY,
     ROUTE_FUSED_PLAIN, ROUTE_NARROW, ROUTE_NARROW_SNAPPY, ROUTE_PLAIN,
@@ -1202,6 +1211,40 @@ class _ChunkAssembler:
             self.dict_len = len(decoded)
         else:
             self.dict_u8, self.dict_dtype, self.dict_len = decoded
+
+    def dict_cache_entry(self) -> "dict | None":
+        """This chunk's decoded dictionary as a read-through cache entry
+        (``serve.PlanCache``): the host table (``dict_u8`` numpy rows or
+        the ragged ``ByteArrayData``; the assembler stages it with its row
+        group), the dictionary page's snappy payload when it has one, and
+        the byte size.  None when the chunk has no dictionary."""
+        if self.dict_len == 0:
+            return None
+        if self.dict_u8 is not None:
+            nbytes = int(self.dict_u8.nbytes)
+        elif self.dict_ragged is not None:
+            nbytes = int(self.dict_ragged.offsets.nbytes
+                         + self.dict_ragged.heap.nbytes)
+        else:
+            return None
+        if self.dict_comp is not None:
+            nbytes += len(self.dict_comp[0])
+        return {
+            "u8": self.dict_u8, "dtype": self.dict_dtype,
+            "ragged": self.dict_ragged, "len": self.dict_len,
+            "comp": self.dict_comp, "nbytes": nbytes,
+        }
+
+    def adopt_dictionary(self, entry: dict) -> None:
+        """Adopt a cached decoded dictionary (the inverse of
+        :meth:`dict_cache_entry`).  The tables are shared read-only across
+        assemblers: every consumer stages or gathers from them, never
+        writes them."""
+        self.dict_u8 = entry.get("u8")
+        self.dict_dtype = entry.get("dtype")
+        self.dict_ragged = entry.get("ragged")
+        self.dict_len = int(entry.get("len") or 0)
+        self.dict_comp = entry.get("comp")
 
     # -- ship planning (host half; see ship.py) -------------------------------
 
@@ -2584,7 +2627,7 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
                    leaf: SchemaNode, deferred_checks: list,
                    validate_crc: bool = False, alloc=None,
                    statistics=None, skip_pages=None, context=None,
-                   device=None) -> _ChunkAssembler:
+                   device=None, dict_cache=None) -> _ChunkAssembler:
     """Walk a chunk's pages into an assembler (host phase): CRC checks,
     the dictionary page, and each data page's level and index structure.
     PLAIN pages of a SNAPPY chunk stay compressed (lazy pages) for the
@@ -2598,7 +2641,12 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
     ordinals (the dictionary page not counted) page-level pushdown pruned;
     they are counted in ``pages_pruned`` and never decompressed, parsed or
     staged, and a chunk with no page left is still returned.  Host-only:
-    with prefetch this runs on a worker thread."""
+    with prefetch this runs on a worker thread.
+
+    ``dict_cache`` (a ``serve.BoundDictCache``) reads decoded dictionaries
+    through, keyed by the context's (row group, column) and the CRC tier:
+    a hit adopts the table and its snappy payload without decompressing or
+    parsing the dictionary page again."""
     ctx = dict(context or {})
     if "column" not in ctx and leaf.path:
         ctx["column"] = ".".join(leaf.path)
@@ -2619,6 +2667,17 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
         header = ps.header
         pt = header.type
         if pt == PageType.DICTIONARY_PAGE:
+            # the CRC tier is in the key: a validating read never adopts an
+            # unvalidated decode
+            dk = (ctx.get("row_group"), ctx.get("column"),
+                  f"dev:v{1 if validate_crc else 0}")
+            cacheable = (dict_cache is not None and dk[0] is not None
+                         and dk[1] is not None)
+            if cacheable:
+                hit = dict_cache.get(*dk)
+                if hit is not None:
+                    asm.adopt_dictionary(hit)
+                    continue
             with error_context(offset=chunk_offset + ps.payload_start, **ctx):
                 payload = buf[ps.payload_start : ps.payload_end]
                 _check_crc(header, payload, validate_crc)
@@ -2633,6 +2692,10 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
                 # compressed (_preship_dict / _finish_dict)
                 asm.dict_comp = (payload,
                                  max(header.uncompressed_page_size or 0, 0))
+            if cacheable:
+                entry = asm.dict_cache_entry()
+                if entry is not None:
+                    dict_cache.put(*dk, entry, entry["nbytes"])
             continue
         if pt in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
             if skip_pages and data_ordinal in skip_pages:
@@ -2806,30 +2869,61 @@ class DeviceFileReader:
     the staging worker is joined and the scan's staged bytes leave the
     device ledger before it propagates.
 
+    ``dict_cache`` (a ``serve.BoundDictCache``) reads decoded dictionary
+    pages through a shared cache.  ``result_cache`` (a
+    ``serve.BoundResultCache`` bound to this reader's device decode
+    signature: CRC tier, filter fingerprint, device) serves whole row
+    groups: a group whose every selected column is cached reads, stages
+    and launches nothing, and its columns are the cached tensors, shared
+    read-only.  A cold group's columns are published after the finalize
+    that checks them, once the kernels that wrote them have completed; a
+    column that is a view of a larger buffer is published as a copy, so
+    the tier's byte count is what it pins.  An adapter signed for another
+    shape, CRC tier, filter or device is dropped.
+    ``serve.PlanCache.reader_kwargs(..., device=True)`` builds both.
+
     The footer, schema, filter, plan, store and containment engine live in
     a host ``reader.FileReader`` this reader holds, as the reference's do.
 
     Where the port differs from the reference on purpose: an explicit
-    ``device``, a pool of pinned host buffers (``_PinnedPool``) under the
-    copies, and the cancel check per row group on the sequential path.
-    Left out of the reference: ``profile_dir``, ``trace``, ``sample_ms``,
-    ``hang_s``, ``hang_policy``, ``dict_cache`` and ``result_cache``."""
+    ``device`` (part of the result cache's signature), a pool of pinned
+    host buffers (``_PinnedPool``) under the copies, and the cancel check
+    per row group on the sequential path.  Left out of the reference: the
+    ``obs`` options ``profile_dir``, ``trace``, ``sample_ms``, ``hang_s``
+    and ``hang_policy``."""
 
     def __init__(self, source, columns=None, validate_crc=None, device=None,
                  max_memory: int = 0, prefetch: int = 0, row_filter=None,
                  metadata=None, plan=None, on_data_error=None,
-                 quarantine=None, store=None, cancel=None):
+                 quarantine=None, store=None, cancel=None, dict_cache=None,
+                 result_cache=None):
         self.device = _resolve_device(device)
+        # the result cache is not passed to the host half: host ColumnData
+        # and device tensors are different decode shapes
         self._host = FileReader(source, columns=columns,
                                 validate_crc=validate_crc,
                                 max_memory=max_memory,
                                 row_filter=row_filter, metadata=metadata,
                                 plan=plan, on_data_error=on_data_error,
                                 quarantine=quarantine, store=store,
-                                cancel=cancel)
+                                cancel=cancel, dict_cache=dict_cache)
         h = self._host
         self.metadata, self.schema = h.metadata, h.schema
         self.validate_crc = h.validate_crc
+        self._dict_cache = dict_cache
+        if result_cache is not None:
+            sig = getattr(result_cache, "sig", None) or ()
+            want = ("dev", "v1" if self.validate_crc else "v0",
+                    predicate_fingerprint(h.row_filter))
+            if (tuple(sig[:3]) != want
+                    or sig[-1] != device_tag(self.device)):
+                result_cache = None
+        self._result_cache = result_cache
+        # groups decoded under a result cache, waiting for the finalize
+        # that publishes them: id(out) -> [index, out, dispatched, nbytes,
+        # CUDA event recorded after the group's launches]
+        self._rc_pending: dict = {}
+        self._rc_pending_bytes = 0
         # the containment engine, shared with the host half
         self.quarantine = h.quarantine
         # one ledger with the host reader: chunk bytes, each page's
@@ -2950,6 +3044,17 @@ class DeviceFileReader:
         its in-flight strips are joined and their pinned buffers returned
         before the error leaves."""
         rg = self.metadata.row_groups[index]
+        if self._result_cache is not None:
+            fed_cached = collected is not None and collected.get("cached")
+            if fed_cached or collected is None:
+                hit = self._cached_group(index)
+                if hit is not None:
+                    # a warm group: no IO, no staging, no launch
+                    return hit, [], None
+                if fed_cached:
+                    # evicted since the feed's probe (the feed read
+                    # nothing): decode it here on the sequential path
+                    collected = None
         t0 = time.perf_counter()
         if self._t0 is None:
             self._t0 = t0
@@ -2976,7 +3081,52 @@ class DeviceFileReader:
         now = time.perf_counter()
         self._stats.host_seconds += now - t0
         self._stats.wall_seconds = now - self._t0
+        if self._result_cache is not None:
+            # dispatch fills this dict in place; _flush_result_cache
+            # publishes it after the finalize, and only if dispatched
+            self._rc_pending[id(out)] = [index, out, False, 0, None]
         return out, plans, stager
+
+    def _cached_group(self, index: int) -> "dict | None":
+        """All-or-nothing result-cache probe for row group ``index``: every
+        selected column cached under this reader's signature, or None.  A
+        hit counts into the row-group and row stats (rows from the widest
+        column's leaf slots), so rows/s describes what was served."""
+        names = [".".join(l.path) for l in self.schema.selected_leaves()]
+        if not names:
+            return None
+        got = self._result_cache.lookup_group(index, names)
+        if got is None:
+            return None
+        now = time.perf_counter()
+        if self._t0 is None:
+            self._t0 = now
+        self._stats.row_groups += 1
+        self._stats.rows += max(
+            (int(c.num_leaf_slots or 0) for c in got.values()), default=0)
+        self._stats.wall_seconds = now - self._t0
+        return got
+
+    def _flush_result_cache(self) -> None:
+        """Publish the dispatched groups' columns to the result cache.
+        Called by ``_finalize_many`` after the deferred checks pass, never
+        from the dispatch path: a column that would fail them is never
+        served.  Each group's event (recorded after its launches) is waited
+        on first, so a cached tensor is complete for a consumer on any
+        stream."""
+        rc = self._result_cache
+        if rc is None or not self._rc_pending:
+            return
+        pending, self._rc_pending = self._rc_pending, {}
+        self._rc_pending_bytes = 0
+        for index, out, dispatched, _n, done in pending.values():
+            if not dispatched:
+                continue
+            if done is not None:
+                done.synchronize()
+            for name, col in out.items():
+                col = _owning_copy(col)
+                rc.put(index, name, col, device_column_nbytes(col))
 
     def _plan_chunks(self, index, rg, leaves, f, collected, skip_pages,
                      planned_bufs, stager, out) -> list:
@@ -3022,7 +3172,8 @@ class DeviceFileReader:
                                      alloc=self.alloc,
                                      statistics=md.statistics,
                                      skip_pages=(skip_pages or {}).get(path),
-                                     context=ctx, device=self.device)
+                                     context=ctx, device=self.device,
+                                     dict_cache=self._dict_cache)
                 asm.preship(self._ship_planner, self._pipe_stats,
                             route_hint=self._plan.route_hint(index, name))
             self._stats.pages += len(asm.pages)
@@ -3114,11 +3265,36 @@ class DeviceFileReader:
             with self._stats_lock:
                 self._stats.dispatch_seconds += time.perf_counter() - t1
             self._note_dispatched(stager)
+        if self._result_cache is not None:
+            self._note_rc_dispatched(out)
         if self._t0 is not None:
             self._stats.wall_seconds = time.perf_counter() - self._t0
         self._pipe_stats.count_row_group()
         self._pipe_stats.touch_wall()
         return out
+
+    def _note_rc_dispatched(self, out: dict) -> None:
+        """The group's columns are real decoded results now: publishable at
+        the next finalize.  The pending bytes are bounded at twice the
+        tier's capacity (room for the flush to overfill the tier and evict):
+        past it the oldest pending group is dropped unpublished, so a
+        deferred-finalize scan over many files pins no more than that."""
+        ent = self._rc_pending.get(id(out))
+        if ent is None:
+            return
+        ent[2] = True
+        ent[3] = sum(device_column_nbytes(c) for c in out.values())
+        if self.device.type == "cuda":
+            ent[4] = torch.cuda.Event()
+            ent[4].record(torch.cuda.current_stream(self.device))
+        self._rc_pending_bytes += ent[3]
+        rc = self._result_cache
+        cap = 2 * rc.cache.tier_capacity(rc.tier)
+        while self._rc_pending_bytes > cap and len(self._rc_pending) > 1:
+            oldest = next(iter(self._rc_pending))
+            if oldest == id(out):
+                break
+            self._rc_pending_bytes -= self._rc_pending.pop(oldest)[3]
 
     def read_row_group(self, index: int, finalize: bool = True) -> dict:
         """Decode row group ``index``: ``{column name: DeviceColumnData}``.
@@ -3256,24 +3432,41 @@ def _timed(pipe_stats, stage: str):
             else contextlib.nullcontext())
 
 
+def _owning_copy(col: DeviceColumnData) -> DeviceColumnData:
+    """``col`` if each of its tensors owns its whole storage, else a copy
+    whose views are cloned: a cached view of a row group's staged buffer
+    would pin the whole buffer while the tier counts only the view."""
+    swap = {}
+    for attr in DEVICE_TENSOR_ATTRS:
+        t = getattr(col, attr, None)
+        if (t is not None and t.untyped_storage().nbytes()
+                != t.numel() * t.element_size()):
+            swap[attr] = t.clone(memory_format=torch.contiguous_format)
+    return _dc_replace(col, **swap) if swap else col
+
+
 def _finalize_many(readers) -> None:
     """Run every reader's deferred dictionary-range checks with ONE device
     read, placed after the last dispatch so nothing queued behind it
-    waits.  A failing check raises before any list is cleared, so a second
-    call raises again."""
+    waits, then publish each reader's checked groups to its result cache.
+    A failing check raises before any list is cleared, so a second call
+    raises again."""
     deferred = [d for r in readers for d in r._deferred]
-    if not deferred:
-        return
-    host_max = torch.stack([m for m, _, _ in deferred]).cpu().numpy()
-    for mx, (_, dict_len, path) in zip(host_max, deferred):
-        if int(mx) >= dict_len:
-            raise ParquetError(
-                f"dictionary index {int(mx)} out of range ({dict_len}) "
-                f"in column {path}"
-            )
+    if deferred:
+        host_max = torch.stack([m for m, _, _ in deferred]).cpu().numpy()
+        for mx, (_, dict_len, path) in zip(host_max, deferred):
+            if int(mx) >= dict_len:
+                raise ParquetError(
+                    f"dictionary index {int(mx)} out of range ({dict_len}) "
+                    f"in column {path}"
+                )
+        for r in readers:
+            # in place: the assemblers of prepared groups hold this list
+            r._deferred.clear()
+    # the checks passed (or there were none): the dispatched groups'
+    # columns are valid, and go to the result cache
     for r in readers:
-        # in place: the assemblers of prepared groups hold this list
-        r._deferred.clear()
+        r._flush_result_cache()
 
 
 def _timed_stage(reader: DeviceFileReader, stager: _RowGroupStager):
@@ -3318,7 +3511,9 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
     counter across threads).
 
     Every read goes through the reader's store with a scan token minted
-    when the feed first meets the reader (carrying its cancel token).  For
+    when the feed first meets the reader (carrying its cancel token).  A
+    group its reader's result cache holds whole is fed as a sentinel with
+    ``"cached": True``: nothing is read for it.  For
     a store that coalesces, each row group's chunk ranges are planned into
     spans (``CoalescedFetcher``; chunks the pruning planner already read
     never join one), and a store with the async primitive puts them in
@@ -3387,6 +3582,18 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
                 # ladder, carrying the reader's deadline and cancel
                 fed.add(r)
                 sr.set_scan(sr.store.begin_scan(cancel=r._host._cancel))
+            rc = r._result_cache
+            if rc is not None and rc.has_group(
+                    i, [".".join(l.path) for l in r.schema.selected_leaves()],
+                    count_misses=True):
+                # a warm group: the feed reads nothing for it (no pruning
+                # walk, no chunk IO); prepare probes again and decodes on
+                # the sequential path if it was evicted in between
+                pending[(id(r), i)] = {"r": r, "path": path, "i": i,
+                                       "todo": 1, "chunks": {},
+                                       "rows_dropped": 0, "cached": True}
+                yield (r, i, None, None, None, None, None, None, None)
+                continue
             rg = r.metadata.row_groups[i]
             leaves = {l.path: l for l in r.schema.selected_leaves()}
             skip_pages, rows_dropped, planned_bufs = r._plan_page_pruning(
@@ -3458,7 +3665,8 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
                                      validate_crc=r.validate_crc,
                                      alloc=tracker, statistics=md.statistics,
                                      skip_pages=skip, context=ctx,
-                                     device=r.device)
+                                     device=r.device,
+                                     dict_cache=r._dict_cache)
         except ParquetError as e:
             # containment seam: a marker instead of a raise keeps the feed
             # flowing; the consumer records the unit
@@ -3490,7 +3698,8 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
                 r._pipe_stats.touch_wall()
                 yield r, slot["path"], slot["i"], {
                     "chunks": slot["chunks"],
-                    "rows_dropped": slot["rows_dropped"]}
+                    "rows_dropped": slot["rows_dropped"],
+                    "cached": slot.get("cached", False)}
     finally:
         # un-bind the dead feed's budget from every reader it fed
         for r in fed:
@@ -3557,6 +3766,12 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
                 if not q.contains or isinstance(e, DataIntegrityError):
                     raise
                 q.note(e, file=r._source_name, row_group=i)
+                # the unit is skipped, so its traceback goes: its frames
+                # hold the feed's marker, which holds the error, and the
+                # cycle would keep the failed prepare's staged bytes on
+                # the device until the next garbage collection (the
+                # reference keeps it)
+                e.with_traceback(None)
                 q.note_unit_skipped(
                     int(r.metadata.row_groups[i].num_rows or 0))
                 if q.policy == "skip_file":
@@ -3591,7 +3806,8 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
 
 def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
                row_filter=None, with_path: bool = False, prefetch: int = 0,
-               on_data_error=None, quarantine=None, device=None, store=None):
+               on_data_error=None, quarantine=None, device=None, store=None,
+               plan_cache=None):
     """Scan several files' row groups through ONE continuous pipeline.
 
     ``paths`` is a path, a list of paths, or a dataset: a
@@ -3626,8 +3842,13 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
     pass a factory (``lambda f: MyRangeStore(...)``) so each file gets its
     own store; one shared instance would mix the files' bytes.
 
-    Left out of the reference: ``trace``, ``sample_ms``, ``hang_s``,
-    ``hang_policy`` and ``plan_cache``."""
+    ``plan_cache=`` (a ``serve.PlanCache``) reads every file's footer,
+    ScanPlan and decoded dictionaries through shared state, and with a
+    sized device tier its decoded row groups too: a re-scanned file parses
+    nothing, and a fully cached one reads nothing.
+
+    Left out of the reference: the ``obs`` options ``trace``,
+    ``sample_ms``, ``hang_s`` and ``hang_policy``."""
     from .write.manifest import expand_dataset
 
     paths, _manifest = expand_dataset(paths)
@@ -3639,11 +3860,16 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
 
     def work():
         for path in paths:
+            kw = (plan_cache.reader_kwargs(path, columns=columns,
+                                           row_filter=row_filter,
+                                           device=dev,
+                                           validate_crc=validate_crc)
+                  if plan_cache is not None else {})
             r = DeviceFileReader(path, columns=columns,
                                  validate_crc=validate_crc, device=dev,
                                  max_memory=max_memory,
                                  row_filter=row_filter, quarantine=q,
-                                 store=store)
+                                 store=store, **kw)
             # one pinned pool for the whole dataset: the next file's
             # strips reuse the last file's buffers
             r._pinned = pool

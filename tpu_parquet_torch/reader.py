@@ -29,8 +29,15 @@ re-reads torn ranges, coalesces a row group's adjacent chunks
 fetch engine (``iostore_async``).  ``cancel`` (a
 ``resilience.CancelToken``) rides every store read and is checked at each
 unit boundary; its ``CancelledError`` / ``DeadlineExceededError`` ends the
-scan and is never contained.  Left out of the reference: the span tracer,
-and the dictionary and result caches.
+scan and is never contained.
+
+``dict_cache`` (a ``serve.BoundDictCache``) serves decoded dictionary pages
+across readers; ``result_cache`` (a ``serve.BoundResultCache`` bound to the
+host decode signature) serves whole decoded chunks: a warm chunk reads no
+byte, a cold one decodes once under single-flight and is published.  Both
+are shared read-only; ``serve.PlanCache.reader_kwargs`` builds them.  An
+adapter signed for another decode shape or CRC tier is dropped, never
+adopted.  Left out of the reference: the span tracer (``trace=``).
 """
 
 from __future__ import annotations
@@ -82,8 +89,8 @@ class FileReader:
 
     ``prefetch`` is the depth of the chunk pipeline (0 = sequential); the
     read calls take it per call too.  ``row_filter``, ``plan``,
-    ``on_data_error``, ``quarantine``, ``store`` and ``cancel``: see the
-    module docstring.  A store this reader resolved (None or a factory) is
+    ``on_data_error``, ``quarantine``, ``store``, ``cancel``, ``dict_cache``
+    and ``result_cache``: see the module docstring.  A store this reader resolved (None or a factory) is
     closed with it; a ``ByteStore`` instance stays the caller's."""
 
     def __init__(
@@ -100,6 +107,8 @@ class FileReader:
         plan=None,
         store=None,
         cancel=None,
+        dict_cache=None,
+        result_cache=None,
     ):
         if isinstance(source, (str, os.PathLike)):
             self._f: BinaryIO = open(source, "rb")
@@ -143,6 +152,17 @@ class FileReader:
             # group pruning: groups whose footer stats prove the predicate
             # can never match are skipped by the iteration APIs
             self.row_filter = row_filter
+            # the read caches (serve/): decoded dictionaries threaded into
+            # every ChunkDecoder; decoded chunks behind get_or_build.  A
+            # result adapter signed for another decode shape (device
+            # tensors) or CRC tier is dropped rather than adopted
+            self._dict_cache = dict_cache
+            if result_cache is not None:
+                sig = getattr(result_cache, "sig", None) or ()
+                want = ("host", "v1" if self.validate_crc else "v0")
+                if tuple(sig[:2]) != want:
+                    result_cache = None
+            self._result_cache = result_cache
             fp = predicate_fingerprint(row_filter)
             cols_sig = tuple(sorted(
                 ".".join(l.path) for l in self.schema.selected_leaves()))
@@ -316,15 +336,23 @@ class FileReader:
                                          if scan_tok is not None
                                          else store.coalesce_disabled)
                                 and len(items) > 1)
-                if items and (use_coalesce or eng is not None):
+                fetch_items = items
+                if eng is not None and rc is not None and items:
+                    # engine mode fetches at plan time, so the result cache
+                    # is probed here: a warm chunk's bytes are never
+                    # fetched (one evicted in between reads its own range)
+                    fetch_items = [
+                        c for c in items
+                        if not rc.has_group(c[0], [".".join(c[1])])]
+                if fetch_items and (use_coalesce or eng is not None):
                     ranges = []
-                    for it in items:
+                    for it in fetch_items:
                         md, offset = validate_chunk_meta(it[2], it[3])
                         ranges.append((offset, md.total_compressed_size))
                     fetcher = CoalescedFetcher(store, ranges, scan=scan_tok,
                                                engine=eng,
                                                coalesce=use_coalesce)
-                    for it in items:
+                    for it in fetch_items:
                         it[4] = fetcher
                 pending[i] = {"expect": {".".join(p) for p in by_path},
                               "todo": max(len(items), 1), "out": {}}
@@ -341,12 +369,15 @@ class FileReader:
             comp = max(md.total_compressed_size or 0, 0)
             return comp + max(md.total_uncompressed_size or 0, comp)
 
+        rc = self._result_cache
+
         def decode_item(item):
             i, path, chunk, leaf, fetcher = item
             if chunk is None:
                 return i, None, None
             name = ".".join(path)
-            try:
+
+            def decode_chunk():
                 md, offset = validate_chunk_meta(chunk, leaf)
                 alloc = AllocTracker(self.alloc.max_size)
                 alloc.register(md.total_compressed_size)
@@ -360,8 +391,16 @@ class FileReader:
                     dec = ChunkDecoder(
                         leaf, validate_crc=self.validate_crc, alloc=alloc,
                         context={"file": self._source_name, "row_group": i,
-                                 "column": name, "chunk_offset": offset})
-                    cd = dec.decode(buf, md.codec, md.num_values)
+                                 "column": name, "chunk_offset": offset},
+                        dict_cache=self._dict_cache)
+                    return dec.decode(buf, md.codec, md.num_values)
+
+            try:
+                # a warm chunk comes from the result cache without a store
+                # read; a cold one decodes once (single-flight) and is
+                # published; a failed decode is never published
+                cd = (rc.get_or_build(i, name, _cache_build(decode_chunk))
+                      if rc is not None else decode_chunk())
             except ParquetError as e:
                 # containment seam: under a skip policy the failure rides
                 # the stream as a marker; the consumer notes it in order
@@ -438,14 +477,22 @@ class FileReader:
         self._sr.set_scan(self._store.begin_scan(cancel=self._cancel))
         f = self._sr.as_file()
         out: dict[str, ColumnData] = {}
+        rc = self._result_cache
         for path, leaf, chunk, md, offset in row_group_chunks(rg, by_path):
             if self._cancel is not None:
                 self._cancel.check()  # unit boundary: stop issuing IO
-            out[".".join(path)] = read_chunk(
-                f, chunk, leaf, validate_crc=self.validate_crc,
-                alloc=self.alloc,
-                context={"file": self._source_name, "row_group": index},
-                meta=(md, offset))
+            name = ".".join(path)
+
+            def decode_chunk(chunk=chunk, leaf=leaf, md=md, offset=offset):
+                return read_chunk(
+                    f, chunk, leaf, validate_crc=self.validate_crc,
+                    alloc=self.alloc,
+                    context={"file": self._source_name, "row_group": index},
+                    dict_cache=self._dict_cache, meta=(md, offset))
+
+            out[name] = (rc.get_or_build(index, name,
+                                         _cache_build(decode_chunk))
+                         if rc is not None else decode_chunk())
         missing = set(".".join(p) for p in by_path) - set(out)
         if missing:
             raise ParquetError(
@@ -564,6 +611,17 @@ class FileReader:
             leaf = self.schema.leaf_by_path(tuple(name.split(".")))
             out[name] = column_to_pylist(cd, leaf)
         return out
+
+
+def _cache_build(decode):
+    """Adapt a no-argument chunk decode to the result cache's
+    ``get_or_build`` contract (``build() -> (value, nbytes)``)."""
+    def build():
+        from .serve.result_cache import column_nbytes
+
+        cd = decode()
+        return cd, column_nbytes(cd)
+    return build
 
 
 def _concat_column_data(parts: list[ColumnData]) -> ColumnData:
