@@ -172,10 +172,27 @@ Phases:
     every pass: no ``tpq-`` thread, no pinned buffer out, an empty device
     ledger in every reader, and the cache's ledger holding its tier's
     bytes;
-15. one JSON line listing every ported kernel (with phase 11's launches as
+15. obs on the card, lineitem16 SF1 (phase 6's file): (a) a read with
+    every option on (``trace=`` a path, ``sample_ms=50``, ``hang_s=30``,
+    the device lane) bit-equal to the plain read, rows/s of both in turns
+    (plain, obs, obs, plain), the trace holding the stage spans, the
+    sampler's tracks and the lane's ``device.*`` spans; (b) the device
+    lane's launches per CUDA kernel equal to the launch counters' rise,
+    and its serialized seconds within the read's device window (two
+    timing events around the read); (c) ``profile_dir=`` on the same read:
+    a ``torch.profiler`` trace naming ``hybrid_unpack_combine`` and
+    ``fused_plain_words`` and the stages, its kernel times printed beside
+    the lane's per-route and per-kernel seconds, and a ``TPQ_XPROF``
+    window on phase 5's K3 file naming ``fused_narrow_words``; (d) a
+    store stalling on its third fetch at prefetch 4 with
+    ``hang_s=2``, ``hang_policy="raise"``: ``HangError`` within 4 s, its
+    flight dump autopsied as ``network-stall``, and, with the garbage
+    collector off, the device memory back to the phase's baseline after
+    the hang and after a cancelled read (the verdicts still held);
+16. one JSON line listing every ported kernel (with phase 11's launches as
     ``pipeline_launches``, phase 12's as ``filter_launches``, phase 13's
-    as ``store_launches`` and phase 14's as ``cache_launches``), then the
-    result line.
+    as ``store_launches``, phase 14's as ``cache_launches`` and phase
+    15's as ``obs_launches``), then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -184,6 +201,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -4447,6 +4465,314 @@ def read_cache_phase(torch, ck, work: str, smi: str, *, l16_path: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: obs on the card
+# ---------------------------------------------------------------------------
+
+OBS_HANG_S = 2.0  # phase 15(d)'s watchdog deadline
+
+
+def obs_pass(torch, ck, path: str, columns, **reader_kw) -> dict:
+    """One ``DeviceFileReader(path, **reader_kw).iter_row_groups()`` read,
+    timed end to end (ending in a synchronize), between two timing events
+    on the current stream: the read's device window, which the device
+    lane's serialized seconds cannot exceed.  Returns the outputs, the
+    seconds, the launches, the device window, the registry tree, the
+    lane's view by CUDA kernel and the reader (closed)."""
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    r = DeviceFileReader(path, columns=columns, **reader_kw)
+    outs = list(r.iter_row_groups())
+    e1.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    tree = r.obs_registry().as_dict()
+    view = r.device_stats().cuda_kernels()
+    r.close()
+    return dict(outs=outs, seconds=seconds, counts=counts, tree=tree,
+                view=view, window=e0.elapsed_time(e1) / 1e3, reader=r)
+
+
+def lane_checks(p: dict, label: str) -> float:
+    """The device lane of one pass, against the launch counters and the
+    read's device window.  Returns the lane's total seconds."""
+    dev = p["tree"]["device"]
+    if dev is None:
+        raise fail(f"{label}: no device section (the lane is off)")
+    for name, n in p["counts"].items():
+        got = p["view"].get(name, {}).get("launches", 0)
+        if got != n:
+            raise fail(f"{label}: the device lane counted {got} launches of "
+                       f"{name}, the counter rose by {n}")
+    total = (sum(c["device_seconds"] for c in dev["routes"].values())
+             + dev["h2d"]["device_seconds"])
+    units = dev["dispatches"] + dev["h2d"]["transfers"]
+    # each timed unit's two events read the device clock at 0.5 us steps
+    if total > p["window"] + 1e-6 * units:
+        raise fail(f"{label}: the lane's {total:.6f} s exceed the read's "
+                   f"device window {p['window']:.6f} s")
+    return total
+
+
+def profile_kernel_times(path: str) -> dict:
+    """``{kernel name: (device seconds, launches)}`` from a
+    ``torch.profiler`` Chrome trace (its ``kernel`` events)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            s, n = out.get(e["name"], (0.0, 0))
+            out[e["name"]] = (s + e["dur"] / 1e6, n + 1)
+    return out
+
+
+def trace_names(path: str) -> set:
+    with open(path) as f:
+        return {e.get("name") for e in json.load(f)["traceEvents"]}
+
+
+def stall_third_fetch():
+    """A store factory whose store stalls (60 s, until the watchdog's abort
+    wakes it) on the third range it is asked for; returns (factory, the
+    stores it made)."""
+    import threading
+
+    from tpu_parquet_torch.iostore import (FaultInjectingStore, FaultSpec,
+                                           IOConfig, LocalStore)
+
+    stores = []
+
+    def make(f):
+        seen, lock = [], threading.Lock()
+
+        def third(offset, size):
+            with lock:
+                seen.append(offset)
+                return len(seen) == 3
+
+        st = FaultInjectingStore(
+            LocalStore(f), FaultSpec(stall_first=1, stall_s=60.0,
+                                     match=third),
+            config=IOConfig(retries=0, backoff_ms=1.0))
+        stores.append(st)
+        return st
+
+    return make, stores
+
+
+def aborted_reads(torch, work: str, path: str, columns, smi: str) -> dict:
+    """Phase 15(d): a read through a stalling store at prefetch 4 under
+    ``hang_s=OBS_HANG_S``, ``hang_policy="raise"``, and a read cancelled
+    after its first row group, both with the garbage collector off: the
+    hang raised within ``hang_s`` + 2 s, its flight dump autopsied as a
+    network stall, and the device memory back to the phase's baseline
+    after each, the verdicts still held."""
+    import gc
+
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+    from tpu_parquet_torch.errors import CancelledError, HangError
+    from tpu_parquet_torch.iostore_async import shutdown_default_engine
+    from tpu_parquet_torch.obs import autopsy_dump
+    from tpu_parquet_torch.resilience import CancelToken
+
+    label = "obs (d)"
+    dump = os.path.join(work, "obs_hang_dump.json")
+    os.environ["TPQ_FLIGHT"] = dump
+    collected_bytes(torch)
+    base = torch.cuda.memory_allocated()
+    out = {}
+    gc.disable()
+    try:
+        factory, stores = stall_third_fetch()
+        r = DeviceFileReader(path, columns=columns, prefetch=4,
+                             hang_s=OBS_HANG_S, hang_policy="raise",
+                             store=factory)
+        t0 = time.perf_counter()
+        hang = None
+        try:
+            for g in r.iter_row_groups():
+                del g
+        except HangError as e:
+            hang = e
+        took = time.perf_counter() - t0
+        for st in stores:
+            st.release()
+        r.close()
+        shutdown_default_engine()
+        if hang is None:
+            raise fail(f"{label}: the stalled read ended without a HangError")
+        if took > OBS_HANG_S + 2.0:
+            raise fail(f"{label}: HangError after {took:.3f} s, want under "
+                       f"{OBS_HANG_S + 2.0} s")
+        torch.cuda.synchronize()
+        left_hang = torch.cuda.memory_allocated() - base
+        tok = CancelToken()
+        r2 = DeviceFileReader(path, columns=columns, prefetch=4, cancel=tok)
+        it = r2.iter_row_groups()
+        g = next(it)
+        del g
+        tok.cancel()
+        cancelled = None
+        try:
+            next(it)
+        except CancelledError as e:
+            cancelled = e
+        r2.close()
+        torch.cuda.synchronize()
+        left_cancel = torch.cuda.memory_allocated() - base
+        if cancelled is None or tok._exc is not cancelled:
+            raise fail(f"{label}: the cancelled read did not raise the "
+                       f"token's verdict")
+        held = (r._watchdog.error is hang, cancelled.__traceback__ is not None)
+    finally:
+        gc.enable()
+        os.environ.pop("TPQ_FLIGHT", None)
+    if left_hang or left_cancel:
+        raise fail(f"{label}: {left_hang} bytes (hang) and {left_cancel} "
+                   f"bytes (cancel) still on the card with no collection")
+    with open(hang.dump_path) as f:
+        rep = autopsy_dump(json.load(f))
+    if rep["verdict"] != "network-stall" or rep["io"] is None:
+        raise fail(f"{label}: autopsy verdict {rep['verdict']!r}, io "
+                   f"{rep['io']}, want network-stall")
+    check_released([r, r2], label)
+    log(f"{label}: HangError after {took:.3f} s (hang_s {OBS_HANG_S}); "
+        f"autopsy {rep['verdict']}: {rep['probable_cause']}; device memory "
+        f"back to the baseline with the collector off after the hang and "
+        f"the cancel (verdicts still held: {held}) ({smi})")
+    out.update(took=took, verdict=rep["verdict"])
+    return out
+
+
+def read_obs_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                   l16: dict, k3_path: str) -> dict:
+    """Phase 15: obs on the card, lineitem16 SF1 at full size."""
+    t_phase = time.perf_counter()
+    launched: dict = {}
+    label = "obs"
+    trace_path = os.path.join(work, "obs_trace.json")
+    # (a) every option on against the plain read, in turns
+    want, _, _ = timed_pass(torch, l16_path, L16_COLUMNS)
+    rates = {"plain": [], "obs": []}
+    kept = None
+    for kind in ("plain", "obs", "obs", "plain"):
+        if kind == "plain":
+            keep, secs, _ = timed_pass(torch, l16_path, L16_COLUMNS)
+            del keep
+        else:
+            p = obs_pass(torch, ck, l16_path, L16_COLUMNS, trace=trace_path,
+                         sample_ms=50, hang_s=30)
+            secs = p["seconds"]
+            if kept is None:
+                kept = p
+                same_on_card(torch, p["outs"], want, f"{label} (a)")
+            add_launches(launched, p["counts"])
+            p["outs"] = None
+        rates[kind].append(SF1_ROWS / secs)
+    del want
+    for name in ("hybrid_unpack_combine", "fused_plain_words"):
+        if not kept["counts"][name]:
+            raise fail(f"{label} (a): never launched {name}")
+    names = trace_names(trace_path)
+    for want_name in ("stage", "dispatch", "finalize", "pipeline_lanes",
+                      "device.h2d"):
+        if want_name not in names:
+            raise fail(f"{label} (a): the trace has no {want_name!r}")
+    log(f"{label} (a): every option on (trace, sample_ms=50, hang_s=30, "
+        f"device lane) bit-equal to the plain read; rows/s plain "
+        + ", ".join(f"{v:.1f}" for v in rates["plain"]) + ", obs "
+        + ", ".join(f"{v:.1f}" for v in rates["obs"])
+        + f" ({smi})")
+    # (b) the lane against the counters and the device window
+    total = lane_checks(kept, f"{label} (b)")
+    dev = kept["tree"]["device"]
+    log(f"{label} (b): lane {total:.6f} s of the read's device window "
+        f"{kept['window']:.6f} s; per CUDA kernel "
+        + ", ".join(f"{k} {v['plans']} plans {v['launches']} launches "
+                    f"{v['device_seconds']:.6f} s"
+                    for k, v in kept["view"].items()))
+    # (c) profile_dir= on the same read: the profiler's kernel times beside
+    # the lane's, and the wrappers named in the trace
+    prof_dir = os.path.join(work, "obs_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    p = obs_pass(torch, ck, l16_path, L16_COLUMNS, profile_dir=prof_dir)
+    p["outs"] = None
+    add_launches(launched, p["counts"])
+    lane_checks(p, f"{label} (c)")
+    prof_path = p["reader"].profile_path
+    if not prof_path or not os.path.exists(prof_path):
+        raise fail(f"{label} (c): profile_dir wrote no trace")
+    names = trace_names(prof_path)
+    for want_name in ("hybrid_unpack_combine", "fused_plain_words",
+                      "stage", "dispatch", "finalize"):
+        if want_name not in names:
+            raise fail(f"{label} (c): the profile names no {want_name!r}")
+    kt = profile_kernel_times(prof_path)
+    tpq = {k: v for k, v in kt.items() if "tpq_" in k}
+    busy = sum(s for s, _ in kt.values())
+    dev = p["tree"]["device"]
+    log(f"{label} (c): {prof_path}: device busy {busy:.6f} s in "
+        f"{sum(n for _, n in kt.values())} kernels; the port's kernels "
+        + ", ".join(f"{k} {s:.6f} s in {n}" for k, (s, n) in sorted(
+            tpq.items())))
+    log(f"{label} (c): lane per route (device_seconds, dispatches, "
+        f"device_passes): " + ", ".join(
+            f"{r} {c['device_seconds']:.6f} s {c['dispatches']} "
+            f"{c['device_passes']}" for r, c in dev["routes"].items())
+        + f"; h2d {dev['h2d']['device_seconds']:.6f} s in "
+        f"{dev['h2d']['transfers']}; per CUDA kernel " + ", ".join(
+            f"{k} {v['device_seconds']:.6f} s" for k, v in p["view"].items())
+        + f"; window {p['window']:.6f} s ({smi})")
+    # a TPQ_XPROF window on phase 5's K3 file
+    xdir = os.path.join(work, "obs_xprof")
+    shutil.rmtree(xdir, ignore_errors=True)
+    os.environ["TPQ_XPROF"] = xdir
+    os.environ["TPQ_XPROF_S"] = "60"
+    try:
+        px = obs_pass(torch, ck, k3_path, K3_COLUMNS)
+    finally:
+        os.environ.pop("TPQ_XPROF", None)
+        os.environ.pop("TPQ_XPROF_S", None)
+    px["outs"] = None
+    add_launches(launched, px["counts"])
+    if not px["counts"]["fused_narrow_words"]:
+        raise fail(f"{label} (c): the K3 read never launched "
+                   f"fused_narrow_words")
+    xfiles = sorted(os.listdir(xdir)) if os.path.isdir(xdir) else []
+    if not xfiles or "fused_narrow_words" not in trace_names(
+            os.path.join(xdir, xfiles[0])):
+        raise fail(f"{label} (c): the TPQ_XPROF window {xfiles} names no "
+                   f"fused_narrow_words")
+    xk = profile_kernel_times(os.path.join(xdir, xfiles[0]))
+    log(f"{label} (c): TPQ_XPROF window {xfiles[0]} on the K3 file: "
+        + ", ".join(f"{k} {s:.6f} s in {n}" for k, (s, n) in sorted(
+            xk.items()) if "tpq_" in k)
+        + "; lane per CUDA kernel " + ", ".join(
+            f"{k} {v['device_seconds']:.6f} s" for k, v in
+            px["view"].items()))
+    del p, px
+    kept["outs"] = None
+    # (d) a hang and a cancel, the collector off
+    hang = aborted_reads(torch, work, l16_path, L16_COLUMNS, smi)
+    wall = time.perf_counter() - t_phase
+    log(f"obs summary ({smi}): lineitem16 SF1 rows/s plain "
+        + ", ".join(f"{v:.1f}" for v in rates["plain"]) + ", every option "
+        "on " + ", ".join(f"{v:.1f}" for v in rates["obs"])
+        + f"; hang raised in {hang['took']:.3f} s; phase 15 launches "
+        f"{launched}; phase 15 wall {wall:.2f} s")
+    return dict(launched=launched, rates=rates, lane=kept["view"],
+                device=kept["tree"]["device"], kernel_times=tpq,
+                xprof_times=xk, hang=hang, wall=wall)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -4583,7 +4909,12 @@ def main() -> int:
     cache = read_cache_phase(torch, ck, work, smi, l16_path=l16_path,
                              l16=l16, pa_layout=pa_layout)
 
-    # the kernels line and the result line
+    # phase 15: obs on the card (every option on, the device lane, the
+    # profiles, a hang and a cancel with the collector off)
+    obs = read_obs_phase(torch, ck, work, smi, l16_path=l16_path, l16=l16,
+                         k3_path=k3_path)
+
+    # phase 16: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "hybrid_unpack_combine", "route": "cuda",
@@ -4647,13 +4978,14 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phases 11's, 12's, 13's and 14's launches beside each kernel's
+    # phases 11's to 15's launches beside each kernel's
     # main-path count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
         entry["filter_launches"] = filt["launched"].get(entry["name"], 0)
         entry["store_launches"] = store["launched"].get(entry["name"], 0)
         entry["cache_launches"] = cache["launched"].get(entry["name"], 0)
+        entry["obs_launches"] = obs["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -36,6 +36,9 @@ from tpu_parquet.writer import FileWriter
 from tpu_parquet_torch import cuda_kernels as CK
 from tpu_parquet_torch import device_reader as DR
 from tpu_parquet_torch.device_reader import DeviceDictColumn, DeviceFileReader
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 ROWS = 5_000
 GROUP = 2_500

@@ -43,6 +43,9 @@ from tpu_parquet.writer import FileWriter
 from tpu_parquet_torch import cuda_kernels as CK
 from tpu_parquet_torch.device_reader import DeviceFileReader
 from tpu_parquet_torch.ship import ROUTES
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 TYPES = {"dates": Type.INT64, "wide": Type.INT64, "cnt": Type.INT32,
          "rate": Type.FLOAT, "dbl": Type.DOUBLE, "dates32": Type.INT32}

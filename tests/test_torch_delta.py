@@ -32,6 +32,9 @@ from tpu_parquet_torch import cuda_kernels as CK
 from tpu_parquet_torch import torch_decode as TD
 from tpu_parquet_torch import torch_kernels as TK
 from tpu_parquet_torch.device_reader import DeviceDictColumn, DeviceFileReader
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 @pytest.fixture(scope="module", autouse=True)

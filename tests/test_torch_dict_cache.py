@@ -42,6 +42,9 @@ from tpu_parquet_torch.column import ByteArrayData
 from tpu_parquet_torch.footer import read_file_metadata
 from tpu_parquet_torch.format import CompressionCodec
 from tpu_parquet_torch.schema.core import Schema
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 def _pyarrow_fallback(path):

@@ -28,6 +28,9 @@ from tpu_parquet.device_reader import DeviceDictColumn as RefDict
 from tpu_parquet.device_reader import DeviceFileReader as RefReader
 from tpu_parquet_torch import torch_kernels as TK
 from tpu_parquet_torch.device_reader import DeviceDictColumn, DeviceFileReader
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 N = 4000
 

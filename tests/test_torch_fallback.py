@@ -36,6 +36,9 @@ from tpu_parquet_torch.device_reader import DeviceFileReader
 from tpu_parquet_torch.footer import read_file_metadata
 from tpu_parquet_torch.format import Encoding, PageType
 from tpu_parquet_torch.ship import ROUTES
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 N = 10_000
 GROUP = 5000

@@ -40,6 +40,9 @@ from tpu_parquet_torch.iostore_async import (FetchEngine,
                                              shutdown_default_engine)
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.resilience import CancelToken
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,9 @@ from tpu_parquet_torch.format import (CompressionCodec, Encoding,
 from tpu_parquet_torch.kernels import delta as port_delta
 from tpu_parquet_torch.schema.core import Schema, build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 N = 3000
 GROUP = 1500

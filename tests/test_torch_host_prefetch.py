@@ -29,6 +29,9 @@ from tpu_parquet_torch.alloc import MemoryBudgetExceeded
 from tpu_parquet_torch.column import ByteArrayData
 from tpu_parquet_torch.footer import ParquetError
 from tpu_parquet_torch.reader import FileReader
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 DEPTHS = [0, 1, 4]
 

@@ -44,6 +44,9 @@ from tpu_parquet_torch import schema as PS
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.reader import column_to_pylist
 from tpu_parquet_torch.writer import FileWriter as PortWriter
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 CODECS = {"snappy": CompressionCodec.SNAPPY, "gzip": CompressionCodec.GZIP}
 

@@ -28,6 +28,9 @@ from tpu_parquet.kernels import bitpack
 from tpu_parquet_torch import cuda_kernels as CK
 from tpu_parquet_torch import device_reader as DR
 from tpu_parquet_torch import torch_decode as TD
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 WIDTHS = [1, 3, 4, 6, 8, 13, 14, 20, 32]
 SHAPES = ["one_bp_run", "odd_rle_between_bp", "many_ragged_pages",

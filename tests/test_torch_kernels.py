@@ -27,6 +27,9 @@ from tpu_parquet.kernels import bitpack, rle
 from tpu_parquet_torch import cuda_kernels as CK
 from tpu_parquet_torch import torch_decode as TD
 from tpu_parquet_torch import torch_kernels as TK
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -354,8 +357,22 @@ def test_port_imports_no_jax_and_no_reference_module():
                      "write.manifest", "predicate", "scanplan",
                      "quarantine", "iostore", "iostore_async",
                      "resilience", "obs", "serve", "serve.cache",
-                     "serve.result_cache"):
+                     "serve.result_cache", "errors"):
             assert "tpu_parquet_torch." + name in names, name
+        # the whole obs layer, exercised: still no jax, no tpu_parquet
+        from tpu_parquet_torch import obs
+        from tpu_parquet_torch.device_reader import DeviceStats
+        from tpu_parquet_torch.errors import HangError
+        for sym in ("Tracer", "Sampler", "Watchdog", "StatsRegistry",
+                    "FlightRecorder", "RequestTrace", "TailSampler",
+                    "MetricsDumper", "autopsy_dump", "doctor_registry",
+                    "trace_summary", "render_openmetrics"):
+            assert hasattr(obs, sym), sym
+        reg = obs.StatsRegistry()
+        reg.add_device(DeviceStats())
+        obs.render_openmetrics(reg.as_dict())
+        obs.flight_recorder().snapshot(reason="import-check")
+        assert issubclass(HangError, RuntimeError)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "tpu_parquet" or m.startswith("tpu_parquet."))

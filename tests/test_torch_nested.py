@@ -51,6 +51,9 @@ from tpu_parquet_torch import torch_kernels as TK
 from tpu_parquet_torch.column import ByteArrayData as PortByteArrayData
 from tpu_parquet_torch.device_reader import DeviceFileReader
 from tpu_parquet_torch.ship import ROUTES
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 ROWS = 1_200
 

@@ -14,7 +14,7 @@
   budget, a blocking ``acquire`` woken by a ``release`` from another
   thread;
 - ``PipelineStats``: the stage names, ``merge_from``, and ``as_dict()``'s
-  keys against the reference's less ``stage_histograms``;
+  keys against the reference's, ``stage_histograms`` included;
 - ``SharedReader``: positioned reads on a real file and on ``BytesIO``
   from 8 threads at once.
 
@@ -32,6 +32,9 @@ import pytest
 from tpu_parquet import alloc as ref_alloc
 from tpu_parquet import pipeline as ref_pipeline
 from tpu_parquet_torch import alloc, pipeline
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 @pytest.fixture(autouse=True)
@@ -253,11 +256,17 @@ def test_pipeline_stats_stages_merge_and_keys():
     got[0].merge_from(got[1])
     want[0].merge_from(want[1])
     g, w = got[0].as_dict(), want[0].as_dict()
-    assert set(w) - set(g) == {"stage_histograms"}
-    assert set(g) <= set(w)
+    assert set(g) == set(w)
     for key in g:
-        if key not in ("wall_seconds", "overlap_efficiency"):
+        if key not in ("wall_seconds", "overlap_efficiency",
+                       "stage_histograms"):
             assert g[key] == w[key], key
+    # the histograms hold the same durations: equal counts and buckets
+    gh, wh = g["stage_histograms"], w["stage_histograms"]
+    assert set(gh) == set(wh)
+    for stage in gh:
+        assert gh[stage]["count"] == wh[stage]["count"], stage
+        assert gh[stage]["buckets"] == wh[stage]["buckets"], stage
     assert g["peak_in_flight_bytes"] == 300
     assert g["chunks"] == 30 and g["row_groups"] == 6
     for s in pipeline.STAGES:

@@ -29,6 +29,9 @@ from tests.test_torch_result_cache import (BOTH, PORT, REF, _cache_counters,
 from tpu_parquet_torch import device_reader as DR
 from tpu_parquet_torch.serve import BoundDictCache, PlanCache
 from tpu_parquet_torch.serve.cache import _columns_sig
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 @pytest.fixture(scope="module", autouse=True)

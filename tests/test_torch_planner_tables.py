@@ -36,6 +36,9 @@ from tpu_parquet_torch import ship as PS
 from tpu_parquet_torch.errors import ParquetError as PortParquetError
 from tpu_parquet_torch.footer import read_file_metadata
 from tpu_parquet_torch.schema.core import Schema
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -50,6 +50,9 @@ from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.ship import ROUTES
 from tpu_parquet_torch.writer import FileWriter
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 DEPTHS = [0, 4]
 G, N = 3, 4096  # row groups x rows per group

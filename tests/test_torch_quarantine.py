@@ -43,6 +43,9 @@ from tpu_parquet_torch.format import (CompressionCodec,
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter, corrupt_page
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 N_GROUPS, ROWS = 5, 400
 POLICIES = ["raise", "skip_unit", "skip_file"]

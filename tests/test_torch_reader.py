@@ -36,6 +36,9 @@ from tpu_parquet_torch import cuda_kernels as CK
 from tpu_parquet_torch import device_reader as DR
 from tpu_parquet_torch.device_reader import DeviceFileReader
 from tpu_parquet_torch.errors import ParquetError as PortParquetError
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 ROWS = 12_000
 GROUP = 6_000

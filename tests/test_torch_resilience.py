@@ -55,6 +55,9 @@ from tpu_parquet_torch.resilience import (BreakerBoard, CancelToken,
                                           ChaosPhase, ChaosSchedule)
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 PAIRS = ((S, R, FileReader), (RS, RR, RefReader))
 

@@ -53,6 +53,9 @@ from tpu_parquet_torch.serve.result_cache import (DEVICE_TENSOR_ATTRS,
                                                   device_column_nbytes,
                                                   device_tag)
 from tpu_parquet_torch.torch_decode import DeviceColumnData
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 class _Pkg:
@@ -170,9 +173,9 @@ class _Launches:
                   "fused_plain_words": 0, "fused_narrow_words": 0}
         run = DR._run_plans
 
-        def run_plans(plans, buf):
+        def run_plans(plans, buf, *timer):
             self.n["plans"] += len(plans)
-            return run(plans, buf)
+            return run(plans, buf, *timer)
 
         monkeypatch.setattr(DR, "_run_plans", run_plans)
         for name in ("hybrid_unpack_combine", "fused_plain_words",

@@ -34,6 +34,9 @@ from tpu_parquet_torch import scanplan as SP
 from tpu_parquet_torch.errors import ParquetError
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.ship import ROUTES
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 NAMES = ("plain", "dict", "strings_plain", "optional")
 

@@ -38,6 +38,9 @@ from tpu_parquet_torch import native
 from tpu_parquet_torch import ship as TS
 from tpu_parquet_torch import torch_kernels as TK
 from tpu_parquet_torch.torch_decode import _bucket, _bucket_bytes
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -56,6 +56,9 @@ from tpu_parquet_torch.errors import (CancelledError, DeadlineExceededError,
 from tpu_parquet_torch.format import CompressionCodec
 from tpu_parquet_torch.iostore_async import (default_engine_if_running,
                                              shutdown_default_engine)
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 SN, GZ, U = (CompressionCodec.SNAPPY, CompressionCodec.GZIP,
              CompressionCodec.UNCOMPRESSED)

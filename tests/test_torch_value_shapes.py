@@ -32,6 +32,9 @@ from tpu_parquet_torch import device_reader as DR
 from tpu_parquet_torch.column import ByteArrayData
 from tpu_parquet_torch.device_reader import DeviceDictColumn, DeviceFileReader
 from tpu_parquet_torch.ship import ROUTES
+from tests.test_torch_ref_native import ensure_reference_native
+
+ensure_reference_native()
 
 N = 3000
 GROUP = 1500

@@ -10,15 +10,44 @@ The counterpart of ``tpu_parquet.alloc``, cut to what the port runs:
   scoped to one read operation and reset per row group.  Beside it, a
   device ledger (staged buffers on the card), which only counts;
 - :class:`InFlightBudget`, the prefetch pipeline's backpressure
-  (``pipeline.prefetch_map``).
-
-Left out: the live-instance registries of the flight recorder and the
-watchdog's ``abort`` (Queue 1 item 5.5).
+  (``pipeline.prefetch_map``), which the hang watchdog can ``abort``;
+- the live-instance registries the flight recorder reads
+  (:func:`budget_snapshots`, :func:`tracker_snapshots`).
 """
 
 from __future__ import annotations
 
 import threading
+import time
+import weakref
+
+# live instances for the flight recorder (obs.FlightRecorder): a hang dump
+# shows every budget's waiters and every tracker's watermark without the
+# dumping thread knowing who made them.  Weak sets: registering never
+# extends a lifetime (per-chunk trackers are made by the thousand).
+_LIVE_BUDGETS: "weakref.WeakSet[InFlightBudget]" = weakref.WeakSet()
+_LIVE_TRACKERS: "weakref.WeakSet[AllocTracker]" = weakref.WeakSet()
+
+
+def budget_snapshots() -> "list[dict]":
+    """Snapshots of every live :class:`InFlightBudget`."""
+    return [b.snapshot() for b in list(_LIVE_BUDGETS)]
+
+
+def tracker_snapshots() -> "list[dict]":
+    """``{in_use, peak, max_size, device_in_use, device_peak}`` of every
+    live :class:`AllocTracker` with a nonzero watermark (idle per-chunk
+    trackers carry no signal)."""
+    out = []
+    for t in list(_LIVE_TRACKERS):
+        in_use, peak = t.snapshot()
+        dev_in_use, dev_peak = t.device_snapshot()
+        if in_use or peak or dev_in_use or dev_peak:
+            out.append({"in_use": in_use, "peak": peak,
+                        "max_size": t.max_size,
+                        "device_in_use": dev_in_use,
+                        "device_peak": dev_peak})
+    return out
 
 
 class MemoryBudgetExceeded(MemoryError):
@@ -50,6 +79,7 @@ class AllocTracker:
         self.device_total = 0
         self.device_peak = 0
         self._lock = threading.Lock()
+        _LIVE_TRACKERS.add(self)
 
     def register(self, nbytes: int) -> None:
         with self._lock:
@@ -113,7 +143,11 @@ class InFlightBudget:
         self.held = 0
         self.peak = 0
         self._cv = threading.Condition()
-        self._waiters = 0
+        # thread ident -> wait start: who is blocked in acquire() now, and
+        # since when (the flight recorder's and the watchdog's signal)
+        self._waiting: dict[int, float] = {}
+        self._abort: "BaseException | None" = None
+        _LIVE_BUDGETS.add(self)
 
     def _charge(self, nbytes: int) -> int:
         n = int(nbytes)
@@ -140,23 +174,42 @@ class InFlightBudget:
     def acquire(self, nbytes: int, cancel=None) -> None:
         """Block until ``nbytes`` fit under the cap, then take them.
 
-        ``cancel`` (a :class:`~tpu_parquet_torch.resilience.CancelToken`)
-        slices the wait, so a cancelled or expired request raises its
-        typed verdict instead of waiting out another item's drain."""
+        While blocked, the waiter shows in :meth:`snapshot` (count and
+        longest wait).  An :meth:`abort` wakes every waiter and raises its
+        exception here.  ``cancel`` (a
+        :class:`~tpu_parquet_torch.resilience.CancelToken`) slices the
+        wait, so a cancelled or expired request raises its typed verdict
+        instead of waiting out another item's drain."""
         if self.max_bytes <= 0:
             return
         n = self._charge(nbytes)
+        tid = threading.get_ident()
         with self._cv:
-            self._waiters += 1
+            started = None
             try:
                 while not self._fits(n):
+                    if self._abort is not None:
+                        raise self._abort
                     if cancel is not None:
                         cancel.check()
+                    if started is None:
+                        started = time.monotonic()
+                        self._waiting[tid] = started
                     self._cv.wait(0.05 if cancel is not None else None)
             finally:
-                self._waiters -= 1
+                if started is not None:
+                    self._waiting.pop(tid, None)
             self.held += n
             self.peak = max(self.peak, self.held)
+
+    def abort(self, exc: BaseException) -> None:
+        """Poison the budget: every current and future blocking
+        :meth:`acquire` raises ``exc``.  The watchdog's raise policy calls
+        it, so a submitter wedged on backpressure raises
+        :class:`~tpu_parquet_torch.errors.HangError` instead of hanging."""
+        with self._cv:
+            self._abort = exc
+            self._cv.notify_all()
 
     def release(self, nbytes: int) -> None:
         if self.max_bytes <= 0:
@@ -167,8 +220,16 @@ class InFlightBudget:
             self._cv.notify_all()
 
     def snapshot(self) -> dict:
-        """Held and peak bytes, the cap, and the threads blocked in
-        :meth:`acquire` now."""
+        """Held and peak bytes, the cap, the threads blocked in
+        :meth:`acquire` now and the oldest one's wait (a growing wait with
+        a frozen ``held`` is a wedge)."""
         with self._cv:
-            return {"held": self.held, "peak": self.peak,
-                    "max_bytes": self.max_bytes, "waiters": self._waiters}
+            now = time.monotonic()
+            waits = [now - t0 for t0 in self._waiting.values()]
+            return {
+                "held": self.held,
+                "peak": self.peak,
+                "max_bytes": self.max_bytes,
+                "waiters": len(waits),
+                "longest_wait_s": round(max(waits), 6) if waits else 0.0,
+            }

@@ -34,6 +34,7 @@ the reference's.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -205,9 +206,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _profiled(name: str):
+    """A ``record_function`` span named as the wrapper while a
+    ``torch.profiler`` capture runs (a trace then names the kernel by its
+    wrapper, beside its CUDA symbol); nothing otherwise."""
+    if (getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+            or torch._C._autograd._profiler_enabled()):
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
 def _launch(name: str, buf: torch.Tensor, *args) -> None:
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    with torch.cuda.device(buf.device):
+    with torch.cuda.device(buf.device), _profiled(name):
         rc = _entry(name)(buf.data_ptr(), buf.numel(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")

@@ -76,9 +76,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import logging
+import os
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace as _dc_replace
 from typing import Optional
@@ -86,11 +89,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import cuda_kernels as _CK
 from . import native
 from . import torch_kernels as K
 from .alloc import AllocTracker, InFlightBudget
 from .chunk_decode import _check_crc, walk_pages
-from .errors import DataIntegrityError, annotate_data_error, error_context
+from .errors import (CancelledError, DataIntegrityError,
+                     DeadlineExceededError, HangError, annotate_data_error,
+                     error_context)
 from .column import ByteArrayData
 from .compress import decompress_block
 from .cuda_kernels import (FUSED_MAX_DEPTH, FUSED_MAX_OPS, FUSED_MAX_PAYLOAD,
@@ -103,6 +109,10 @@ from .iostore import CoalescedFetcher, require_full
 from .iostore_async import engine_for_store
 from .kernels import bitpack
 from .kernels.delta import _read_uvarint
+from .obs import (Sampler, StatsRegistry, Watchdog, current_request_trace,
+                  env_float, env_int, register_flight_registry,
+                  resolve_hang_s, resolve_sample_ms, resolve_tracer,
+                  warn_env_once)
 from .pipeline import PipelineStats, prefetch_map
 from .quarantine import Quarantine
 # a chunk's data error riding the ordered chunk feed: ``_prepare_row_group``
@@ -126,8 +136,8 @@ from .torch_decode import (
     parse_delta_meta, parse_hybrid_meta,
 )
 
-__all__ = ["DeviceDictColumn", "DeviceFileReader", "ReaderStats",
-           "decode_chunk_batched", "scan_files"]
+__all__ = ["DeviceDictColumn", "DeviceFileReader", "DeviceStats",
+           "ReaderStats", "decode_chunk_batched", "scan_files"]
 
 SLICE = ("flat and nested columns (repeated leaves: LIST, MAP, nested "
          "groups) of every physical type (BYTE_ARRAY and "
@@ -334,12 +344,14 @@ class _RowGroupStager:
     thread that made it (the consumer's: PyTorch's current stream is per
     thread, so a worker would otherwise enqueue on the default stream), on
     ``device``, with host buffers from ``pool``.  ``ready`` is the event
-    recorded after the last copy."""
+    recorded after the last copy.  A ``timed`` stager on the card brackets
+    each copy with timing events (``copy_marks``: the device lane's
+    ``h2d``)."""
 
     STRIP = 16 << 20
 
     def __init__(self, executor=None, device: "torch.device | None" = None,
-                 pool: "_PinnedPool | None" = None):
+                 pool: "_PinnedPool | None" = None, timed: bool = False):
         # ("arr", u8, base, nbytes) | ("segs", segments, base, nbytes)
         self._parts: list[tuple] = []
         self.total = 0
@@ -352,6 +364,8 @@ class _RowGroupStager:
         self._strip_futs: list = []
         self._flushed = 0  # arena bytes handed to strip jobs
         self.ready = None
+        self._timed = bool(timed) and self._stream is not None
+        self.copy_marks: list = []  # (start, end) timing events per copy
 
     def _reserve(self, nbytes: int, reserve: int | None) -> int:
         base = self.total
@@ -445,13 +459,24 @@ class _RowGroupStager:
         host = pool.take(nbytes)
         self._copy_range(host.numpy()[:nbytes], lo, lo + nbytes)
         with torch.cuda.stream(self._stream):
+            start = self._mark()
             out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
             out.copy_(host[:nbytes], non_blocking=True)
-            ev = torch.cuda.Event()
+            ev = torch.cuda.Event(enable_timing=self._timed)
             ev.record(self._stream)
+        if start is not None:
+            self.copy_marks.append((start, ev))
         pool.give(host, ev)
         self.ready = ev
         return out
+
+    def _mark(self):
+        """A timing event recorded on the stager's stream (timed stagers)."""
+        if not self._timed:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
 
     def _flush_ready(self) -> None:
         """Hand every newly completed strip to the worker."""
@@ -498,9 +523,12 @@ class _RowGroupStager:
         if self._device.type != "cuda":
             return torch.cat(parts)
         with torch.cuda.stream(self._stream):
+            start = self._mark()
             buf = torch.cat(parts)
-            self.ready = torch.cuda.Event()
+            self.ready = torch.cuda.Event(enable_timing=self._timed)
             self.ready.record(self._stream)
+        if start is not None:
+            self.copy_marks.append((start, self.ready))
         return buf
 
 
@@ -867,7 +895,8 @@ def _plan_hybrid_pallas(stager: _RowGroupStager, pages_info, width: int,
     stager.note_read_extent(bp_base, gpad * width)
     fn = functools.partial(hybrid_unpack_combine, width=width, gpad=gpad,
                            count=count_pad, rp=rp)
-    return _Plan(fn, (bp_base, tbase, total), None)
+    # the unpack and the run-table combine: two passes in the reference
+    return _Plan(fn, (bp_base, tbase, total), None, stages=2)
 
 
 def _merge_run_tables(ends_l, rle_l, vals_l, starts_l, fill_end,
@@ -1078,30 +1107,73 @@ class _Plan:
     chunk's decode over the staged buffer (``dyn`` holds its byte bases and
     counts), then ``build(result)`` makes the column on the host side.
     Sub-plans that a column's plan composes (index and level streams)
-    carry ``build=None``.  ``family`` names the plan's kernel family
-    (``plain``, ``snappy_resolve``, ``narrow``, ``fused``, ``gather``,
-    ``unpack``; a composed column takes its value plan's)."""
+    carry ``build=None``; ``fn=None`` is a pass-through whose column was
+    made at prepare time (``build(None)`` returns it).  ``family`` names
+    the plan's kernel family (``plain``, ``snappy_resolve``, ``narrow``,
+    ``fused``, ``gather``, ``unpack``; a composed column takes its value
+    plan's).
 
-    __slots__ = ("fn", "dyn", "build", "family")
+    ``stages`` is the reference's structural count of separate device
+    passes for the same plan (3 by default, a pass-through 0, a fused
+    kernel 1, the snappy chains 3 plus their pointer-doubling rounds): the
+    device lane reports it as ``device_passes``, so the registry trees of
+    both packages hold the same numbers.  ``route``, ``bytes_in`` and
+    ``bytes_staged`` are set at prepare from the chunk's ship records (its
+    dominant route, logical and shipped bytes): the device lane's keys."""
 
-    def __init__(self, fn, dyn, build, family: str = "plain"):
+    __slots__ = ("fn", "dyn", "build", "family", "stages", "route",
+                 "bytes_in", "bytes_staged")
+
+    def __init__(self, fn, dyn, build, family: str = "plain",
+                 stages: "int | None" = None):
         self.fn = fn
         self.dyn = tuple(dyn)
         self.build = build
         # the kernel family the reference names for this plan's key
         # (its _KERNEL_FAMILIES): the ScanPlan route memo records it
         self.family = family
+        self.stages = (stages if stages is not None
+                       else (3 if fn is not None else 0))
+        self.route = None
+        self.bytes_in = 0
+        self.bytes_staged = 0
 
 
-def _run_plans(plans, buf_dev):
+def _run_plans(plans, buf_dev, timer: "_DeviceTimer | None" = None):
     """Execute ``[(name, _Plan)]`` against the staged buffer; every launch
-    is asynchronous on the current stream."""
-    return {name: p.build(p.fn(buf_dev, *p.dyn)) for name, p in plans}
+    is asynchronous on the current stream.  A pass-through plan
+    (``fn=None``) only builds.
+
+    With a ``timer`` (the reader's device lane) each launched plan is
+    bracketed by the timer's marks (timing events on the card) and handed
+    to its worker under the plan's route and kernel family, with the CUDA
+    kernel launches counted inside it."""
+    out = {}
+    timing = timer is not None and timer.enabled
+    for name, p in plans:
+        if p.fn is None:
+            out[name] = p.build(None)
+            continue
+        if not timing:
+            out[name] = p.build(p.fn(buf_dev, *p.dyn))
+            continue
+        before = dict(_CK.launches)
+        t0 = timer.mark()
+        res = p.fn(buf_dev, *p.dyn)
+        timer.submit("dispatch", p.route or ROUTE_PLAIN, p.family, t0,
+                     bytes_in=p.bytes_in, bytes_staged=p.bytes_staged,
+                     passes=p.stages,
+                     cuda={k: n - before.get(k, 0)
+                           for k, n in _CK.launches.items()
+                           if n != before.get(k, 0)} or None)
+        out[name] = p.build(res)
+    return out
 
 
 def _compose_column(value_plan: "_Plan", d_plan, r_plan) -> "_Plan":
     """Fuse a chunk's value plan with its def- and rep-level plans into one
-    _Plan producing the finished DeviceColumnData."""
+    _Plan producing the finished DeviceColumnData (a pass-through value
+    plan contributes no launch)."""
     if d_plan is None and r_plan is None:
         return value_plan
     nv = len(value_plan.dyn)
@@ -1111,7 +1183,7 @@ def _compose_column(value_plan: "_Plan", d_plan, r_plan) -> "_Plan":
     r_fn = r_plan.fn if r_plan is not None else None
 
     def fn(buf, *dyn):
-        return (v_fn(buf, *dyn[:nv]),
+        return (v_fn(buf, *dyn[:nv]) if v_fn is not None else None,
                 d_fn(buf, *dyn[nv : nv + nd]) if d_fn is not None else None,
                 r_fn(buf, *dyn[nv + nd :]) if r_fn is not None else None)
 
@@ -1126,7 +1198,10 @@ def _compose_column(value_plan: "_Plan", d_plan, r_plan) -> "_Plan":
 
     dyn = (value_plan.dyn + (d_plan.dyn if d_plan is not None else ())
            + (r_plan.dyn if r_plan is not None else ()))
-    return _Plan(fn, dyn, build, family=value_plan.family)
+    stages = (value_plan.stages
+              + (d_plan.stages if d_plan is not None else 0)
+              + (r_plan.stages if r_plan is not None else 0))
+    return _Plan(fn, dyn, build, family=value_plan.family, stages=stages)
 
 
 def _fused_words_cast(words: torch.Tensor, dtype: str) -> torch.Tensor:
@@ -1171,13 +1246,33 @@ class _ChunkAssembler:
         # AllocTracker: the link-recompression copies count against the
         # budget too (set by _collect_chunk)
         self.alloc = None
-        # the planner's modelled seconds per feasible route (preship)
+        # the planner's modelled seconds per feasible route (preship): the
+        # bottleneck lane's, the device lane's, and for fused routes the
+        # unfused chain's device seconds (obs.StatsRegistry.ship_feedback
+        # sets them beside the measured lanes)
         self._ship_costs: dict = {}
+        self._ship_dev_costs: dict = {}
+        self._ship_unfused_dev: dict = {}
+        # the same for the dictionary value table
+        self._dict_costs: dict = {}
+        self._dict_dev_costs: dict = {}
         # a replayed ScanPlan's memoized route: preship puts it first
         self._route_hint: "str | None" = None
 
-    def _record_ship(self, route: str, logical: int, shipped: int) -> None:
-        self.ship_records.append((route, int(logical), int(shipped)))
+    def _record_ship(self, route: str, logical: int, shipped: int,
+                     predicted: "float | None" = None,
+                     predicted_device: "float | None" = None) -> None:
+        """One shipped stream: route, logical and shipped bytes, and the
+        planner's predictions for it (a value stream's from the preship
+        cost tables, a dictionary table's passed in)."""
+        if predicted is None:
+            predicted = self._ship_costs.get(route, 0.0)
+        if predicted_device is None:
+            predicted_device = self._ship_dev_costs.get(route, 0.0)
+        self.ship_records.append(
+            (route, int(logical), int(shipped), float(predicted),
+             float(predicted_device),
+             float(self._ship_unfused_dev.get(route, 0.0))))
 
     def _apply_route_hint(self) -> None:
         """Move a replayed route memo to the head of the preference order.
@@ -1376,6 +1471,10 @@ class _ChunkAssembler:
             flat=leaf.max_def == 0 and leaf.max_rep == 0,
         )
         self._ship_pref, self._ship_costs = planner.plan(facts)
+        self._ship_dev_costs = planner.device_costs(
+            facts, routes=self._ship_costs)
+        self._ship_unfused_dev = planner.unfused_device_costs(
+            facts, routes=self._ship_costs)
         self._apply_route_hint()
         for route in self._ship_pref:
             if route in (ROUTE_NARROW, ROUTE_NARROW_SNAPPY,
@@ -1438,6 +1537,8 @@ class _ChunkAssembler:
         facts = ChunkFacts(logical=logical, width=0, comp_bytes=comp_bytes,
                            native=True)
         self._ship_pref, self._ship_costs = planner.plan(facts)
+        self._ship_dev_costs = planner.device_costs(
+            facts, routes=self._ship_costs)
         self._apply_route_hint()
         for route in self._ship_pref:
             if route == ROUTE_DEVICE_SNAPPY:
@@ -1485,7 +1586,10 @@ class _ChunkAssembler:
             native=native.available(),
             host_bytes_ready=True,  # dict pages always decompress on host
         )
-        for route in planner.routes(facts):
+        dict_routes, self._dict_costs = planner.plan(facts)
+        self._dict_dev_costs = planner.device_costs(
+            facts, routes=self._dict_costs)
+        for route in dict_routes:
             if route == ROUTE_DEVICE_SNAPPY and comp0 is not None:
                 self._dict_ship = (route, comp0[0], comp0[1])
                 return
@@ -1632,7 +1736,8 @@ class _ChunkAssembler:
             return _hybrid(buf, e, r != 0, v, s, slots, width=width,
                            count=slots_pad)
 
-        return _Plan(fn, tables, None)
+        # run-table expand + tail mask: two passes in the reference
+        return _Plan(fn, tables, None, stages=2)
 
     def _stage_fixed_width(self, stager, width: int):
         """Register exactly the pages' value bytes back-to-back for a
@@ -1701,7 +1806,7 @@ class _ChunkAssembler:
                 dtype=name, count=count, n_pages=pages_pad),
             (info.tbase,),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
-            family="snappy_resolve",
+            family="snappy_resolve", stages=3 + iters,
         )
 
     def _plan_recompress_fixed(self, common, stager, name: str):
@@ -1836,7 +1941,8 @@ class _ChunkAssembler:
                     lambda buf, tb_d, bias_d: _snappy_narrow_staged(
                         buf, tb_d, bias_d, n_ops=n_ops, out_pad=out_pad,
                         iters=iters, k=k, dtype=name, count=count),
-                    (info.tbase, bias), build, family="narrow")
+                    (info.tbase, bias), build, family="narrow",
+                    stages=3 + iters)
             # op planning fell through: ship the narrow bytes uncompressed
         base = stager.add(out)
         stager.note_read_extent(base, count * k)
@@ -1880,7 +1986,7 @@ class _ChunkAssembler:
         return _Plan(
             fn, (base, defined),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
-            family="fused",
+            family="fused", stages=1,
         )
 
     def _plan_fused_narrow(self, common, stager, name: str, k: int, mn,
@@ -1925,7 +2031,7 @@ class _ChunkAssembler:
         return _Plan(
             fn, (tbase, pbase, int(mn), defined),
             lambda v: DeviceColumnData(values=v, n_values=defined, **common),
-            family="fused",
+            family="fused", stages=1,
         )
 
     def _finish_plain_bytes(self, common, stager):
@@ -2042,7 +2148,8 @@ class _ChunkAssembler:
             lambda buf, lb_d, tb_d: _snappy_bytes_staged(
                 buf, lb_d, tb_d, count_pad=count_pad, heap_pad=heap_pad,
                 n_ops=n_ops, out_pad=out_pad, iters=iters, n_pages=n_pages),
-            (lens_base, info.tbase), build, family="snappy_resolve")
+            (lens_base, info.tbase), build, family="snappy_resolve",
+            stages=3 + iters)
 
     def _finish_plain_bytes_host(self, common, stager):
         """PLAIN BYTE_ARRAY without the native length walk: the host
@@ -2213,7 +2320,10 @@ class _ChunkAssembler:
                 # bucketed rows out of the stream's output space.  Rows past
                 # dict_len resolve through padded ops — garbage no valid
                 # index selects (the range check rejects the others)
-                self._record_ship(ship[0], self.dict_u8.nbytes, info.shipped)
+                self._record_ship(
+                    ship[0], self.dict_u8.nbytes, info.shipped,
+                    predicted=self._dict_costs.get(ship[0], 0.0),
+                    predicted_device=self._dict_dev_costs.get(ship[0], 0.0))
                 table_dyn = info.tbase
 
                 def table_fn(buf, tb):
@@ -2268,7 +2378,10 @@ class _ChunkAssembler:
         if ship is not None:
             info = _plan_snappy_ops(stager, [("comp", ship[1], ship[2], None)])
             if info is not None:
-                self._record_ship(ship[0], rheap.nbytes, info.shipped)
+                self._record_ship(
+                    ship[0], rheap.nbytes, info.shipped,
+                    predicted=self._dict_costs.get(ship[0], 0.0),
+                    predicted_device=self._dict_dev_costs.get(ship[0], 0.0))
                 heap_dyn = info.tbase
 
                 def heap_fn(buf, hb):
@@ -2537,7 +2650,8 @@ class _ChunkAssembler:
         else:
             out.values = torch.zeros(0, dtype=torch.int64, device=dev)
         # decoded already: the plan only hands the column over
-        return _Plan(lambda buf: None, (), lambda _res: out)
+        # no device work left: a pass-through, never timed
+        return _Plan(None, (), lambda _res: out)
 
     def _finish_delta(self, common, stager):
         """DELTA_BINARY_PACKED chunk: the host walks the block headers only;
@@ -2767,18 +2881,34 @@ class ReaderStats:
     route_streams: dict = field(default_factory=dict)
     route_bytes_logical: dict = field(default_factory=dict)
     route_bytes_shipped: dict = field(default_factory=dict)
+    # the planner's modelled seconds for the routes that ran, summed per
+    # route: the bottleneck lane, the device lane, and (fused routes) the
+    # unfused chain's device lane — ship_feedback's predictions
+    route_pred_seconds: dict = field(default_factory=dict)
+    route_pred_device_seconds: dict = field(default_factory=dict)
+    route_pred_unfused_device_seconds: dict = field(default_factory=dict)
     # fused routes that degraded to their unfused twin (kernel caps, level
     # lanes, i32 ceilings) — forced-fused on an ineligible stream counts here
     fused_fallbacks: int = 0
     # the link rate the planner assumed (TPQ_LINK_MBPS or its default)
     planner_link_mbps: float = 0.0
 
-    def count_route(self, route: str, logical: int, shipped: int) -> None:
+    def count_route(self, route: str, logical: int, shipped: int,
+                    predicted: float = 0.0, predicted_device: float = 0.0,
+                    predicted_unfused_device: float = 0.0) -> None:
         self.route_streams[route] = self.route_streams.get(route, 0) + 1
         self.route_bytes_logical[route] = (
             self.route_bytes_logical.get(route, 0) + logical)
         self.route_bytes_shipped[route] = (
             self.route_bytes_shipped.get(route, 0) + shipped)
+        self.route_pred_seconds[route] = (
+            self.route_pred_seconds.get(route, 0.0) + predicted)
+        self.route_pred_device_seconds[route] = (
+            self.route_pred_device_seconds.get(route, 0.0) + predicted_device)
+        if predicted_unfused_device:
+            self.route_pred_unfused_device_seconds[route] = (
+                self.route_pred_unfused_device_seconds.get(route, 0.0)
+                + predicted_unfused_device)
 
     @property
     def link_bytes_logical(self) -> int:
@@ -2791,6 +2921,15 @@ class ReaderStats:
     @property
     def rows_per_sec(self) -> float:
         return self.rows / self.wall_seconds if self.wall_seconds else 0.0
+
+    @property
+    def bytes_per_sec(self) -> float:
+        return (self.compressed_bytes / self.wall_seconds
+                if self.wall_seconds else 0.0)
+
+    @property
+    def pages_per_chunk(self) -> float:
+        return self.pages / self.chunks if self.chunks else 0.0
 
     def as_dict(self) -> dict:
         return {
@@ -2806,7 +2945,16 @@ class ReaderStats:
             "ship_routes": {
                 r: {"streams": self.route_streams[r],
                     "logical": self.route_bytes_logical.get(r, 0),
-                    "shipped": self.route_bytes_shipped.get(r, 0)}
+                    "shipped": self.route_bytes_shipped.get(r, 0),
+                    # 9 decimals: a tiny stream's prediction must not round
+                    # to a 0.0 that ship_feedback reads as "none"
+                    "predicted_s": round(
+                        self.route_pred_seconds.get(r, 0.0), 9),
+                    "predicted_device_s": round(
+                        self.route_pred_device_seconds.get(r, 0.0), 9),
+                    "predicted_unfused_device_s": round(
+                        self.route_pred_unfused_device_seconds.get(r, 0.0),
+                        9)}
                 for r in sorted(self.route_streams)
             },
             "fused_fallbacks": self.fused_fallbacks,
@@ -2817,7 +2965,394 @@ class ReaderStats:
             "dispatch_seconds": round(self.dispatch_seconds, 6),
             "wall_seconds": round(self.wall_seconds, 6),
             "rows_per_sec": round(self.rows_per_sec, 1),
+            "bytes_per_sec": round(self.bytes_per_sec, 1),
+            "pages_per_chunk": round(self.pages_per_chunk, 3),
         }
+
+
+# ---------------------------------------------------------------------------
+# the device lane: per-route completion timing on CUDA events
+# ---------------------------------------------------------------------------
+
+def _device_timing_enabled(device: torch.device) -> bool:
+    """``TPQ_DEVICE_TIMING`` (default on).  A CUDA reader needs a CUDA
+    runtime to time against; a CPU reader's clock is the host's (its
+    kernels' plain versions run synchronously)."""
+    if env_int("TPQ_DEVICE_TIMING", 1, lo=0) == 0:
+        return False
+    if device.type == "cuda" and not torch.cuda.is_available():
+        warn_env_once("TPQ_DEVICE_TIMING", "<no cuda device>",
+                      "disabled (no device clock)")
+        return False
+    return True
+
+
+# the device lane's name for a plan that launches no CUDA kernel (its
+# device work is PyTorch tensor code)
+_TENSOR_FAMILY = "tensor_code"
+
+
+class DeviceStats:
+    """Per-route / per-kernel-family device timing counters: the reference's
+    ``DeviceStats``, keys and all, plus the port's view by CUDA kernel.
+
+    Per route: ``dispatches`` (column dispatches timed), ``device_seconds``,
+    ``bytes_in`` (the logical bytes the kernels produce), ``bytes_staged``
+    (link bytes staged for the route's columns) and ``device_passes`` (the
+    reference's structural pass count, :attr:`_Plan.stages`).  ``kernels``
+    keys the same by the reference's kernel family; ``h2d`` times the staged
+    row-group copies.  The seconds partition one serialized device timeline
+    (see ``_devtimer_worker``), so their sum never exceeds the stream's
+    busy window.
+
+    :meth:`cuda_kernels` keys the lane by the CUDA kernel a plan launched
+    (``hybrid_unpack_combine``, ``fused_plain_words``,
+    ``fused_narrow_words``) or ``tensor_code`` for a plan that launched
+    none: per name, the plans, the launches counted inside timed plans and
+    their device seconds.  It is not part of the registry tree, whose keys
+    stay the reference's.  Thread-safe."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # route -> [dispatches, s, b_in, b_staged, device_passes]
+        self._routes: dict = {}
+        self._kernels: dict = {}  # family -> [dispatches, s]
+        self._cuda: dict = {}     # CUDA kernel name -> [plans, launches, s]
+        self._h2d = [0, 0.0, 0]   # transfers, seconds, bytes
+
+    def note_dispatch(self, route: str, family: str, seconds: float,
+                      bytes_in: int = 0, bytes_staged: int = 0,
+                      passes: int = 1, cuda: "dict | None" = None) -> None:
+        with self._lock:
+            r = self._routes.setdefault(route, [0, 0.0, 0, 0, 0])
+            r[0] += 1
+            r[1] += seconds
+            r[2] += int(bytes_in)
+            r[3] += int(bytes_staged)
+            r[4] += int(passes)
+            k = self._kernels.setdefault(family, [0, 0.0])
+            k[0] += 1
+            k[1] += seconds
+            for name, n in (cuda or {_TENSOR_FAMILY: 0}).items():
+                c = self._cuda.setdefault(name, [0, 0, 0.0])
+                c[0] += 1
+                c[1] += int(n)
+                c[2] += seconds
+
+    def note_h2d(self, seconds: float, nbytes: int = 0,
+                 transfers: int = 1) -> None:
+        """One staged group's copies (a streamed group times each strip as
+        its own piece: ``transfers`` 1 on the last piece, 0 before it)."""
+        with self._lock:
+            self._h2d[0] += int(transfers)
+            self._h2d[1] += seconds
+            self._h2d[2] += int(nbytes)
+
+    def progress(self) -> dict:
+        """Cumulative counters for the sampler's ``device`` track."""
+        with self._lock:
+            return {
+                "dispatches": sum(r[0] for r in self._routes.values()),
+                "device_seconds": round(
+                    sum(r[1] for r in self._routes.values()), 6),
+                "h2d_transfers": self._h2d[0],
+                "h2d_seconds": round(self._h2d[1], 6),
+            }
+
+    def cuda_kernels(self) -> dict:
+        """``{kernel name: {plans, launches, device_seconds}}``."""
+        with self._lock:
+            return {name: {"plans": c[0], "launches": c[1],
+                           "device_seconds": round(c[2], 9)}
+                    for name, c in sorted(self._cuda.items())}
+
+    def as_dict(self) -> dict:
+        # 9 decimals: a sub-µs dispatch must not round to a 0.0 that
+        # ship_feedback would read as unmeasured
+        with self._lock:
+            return {
+                "dispatches": sum(r[0] for r in self._routes.values()),
+                "device_seconds": round(
+                    sum(r[1] for r in self._routes.values()), 9),
+                "routes": {
+                    route: {"dispatches": r[0],
+                            "device_seconds": round(r[1], 9),
+                            "bytes_in": r[2], "bytes_staged": r[3],
+                            "device_passes": r[4]}
+                    for route, r in sorted(self._routes.items())
+                },
+                "kernels": {
+                    fam: {"dispatches": k[0],
+                          "device_seconds": round(k[1], 9)}
+                    for fam, k in sorted(self._kernels.items())
+                },
+                "h2d": {"transfers": self._h2d[0],
+                        "device_seconds": round(self._h2d[1], 9),
+                        "bytes": self._h2d[2]},
+            }
+
+
+class _DeviceTimer:
+    """The device lane's completion worker.
+
+    On the card each timed unit (a plan's launches, a row group's staged
+    copies) is bracketed by a pair of timing events recorded on the stream
+    it runs on; ``submit`` hands the pair to one daemon worker
+    (``tpq-devtimer``) that waits on the end event and folds the interval
+    into :class:`DeviceStats`.  Nothing blocks the dispatching thread, and
+    the queue holds events, never tensors.  On a CPU reader the unit ran
+    synchronously, so ``submit`` takes its host-clock interval, as the
+    reference's worker measures its CPU backend.
+
+    Disabled (``TPQ_DEVICE_TIMING=0``, or a CUDA reader without a CUDA
+    runtime): ``submit`` is one attribute check and ``_run_plans`` records
+    no event.  The worker starts on the first submit; ``settle()`` drains
+    and joins it at the end of a read (the next submit starts another), so
+    no thread outlives a scan; ``stop()`` does the same for good
+    (idempotent; a submit after it is dropped)."""
+
+    def __init__(self, stats: DeviceStats, tracer=None,
+                 device: "torch.device | None" = None,
+                 enabled: "bool | None" = None):
+        self.stats = stats
+        self.tracer = tracer
+        self.device = torch.device("cpu") if device is None else device
+        self.cuda = self.device.type == "cuda"
+        self.enabled = (_device_timing_enabled(self.device) if enabled is None
+                        else bool(enabled))
+        self._lock = threading.Lock()
+        self._q = None
+        self._thread = None
+        self._closed = False
+
+    def mark(self):
+        """The start of a timed unit: a recorded timing event on the
+        current stream on the card, the host clock elsewhere."""
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            return ev
+        return time.perf_counter()
+
+    def submit(self, kind: str, route: str, family: str, start,
+               bytes_in: int = 0, bytes_staged: int = 0, passes: int = 1,
+               cuda: "dict | None" = None, end=None) -> None:
+        """Time the unit begun at ``start`` (a :meth:`mark`) and ending
+        now (or at ``end``, a mark)."""
+        if not self.enabled:
+            return
+        if end is None:
+            end = self.mark()
+        q = self._q
+        if q is None:
+            q = self._start()
+            if q is None:
+                return  # closed
+        q.put((kind, route, family, start, end, bytes_in, bytes_staged,
+               passes, cuda))
+
+    def _start(self):
+        import queue
+        import weakref
+
+        with self._lock:
+            if self._closed:
+                return None
+            if self._q is None:
+                self._q = queue.Queue()
+                base = None
+                if self.cuda:
+                    # the lane's clock origin: every event's device time is
+                    # read as its offset from this one
+                    base = torch.cuda.Event(enable_timing=True)
+                    base.record(torch.cuda.current_stream(self.device))
+                # the worker holds the queue, the stats and the tracer,
+                # never the timer: an abandoned reader's timer is collected
+                # and its finalizer sends the shutdown sentinel
+                self._thread = threading.Thread(
+                    target=_devtimer_worker,
+                    args=(self._q, self.stats, self.tracer, base),
+                    name="tpq-devtimer", daemon=True)
+                self._thread.start()
+                weakref.finalize(self, self._q.put, None)
+            return self._q
+
+    def drain(self, timeout: float = 2.0) -> None:
+        """Wait (bounded) until every submitted unit is timed: a stats read
+        mid-scan must not miss units still queued."""
+        q = self._q
+        if q is None or not self.enabled:
+            return
+        deadline = time.monotonic() + timeout
+        while q.unfinished_tasks and time.monotonic() < deadline:
+            time.sleep(0.002)
+
+    def settle(self) -> None:
+        """Drain and join the worker; a later submit starts a new one.  On
+        the card this waits for the last timed unit to complete."""
+        with self._lock:
+            q, t = self._q, self._thread
+            self._q = self._thread = None
+        if t is None:
+            return
+        q.put(None)
+        t.join(timeout=10.0)
+
+    def stop(self) -> None:
+        """Drain and join the worker for good (idempotent)."""
+        with self._lock:
+            self._closed = True
+        self.settle()
+
+
+def _devtimer_worker(q, stats: DeviceStats, tracer, base) -> None:
+    """The completion worker's loop (module level: it must not hold the
+    :class:`_DeviceTimer`, or the timer's shutdown finalizer never fires).
+
+    Intervals are serialized against the previous one, as the reference
+    serializes its completions: an interval starts at the later of its own
+    start and the previous end, so the per-route sums partition one device
+    timeline and never exceed the stream's busy window, even where the
+    staging worker's copies and the consumer's launches interleave on the
+    stream.  On the card the times are each event's offset from ``base``
+    on the device clock."""
+    prev_end = None
+    while True:
+        item = q.get()
+        if item is None:
+            return
+        try:
+            (kind, route, family, start, end, b_in, b_staged, passes,
+             cuda) = item
+            if base is not None:
+                try:
+                    end.synchronize()
+                    s = base.elapsed_time(start) / 1e3
+                    e = base.elapsed_time(end) / 1e3
+                except Exception:  # noqa: BLE001 — a failed launch
+                    continue       # reports through the consumer
+                t1 = time.perf_counter()
+            else:
+                s, e = start, end
+                t1 = e
+            if prev_end is not None and s < prev_end:
+                s = prev_end
+            dt = max(e - s, 0.0)
+            prev_end = e if prev_end is None else max(prev_end, e)
+            if kind == "h2d":
+                stats.note_h2d(dt, b_staged, transfers=passes)
+                name = "device.h2d"
+            else:
+                stats.note_dispatch(route, family, dt, b_in, b_staged,
+                                    passes, cuda)
+                name = f"device.{route}"
+            if tracer is not None and tracer.active:
+                tracer.complete(name, t1 - dt, t1, kernel=family,
+                                bytes=int(b_staged or b_in))
+        finally:
+            q.task_done()
+
+
+# ---------------------------------------------------------------------------
+# profiles through torch.profiler: ``profile_dir=`` and one bounded window
+# per process (TPQ_XPROF), with record_function spans named as the span
+# tracer's stages (stage, dispatch, finalize)
+# ---------------------------------------------------------------------------
+
+_XPROF_LOCK = threading.Lock()
+_XPROF_DONE = False   # one TPQ_XPROF window per process: traces are heavy
+_PROFILING = 0        # live captures (the hot path's one check)
+
+
+def _xprof_annotation(name: str):
+    """A ``torch.profiler.record_function`` span named as the tracer's
+    stage while a capture runs; a no-op context otherwise."""
+    if not _PROFILING:
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
+def _profile_start(device: "torch.device | None"):
+    """Start a ``torch.profiler`` capture (CPU and, on the card, CUDA
+    activity); None if the profiler refuses."""
+    global _PROFILING
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if (device is None or device.type == "cuda") and torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    kw = {}
+    try:
+        # the staging worker's spans too (the profiler's state is per
+        # thread otherwise); a PyTorch without the option profiles the
+        # consumer thread alone
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass
+    try:
+        prof = torch.profiler.profile(activities=acts, **kw)
+        prof.start()
+    except Exception:  # noqa: BLE001 — profiling never takes the read down
+        return None
+    with _XPROF_LOCK:
+        _PROFILING += 1
+    return prof
+
+
+def _profile_stop(prof, out_dir: str) -> "str | None":
+    """Stop ``prof`` and write its Chrome trace under ``out_dir``
+    (``tpq_profile_<pid>_<n>.json``); the path, or None."""
+    global _PROFILING
+    with _XPROF_LOCK:
+        _PROFILING -= 1
+    try:
+        prof.stop()
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(
+            out_dir, f"tpq_profile_{os.getpid()}_{next(_profile_seq)}.json")
+        prof.export_chrome_trace(path)
+        return path
+    except Exception:  # noqa: BLE001
+        return None
+
+
+_profile_seq = itertools.count(1)
+
+
+class _XprofWindow:
+    """A bounded profile window (``TPQ_XPROF=<dir>``): a ``torch.profiler``
+    capture from the scan's start until ``TPQ_XPROF_S`` seconds (default 10;
+    checked at row-group granularity) or the scan's end, whichever comes
+    first.  One window per process; later scans are no-ops."""
+
+    def __init__(self, device: "torch.device | None" = None):
+        self.dir = os.environ.get("TPQ_XPROF", "")
+        self.window_s = env_float("TPQ_XPROF_S", 10.0, lo=0.1)
+        self.device = device
+        self._t0 = None
+        self._prof = None
+
+    def start(self) -> None:
+        global _XPROF_DONE
+        if not self.dir:
+            return
+        with _XPROF_LOCK:
+            if _XPROF_DONE:
+                return
+            _XPROF_DONE = True
+        self._prof = _profile_start(self.device)
+        self._t0 = time.perf_counter()
+
+    def tick(self) -> None:
+        """Row-group boundary: close the window once it has run
+        ``window_s``."""
+        if (self._prof is not None
+                and time.perf_counter() - self._t0 >= self.window_s):
+            self.stop()
+
+    def stop(self) -> None:
+        prof, self._prof = self._prof, None
+        if prof is not None:
+            _profile_stop(prof, self.dir)
 
 
 class DeviceFileReader:
@@ -2885,19 +3420,40 @@ class DeviceFileReader:
     The footer, schema, filter, plan, store and containment engine live in
     a host ``reader.FileReader`` this reader holds, as the reference's do.
 
+    Observability (``obs``): ``trace`` picks the span tracer (None: the
+    ``TPQ_TRACE`` process tracer; a path: this reader's, written with its
+    registry tree at ``close()``); ``sample_ms`` (``TPQ_SAMPLE_MS``) runs a
+    sampler of live counter tracks on an enabled tracer; ``hang_s``
+    (``TPQ_HANG_S``) arms a watchdog over the pipeline, reader, store and
+    fetch-engine heartbeats that writes a flight dump when none advances
+    while the consumer waits on the reader, and under ``hang_policy="raise"``
+    aborts the chunk feed's budget and the store so the scan raises
+    ``errors.HangError``; ``profile_dir`` captures each scan with
+    ``torch.profiler`` (a Chrome trace under the directory, with
+    ``record_function`` spans ``stage`` / ``dispatch`` / ``finalize``), and
+    ``TPQ_XPROF`` one bounded window per process.  The device lane
+    (``TPQ_DEVICE_TIMING``, default on) times every plan's launches and
+    every staged copy with CUDA events on the stream they run on
+    (:class:`DeviceStats`).  ``obs_registry()`` is the reader's metrics
+    tree, the reference's keys, with ``ship_feedback``: the planner's
+    predictions beside the measured link and device lanes.
+
     Where the port differs from the reference on purpose: an explicit
     ``device`` (part of the result cache's signature), a pool of pinned
-    host buffers (``_PinnedPool``) under the copies, and the cancel check
-    per row group on the sequential path.  Left out of the reference: the
-    ``obs`` options ``profile_dir``, ``trace``, ``sample_ms``, ``hang_s``
-    and ``hang_policy``."""
+    host buffers (``_PinnedPool``) under the copies, the cancel check per
+    row group on the sequential path, and a scan ended by a cancel, a
+    deadline or a hang drops its staged buffers and pending outputs on the
+    way out (``_drop_scan_frames``) instead of leaving them to the garbage
+    collector."""
 
     def __init__(self, source, columns=None, validate_crc=None, device=None,
                  max_memory: int = 0, prefetch: int = 0, row_filter=None,
                  metadata=None, plan=None, on_data_error=None,
                  quarantine=None, store=None, cancel=None, dict_cache=None,
-                 result_cache=None):
+                 result_cache=None, trace=None, sample_ms=None, hang_s=None,
+                 hang_policy=None, profile_dir: "str | None" = None):
         self.device = _resolve_device(device)
+        self._tracer, self._owns_tracer = resolve_tracer(trace)
         # the result cache is not passed to the host half: host ColumnData
         # and device tensors are different decode shapes
         self._host = FileReader(source, columns=columns,
@@ -2906,7 +3462,8 @@ class DeviceFileReader:
                                 row_filter=row_filter, metadata=metadata,
                                 plan=plan, on_data_error=on_data_error,
                                 quarantine=quarantine, store=store,
-                                cancel=cancel, dict_cache=dict_cache)
+                                cancel=cancel, dict_cache=dict_cache,
+                                trace=self._tracer)
         h = self._host
         self.metadata, self.schema = h.metadata, h.schema
         self.validate_crc = h.validate_crc
@@ -2936,8 +3493,12 @@ class DeviceFileReader:
         self._store = h._store
         self._prefetch = int(prefetch)
         self._pipe_stats = PipelineStats(prefetch=self._prefetch,
-                                         budget_bytes=int(max_memory))
-        # the chunk feed's in-flight budget while a scan runs
+                                         budget_bytes=int(max_memory),
+                                         tracer=self._tracer)
+        self.profile_dir = profile_dir
+        self.profile_path: "str | None" = None  # the last scan's trace
+        # the chunk feed's in-flight budget while a scan runs (the
+        # sampler's budget_waiters track reads it)
         self._live_budget = None
         self._deferred: list = []
         self._stats = ReaderStats()
@@ -2952,6 +3513,100 @@ class DeviceFileReader:
         self._ship_planner = ShipPlanner()
         self._stats.planner_link_mbps = self._ship_planner.link_mbps
         self._pinned = _PinnedPool() if self.device.type == "cuda" else None
+        self._device_stats = DeviceStats()
+        self._device_timer = _DeviceTimer(self._device_stats, self._tracer,
+                                          self.device)
+        self._xprof = _XprofWindow(self.device)
+        self._arm_obs(sample_ms, hang_s, hang_policy)
+
+    def _arm_obs(self, sample_ms, hang_s, hang_policy) -> None:
+        """The sampler, the watchdog and the flight registry, as the
+        reference's constructor wires them.  The lambdas late-bind
+        ``_pipe_stats``: each scan replaces it."""
+        # live counter tracks; no thread unless the tracer is enabled and
+        # an interval is set.  track_id keeps each reader's curves apart on
+        # scan_files' shared tracer
+        self._sampler = Sampler(self._tracer, resolve_sample_ms(sample_ms),
+                                track_id=self._pipe_stats._obs_id)
+        if self._sampler.enabled:
+            self._sampler.add_source("reader_progress", self._sample_progress)
+            self._sampler.add_source("pipeline_lanes",
+                                     lambda: self._pipe_stats.sample())
+            self._sampler.add_source("alloc_bytes", self._sample_alloc)
+            self._sampler.add_source("budget_waiters", self._sample_budget)
+            if self._store.stats is not None:
+                self._sampler.add_source("io_retries",
+                                         self._store.stats.progress)
+            self._sampler.add_source("data_errors", self.quarantine.progress)
+            if self._result_cache is not None:
+                self._sampler.add_source("result_cache",
+                                         self._result_cache.cache.progress)
+            if self._device_timer.enabled:
+                self._sampler.add_source("device",
+                                         self._device_stats.progress)
+            self._sampler.start()
+        self._watchdog = Watchdog(resolve_hang_s(hang_s), policy=hang_policy)
+        if self._watchdog.enabled:
+            self._watchdog.watch("pipeline",
+                                 lambda: self._pipe_stats.sample())
+            self._watchdog.watch("reader", self._sample_progress)
+            if self._store.stats is not None:
+                # the store's counters freeze while a fetch is stalled (a
+                # retrying store keeps advancing): a network stall fires
+                # the dog and the dump names the range in flight
+                self._watchdog.watch("iostore", self._store.stats.progress)
+            eng = engine_for_store(self._store)
+            if eng is not None:
+                self._watchdog.watch("fetch_engine", eng.stats.progress)
+            # the raise policy's exit from a stalled fetch: the poisoned
+            # store wakes the worker pinned in the transport
+            self._watchdog.add_abort_hook(self._store.abort)
+            # the idle consumer gate until the first scan replaces it: a
+            # reader built long before its first iteration is no hang
+            self._watchdog.watch_consumer()
+            self._watchdog.start()
+        # a wedged process's dump embeds this reader's registry tree
+        register_flight_registry(self, "obs_registry")
+
+    def _sample_progress(self) -> dict:
+        st = self._stats
+        return {"rows": st.rows, "chunks": st.chunks,
+                "staged_bytes": st.staged_bytes,
+                "compressed_bytes": st.compressed_bytes}
+
+    def _sample_alloc(self) -> dict:
+        in_use, peak = self.alloc.snapshot()
+        dev_in_use, dev_peak = self.alloc.device_snapshot()
+        return {"in_use": in_use, "peak": peak,
+                "device_in_use": dev_in_use, "device_peak": dev_peak}
+
+    def _sample_budget(self) -> dict:
+        b = self._live_budget
+        return b.snapshot() if b is not None else {}
+
+    def obs_registry(self) -> StatsRegistry:
+        """This reader's metrics tree (``obs.StatsRegistry``): the decode
+        counters with the planner's per-route predictions, the pipeline's
+        stage sums and histograms, the alloc peaks, the device lane (absent
+        when it is off: ``n/a``, never zeros), the store's counters and the
+        data-error counters."""
+        reg = StatsRegistry()
+        reg.add_reader(self._stats)
+        reg.add_pipeline(self._pipe_stats)
+        reg.note_alloc_peak(self.alloc)
+        if self._device_timer.enabled:
+            self._device_timer.drain()
+            reg.add_device(self._device_stats)
+        if self._store.stats is not None:
+            reg.add_io(self._store.stats)
+        if len(self.quarantine.log) or self.quarantine.units_skipped:
+            reg.add_data_errors(self.quarantine)
+        return reg
+
+    def device_stats(self) -> DeviceStats:
+        """The device lane's counters (drained of queued units)."""
+        self._device_timer.drain()
+        return self._device_stats
 
     @property
     def _plan(self):
@@ -2973,9 +3628,18 @@ class DeviceFileReader:
         self._host.set_selected_columns(columns)
 
     def close(self) -> None:
+        self._watchdog.stop()  # before the sampler: no dump mid-teardown
+        # every unit in flight lands in the device section before the
+        # sampler's last tick and the trace write
+        self._device_timer.stop()
+        self._xprof.stop()
         # deferred-finalize scans (scan_files) release the ledger here
         self._release_device_outstanding(all_bytes=True)
+        self._sampler.stop()  # its final tick lands before the write
         self._host.close()
+        if self._owns_tracer:
+            self._tracer.write(registry=self.obs_registry())
+            self._owns_tracer = False  # scan_files closes readers twice
 
     def __enter__(self):
         return self
@@ -3068,7 +3732,8 @@ class DeviceFileReader:
         else:
             skip_pages, planned_bufs = None, {}
             rows_dropped = collected["rows_dropped"]
-        stager = _RowGroupStager(executor, self.device, self._pinned)
+        stager = _RowGroupStager(executor, self.device, self._pinned,
+                                 timed=self._device_timer.enabled)
         try:
             plans = self._plan_chunks(index, rg, leaves, f, collected,
                                       skip_pages, planned_bufs, stager, out)
@@ -3081,6 +3746,9 @@ class DeviceFileReader:
         now = time.perf_counter()
         self._stats.host_seconds += now - t0
         self._stats.wall_seconds = now - self._t0
+        tr = self._pipe_stats.tracer
+        if tr is not None and tr.active:
+            tr.complete("prepare", t0, now, rg=index, bytes=stager.total)
         if self._result_cache is not None:
             # dispatch fills this dict in place; _flush_result_cache
             # publishes it after the finalize, and only if dispatched
@@ -3105,6 +3773,9 @@ class DeviceFileReader:
         self._stats.rows += max(
             (int(c.num_leaf_slots or 0) for c in got.values()), default=0)
         self._stats.wall_seconds = now - self._t0
+        tr = self._pipe_stats.tracer
+        if tr is not None and tr.active:
+            tr.instant("result_cache_hit", rg=index, columns=len(got))
         return got
 
     def _flush_result_cache(self) -> None:
@@ -3192,15 +3863,31 @@ class DeviceFileReader:
             plans.append((name, plan))
             self._stats.pages_device_expanded += asm.pages_kept_compressed
             self._stats.fused_fallbacks += asm.fused_fallbacks
+            tr = self._pipe_stats.tracer
+            logical_sum = shipped_sum = 0
             best_route, best_bytes = None, -1
-            for rec in asm.ship_records:
-                self._stats.count_route(*rec)
-                if rec[2] > best_bytes:
-                    best_route, best_bytes = rec[0], rec[2]
-            # memoize the decision: a replay starts preship from the
-            # column's dominant (most-shipped-bytes) route
-            self._plan.note_route(index, name, best_route or ROUTE_PLAIN,
-                                  plan.family)
+            for (route, logical, shipped, predicted, predicted_dev,
+                 predicted_unfused_dev) in asm.ship_records:
+                self._stats.count_route(route, logical, shipped, predicted,
+                                        predicted_dev, predicted_unfused_dev)
+                logical_sum += logical
+                shipped_sum += shipped
+                if shipped > best_bytes:
+                    best_route, best_bytes = route, shipped
+                if tr is not None and tr.active:
+                    # one instant per shipped stream: the trace summary
+                    # folds them into its per-route prediction table
+                    tr.instant("ship", route=route, column=name,
+                               logical=logical, shipped=shipped,
+                               predicted_s=round(predicted, 9),
+                               predicted_device_s=round(predicted_dev, 9))
+            # the device lane times the column under its dominant
+            # (most-shipped-bytes) route
+            plan.route = best_route or ROUTE_PLAIN
+            plan.bytes_in = logical_sum
+            plan.bytes_staged = shipped_sum
+            # memoize the decision: a replay starts preship from it
+            self._plan.note_route(index, name, plan.route, plan.family)
         seen = set(out) | {name for name, _ in plans}
         missing = {".".join(p) for p in leaves} - seen
         if missing:
@@ -3211,12 +3898,23 @@ class DeviceFileReader:
 
     def _note_staged(self, stager: _RowGroupStager) -> None:
         """A staged row-group buffer is on the device: into the ledger,
-        pending until its group is dispatched."""
+        pending until its group is dispatched, and its copies to the device
+        lane as one ``h2d`` transfer (on a CPU reader, an empty interval at
+        the end of staging)."""
         n = int(stager.total)
         if n:
             self.alloc.register_device(n)
             with self._stats_lock:
                 self._device_staged_pending += n
+        timer = self._device_timer
+        if timer.enabled:
+            marks = stager.copy_marks or [(timer.mark(), None)]
+            for j, (start, end) in enumerate(marks):
+                last = j == len(marks) - 1
+                # passes carries the transfer count: one per group
+                timer.submit("h2d", "h2d", "h2d", start,
+                             bytes_staged=n if last else 0,
+                             passes=1 if last else 0, end=end or start)
 
     def _note_dispatched(self, stager: _RowGroupStager) -> None:
         """The group's kernels are enqueued: its staged bytes are released
@@ -3241,12 +3939,19 @@ class DeviceFileReader:
 
     def _dispatch_row_group(self, prepared, buf_dev=None):
         """Stage (unless the staging worker did: ``buf_dev``) and enqueue
-        every chunk's decode."""
+        every chunk's decode.  A request trace (riding the cancel token, or
+        the thread's current one) gets one ``device`` span per group."""
         out, plans, stager = prepared
+        cancel = self._host._cancel
+        rtrace = getattr(cancel, "trace", None) if cancel is not None else None
+        if rtrace is None:
+            rtrace = current_request_trace()
         if plans:
+            tr0 = time.perf_counter() if rtrace is not None else 0.0
             if buf_dev is None:
                 t0 = time.perf_counter()
-                with self._pipe_stats.timed("stage"):
+                with self._pipe_stats.timed("stage", bytes=stager.total), \
+                        _xprof_annotation("stage"):
                     buf_dev = stager.stage()
                 with self._stats_lock:
                     self._stats.stage_seconds += time.perf_counter() - t0
@@ -3260,11 +3965,16 @@ class DeviceFileReader:
                     cur.wait_event(stager.ready)
                     buf_dev.record_stream(cur)
             t1 = time.perf_counter()
-            with self._pipe_stats.timed("dispatch"):
-                out.update(_run_plans(plans, buf_dev))
+            with self._pipe_stats.timed("dispatch"), \
+                    _xprof_annotation("dispatch"):
+                out.update(_run_plans(plans, buf_dev, self._device_timer))
             with self._stats_lock:
                 self._stats.dispatch_seconds += time.perf_counter() - t1
             self._note_dispatched(stager)
+            if rtrace is not None:
+                rtrace.add_timed("device", tr0, time.perf_counter(),
+                                 plans=len(plans),
+                                 staged_bytes=int(stager.total))
         if self._result_cache is not None:
             self._note_rc_dispatched(out)
         if self._t0 is not None:
@@ -3312,6 +4022,7 @@ class DeviceFileReader:
             self._prepare_row_group(index, collected=collected))
         if finalize:
             self.finalize()
+            self._device_timer.settle()
         return out
 
     def finalize(self) -> None:
@@ -3319,7 +4030,8 @@ class DeviceFileReader:
         all chunks; there are none when the native run walk is built).  The
         read also proves the kernels reading the staged buffers complete,
         so the HBM ledger releases them."""
-        with self._pipe_stats.timed("finalize"):
+        with self._pipe_stats.timed("finalize"), \
+                _xprof_annotation("finalize"):
             _finalize_many([self])
         self._release_device_outstanding()
         self._pipe_stats.touch_wall()
@@ -3333,7 +4045,8 @@ class DeviceFileReader:
         and under a skip policy a row group with a data error is recorded
         and skipped.  Each scan starts fresh ``pipeline_stats()``."""
         self._pipe_stats = PipelineStats(prefetch=self._prefetch,
-                                         budget_bytes=self.alloc.max_size)
+                                         budget_bytes=self.alloc.max_size,
+                                         tracer=self._tracer)
         # a fresh scan token (retry budget, coalescing ladder, abort
         # poison) on both paths, carrying the request's deadline and cancel
         cancel = self._host._cancel
@@ -3344,6 +4057,13 @@ class DeviceFileReader:
         if not indices:
             self.finalize()
             return
+        # profile_dir captures the scan; without it, the TPQ_XPROF window
+        # (the two captures never nest)
+        prof = _profile_start(self.device) if self.profile_dir else None
+        xprof = None if self.profile_dir else self._xprof
+        if xprof is not None:
+            xprof.start()
+        out = None
         try:
             with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
                 for _, out in _scan_pipeline(
@@ -3351,15 +4071,37 @@ class DeviceFileReader:
                         ex, finalize_each=finalize_each,
                         prefetch=self._prefetch,
                         budget_bytes=self.alloc.max_size,
+                        watchdog=self._watchdog,
                         quarantine=self.quarantine, cancel=cancel):
                     yield out
-        except Exception:
+                    if xprof is not None:
+                        xprof.tick()
+        except Exception as e:
             # a scan ended by an error (an exhausted retry, a cancel, a
-            # deadline, an uncontained data error): the staging worker is
-            # joined, so every strip's pinned buffer is back in the pool;
-            # the staged bytes of groups never finalized leave the ledger
+            # deadline, a hang, an uncontained data error): the staging
+            # worker is joined, so every strip's pinned buffer is back in
+            # the pool; the staged bytes of groups never finalized leave
+            # the ledger
             self._release_device_outstanding(all_bytes=True)
+            if isinstance(e, _SCAN_ABORTS):
+                out = None
+                self._drop_pending_results()
+                _drop_scan_frames(e)
             raise
+        finally:
+            # the scan is over: its timed units land, and no device-lane
+            # thread outlives it
+            self._device_timer.settle()
+            if xprof is not None:
+                xprof.stop()
+            if prof is not None:
+                self.profile_path = _profile_stop(prof, self.profile_dir)
+
+    def _drop_pending_results(self) -> None:
+        """An aborted scan publishes nothing: its pending result-cache
+        groups (which hold their columns) go now."""
+        self._rc_pending = {}
+        self._rc_pending_bytes = 0
 
     def iter_batches(self, batch_size: int, columns=None):
         """Yield fixed-size device batches ``{column: tensor[batch_size]}``.
@@ -3474,7 +4216,8 @@ def _timed_stage(reader: DeviceFileReader, stager: _RowGroupStager):
     ``stage_seconds`` (the worker and the consumer write the stats at
     once: hence the lock)."""
     t0 = time.perf_counter()
-    with reader._pipe_stats.timed("stage"):
+    with reader._pipe_stats.timed("stage", bytes=stager.total), \
+            _xprof_annotation("stage"):
         buf_dev = stager.stage()
     with reader._stats_lock:
         reader._stats.stage_seconds += time.perf_counter() - t0
@@ -3482,7 +4225,8 @@ def _timed_stage(reader: DeviceFileReader, stager: _RowGroupStager):
     return buf_dev
 
 
-def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
+def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None,
+                watchdog=None):
     """Chunk-granular prefetch over the ``(reader, path, index)`` stream.
 
     The host half of the pipeline: IO, CRC, decompression, page parse and
@@ -3519,8 +4263,12 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
     never join one), and a store with the async primitive puts them in
     flight on the fetch engine when the group is planned; the pool's
     workers then read through the fetcher.  ``cancel`` is checked at every
-    chunk and handed to the budget's wait."""
+    chunk and handed to the budget's wait.  An armed ``watchdog`` gets the
+    budget's ``abort`` as a hook for the feed's lifetime: its raise policy
+    wakes a submitter blocked on backpressure with ``HangError``."""
     budget = InFlightBudget(budget_bytes)
+    if watchdog is not None and watchdog.enabled:
+        watchdog.add_abort_hook(budget.abort)
     fed: set = set()  # readers whose _live_budget is this feed's
     pending: dict = {}
     current = {"stats": None}  # stats of the reader whose item submits
@@ -3701,7 +4449,10 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None):
                     "rows_dropped": slot["rows_dropped"],
                     "cached": slot.get("cached", False)}
     finally:
-        # un-bind the dead feed's budget from every reader it fed
+        # un-bind the dead feed's budget: a later dump or sampler tick must
+        # not report it live, and the watchdog must not abort it
+        if watchdog is not None and watchdog.enabled:
+            watchdog.remove_abort_hook(budget.abort)
         for r in fed:
             if r._live_budget is budget:
                 r._live_budget = None
@@ -3711,7 +4462,7 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
                    close_finished: bool = False,
                    defer_finalize: bool = False,
                    prefetch: int = 0, budget_bytes: int = 0,
-                   quarantine=None, cancel=None):
+                   quarantine=None, cancel=None, watchdog=None):
     """The one-deep prepare/stage/dispatch pipeline shared by
     ``DeviceFileReader.iter_row_groups`` (one reader) and :func:`scan_files`
     (many).  ``work`` yields ``(reader, path, row_group_index)``; this yields
@@ -3742,14 +4493,30 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
     ``cancel`` is checked before every row group's host phase (the
     reference checks it only in the chunk feed and the store's retry loop,
     so its sequential path over a ``LocalStore`` never sees it) and goes
-    to the chunk feed."""
-    stream = (_chunk_feed(work, prefetch, budget_bytes, cancel=cancel)
+    to the chunk feed.
+
+    ``watchdog``: its consumer lane marks this generator producing (the
+    dog may fire only then: a consumer pausing between groups is no hang),
+    a fired raise policy surfaces at each unit boundary, and the chunk
+    feed's budget is its abort hook.  A ``CancelledError``,
+    ``DeadlineExceededError`` or ``HangError`` leaving the scan drops the
+    prepared groups, staged buffers and outputs it holds, and the frames
+    below it (``_drop_scan_frames``), before it propagates."""
+    stream = (_chunk_feed(work, prefetch, budget_bytes, cancel=cancel,
+                          watchdog=watchdog)
               if prefetch > 0
               else ((r, path, i, None) for r, path, i in work))
+    lane = (watchdog.watch_consumer()
+            if watchdog is not None and watchdog.enabled else None)
     dead: set = set()  # readers quarantined whole (skip_file)
+    prev = prepared = out = None
     try:
+        if lane is not None:
+            lane.producing()
         prev = None  # (reader, path, prepared, staging future)
         for r, path, i, collected in stream:
+            if watchdog is not None:
+                watchdog.check()  # a fired raise policy, also at prefetch 0
             if cancel is not None:
                 cancel.check()  # unit boundary: stop before the host phase
             q = quarantine if quarantine is not None else r.quarantine
@@ -3784,7 +4551,11 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
                 pr, pp, pprep, pfut = prev
                 out = pr._dispatch_row_group(
                     pprep, pfut.result() if pfut else None)
+                if lane is not None:
+                    lane.idle()
                 yield pp, out
+                if lane is not None:
+                    lane.producing()
                 if finalize_each or pr is not r:
                     if not defer_finalize:
                         pr.finalize()
@@ -3795,19 +4566,63 @@ def _scan_pipeline(work, ex, finalize_each: bool = False,
             pr, pp, pprep, pfut = prev
             out = pr._dispatch_row_group(
                 pprep, pfut.result() if pfut else None)
+            if lane is not None:
+                lane.idle()
             yield pp, out
+            if lane is not None:
+                lane.producing()
             if not defer_finalize:
                 pr.finalize()
+    except _SCAN_ABORTS as e:
+        # the departure from the reference: the verdict's traceback would
+        # keep these frames, and with them the scan's tensors, until a
+        # garbage collection (the token that latched the verdict holds it)
+        prev = prepared = out = collected = pprep = pfut = fut = None
+        if prefetch > 0:
+            stream.close()
+        _drop_scan_frames(e)
+        raise
     finally:
         # an abandoned or failed scan joins the chunk pool here, not at GC
         if prefetch > 0:
             stream.close()
+        # the scan is over or dead: the lane stays advancing, so a long-
+        # lived watchdog never reads post-scan idleness as a wedge
+        if lane is not None:
+            lane.idle()
+
+
+# the verdicts that end a scan from outside it: their scans drop what they
+# hold on the way out (see _drop_scan_frames)
+_SCAN_ABORTS = (CancelledError, DeadlineExceededError, HangError)
+
+
+def _drop_scan_frames(exc: BaseException) -> None:
+    """Clear the locals of the finished frames an aborting verdict's
+    tracebacks hold (its own, and those of the errors chained to it).
+
+    A cancel, deadline or hang verdict is latched on its token (or kept by
+    the caller beside it), and the frames of its traceback hold the scan:
+    prepared groups, staged buffers, outputs not yet yielded.  The frames
+    hold the reader, the reader holds the token, and the cycle keeps the
+    scan's device memory until a garbage collection runs.  Executing frames
+    (the caller's) are left alone.  The reference keeps the frames
+    (``tpu_parquet/resilience.py``, ``CancelToken.check``)."""
+    todo, seen = [exc], set()
+    while todo:
+        e = todo.pop()
+        if e is None or id(e) in seen:
+            continue
+        seen.add(id(e))
+        traceback.clear_frames(e.__traceback__)
+        todo += [e.__cause__, e.__context__]
 
 
 def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
                row_filter=None, with_path: bool = False, prefetch: int = 0,
                on_data_error=None, quarantine=None, device=None, store=None,
-               plan_cache=None):
+               plan_cache=None, trace=None, sample_ms=None, hang_s=None,
+               hang_policy=None):
     """Scan several files' row groups through ONE continuous pipeline.
 
     ``paths`` is a path, a list of paths, or a dataset: a
@@ -3847,16 +4662,25 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
     sized device tier its decoded row groups too: a re-scanned file parses
     nothing, and a fully cached one reads nothing.
 
-    Left out of the reference: the ``obs`` options ``trace``,
-    ``sample_ms``, ``hang_s`` and ``hang_policy``."""
+    ``trace``: ONE tracer spans the scan (with a path, the trace and the
+    merged registry of every reader are written when the scan ends);
+    ``sample_ms`` samples each reader on it.  ``hang_s`` / ``hang_policy``:
+    ONE watchdog spans the scan, over every reader's pipeline, reader and
+    store heartbeats (the readers themselves are armed with ``hang_s=0``),
+    and every file's store is its abort hook; the ``TPQ_XPROF`` window
+    spans the files too.  A cancel, deadline or hang verdict drops what the
+    scan holds on its way out, as ``DeviceFileReader.iter_row_groups``'s
+    does."""
     from .write.manifest import expand_dataset
 
     paths, _manifest = expand_dataset(paths)
     dev = _resolve_device(device, "scan_files")
+    tracer, owns_tracer = resolve_tracer(trace)
     q = quarantine if quarantine is not None else Quarantine(on_data_error)
     q.begin_scan()
     readers: list[DeviceFileReader] = []
     pool = _PinnedPool() if dev.type == "cuda" else None
+    watchdog = _scan_watchdog(readers, hang_s, hang_policy)
 
     def work():
         for path in paths:
@@ -3869,25 +4693,41 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
                                  validate_crc=validate_crc, device=dev,
                                  max_memory=max_memory,
                                  row_filter=row_filter, quarantine=q,
-                                 store=store, **kw)
+                                 store=store, trace=tracer,
+                                 sample_ms=sample_ms, hang_s=0, **kw)
             # one pinned pool for the whole dataset: the next file's
             # strips reuse the last file's buffers
             r._pinned = pool
             readers.append(r)
+            if watchdog.enabled:
+                # a fired watchdog wakes a fetch stalled in any file's store
+                watchdog.add_abort_hook(r._store.abort)
             for i in range(r.num_row_groups):
                 if r.row_group_selected(i):
                     yield r, path, i
 
+    xprof = _XprofWindow(dev)
+    xprof.start()
+    out = None
     try:
         with ThreadPoolExecutor(1, thread_name_prefix="tpq-stage") as ex:
             for pp, out in _scan_pipeline(work(), ex, close_finished=True,
                                           defer_finalize=True,
                                           prefetch=int(prefetch),
                                           budget_bytes=int(max_memory),
-                                          quarantine=q):
+                                          watchdog=watchdog, quarantine=q):
                 yield (pp, out) if with_path else out
+                xprof.tick()
         _finalize_many(readers)
+    except _SCAN_ABORTS as e:
+        out = None
+        for r in readers:
+            r._drop_pending_results()
+        _drop_scan_frames(e)
+        raise
     finally:
+        xprof.stop()
+        watchdog.stop()
         try:
             # again for a consumer that abandoned the scan: the files it
             # consumed still validate when the generator closes
@@ -3901,3 +4741,37 @@ def scan_files(paths, columns=None, validate_crc=None, max_memory: int = 0,
         finally:
             for r in readers:
                 r.close()
+            if owns_tracer and readers:
+                reg = readers[0].obs_registry()
+                for r in readers[1:]:
+                    reg.merge_from(r.obs_registry())
+                tracer.write(registry=reg)
+
+
+def _scan_watchdog(readers: list, hang_s, hang_policy) -> Watchdog:
+    """``scan_files``' one watchdog, started when armed: the summed
+    pipeline, reader and store heartbeats of ``readers`` (the list the scan
+    appends to)."""
+    watchdog = Watchdog(resolve_hang_s(hang_s), policy=hang_policy)
+    if not watchdog.enabled:
+        return watchdog
+
+    def _summed(sample):
+        out: dict = {}
+        for r in list(readers):
+            for k, v in (sample(r) or {}).items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    watchdog.watch("pipeline", lambda: _summed(lambda r: r._pipe_stats
+                                               .sample()))
+    watchdog.watch("reader", lambda: _summed(lambda r: {
+        "rows": r._stats.rows, "chunks": r._stats.chunks,
+        "staged_bytes": r._stats.staged_bytes}))
+    # frozen fetch counters and a frozen pipeline: a network stall the dump
+    # can name
+    watchdog.watch("iostore", lambda: _summed(
+        lambda r: r._store.stats.progress() if r._store.stats is not None
+        else None))
+    watchdog.start()
+    return watchdog

@@ -32,6 +32,21 @@ class DataIntegrityError(ParquetError):
         self.records = list(records or [])
 
 
+class HangError(RuntimeError):
+    """A watched pipeline made no progress within the watchdog's deadline.
+
+    Raised by :class:`tpu_parquet_torch.obs.Watchdog` (policy ``raise``)
+    in the submitting thread (the one blocked on an
+    :class:`~tpu_parquet_torch.alloc.InFlightBudget`, or on a stalled
+    store fetch) after a flight-recorder dump was written.  Not a
+    ParquetError: the file is not malformed, the pipeline is stuck.
+    ``dump_path`` names the dump to give ``obs.autopsy_dump``."""
+
+    def __init__(self, message: str, dump_path: "str | None" = None):
+        super().__init__(message)
+        self.dump_path = dump_path
+
+
 class TransientIOError(IOError):
     """A single range-read attempt failed in a way that is worth retrying.
 

@@ -30,9 +30,13 @@ coalesced span, then each member alone, then the error
 (:class:`~tpu_parquet_torch.errors.RetryExhaustedError` with the attempt
 log).  :class:`IOStats` counts requests, retries, torn re-reads and spans.
 
-Left out of the reference (Queue 1 item 5.5): the flight-recorder source
-each store registers, the request-trace span around ``read_range``, and
-the registry fold of :class:`IOStats`.
+Observability: :class:`IOStats` folds into ``obs.StatsRegistry`` (the
+``io`` section), its ``progress()`` feeds the sampler's ``io_retries``
+track and a watchdog lane, every :class:`GenericRangeStore` registers its
+stats as a flight source (a stalled fetch's dump names the range in
+flight: the autopsy's ``network-stall``), ``abort`` is the watchdog's hook,
+and a request trace riding the scan's cancel token gets a ``fetch`` span
+per ``read_range`` with its retries and hedges.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from .errors import ParquetError, RetryExhaustedError, TransientIOError
-from .obs import LatencyHistogram, env_float, env_int
+from .obs import (LatencyHistogram, env_float, env_int,
+                  register_flight_source)
 
 __all__ = [
     "ByteStore", "CoalescedFetcher", "FaultInjectingStore", "FaultSpec",
@@ -421,6 +426,10 @@ class _FetchRace:
                 self.event.set()
 
 
+# flight-source labels: iostore[1], iostore[2], ...
+_store_seq = iter(range(1, 1 << 62))
+
+
 class GenericRangeStore(ByteStore):
     """Retry, backoff and deadline core for unreliable range transports.
 
@@ -461,6 +470,10 @@ class GenericRangeStore(ByteStore):
         # abort poison (see ByteStore.abort): checked between attempts
         self._abort_exc: "BaseException | None" = None
         self._abort_event = threading.Event()
+        # a flight source (weakly held): a hang dump names the range in
+        # flight at the moment of the wedge
+        register_flight_source(f"iostore[{next(_store_seq)}]", self.stats,
+                               "sample")
 
     # -- the methods subclasses provide ---------------------------------------
 
@@ -620,6 +633,34 @@ class GenericRangeStore(ByteStore):
     def read_range(self, offset: int, size: int,
                    deadline: "float | None" = None,
                    scan: "ScanToken | None" = None) -> bytes:
+        if scan is None:
+            scan = self._default_scan
+        cancel = scan.cancel
+        trace = getattr(cancel, "trace", None) if cancel is not None else None
+        if trace is None:
+            # no request trace: the retry loop runs bare
+            return self._read_range_retry(offset, size, deadline, scan)
+        attempts: list[dict] = []
+        h0, w0 = self.stats.hedges_issued, self.stats.hedges_won
+        with trace.span("fetch", offset=offset, size=size):
+            try:
+                buf = self._read_range_retry(offset, size, deadline, scan,
+                                             attempts_out=attempts)
+            finally:
+                # retry and hedge notes on the span the `with` opened
+                if attempts:
+                    trace.annotate(retries=len(attempts),
+                                   last_error=attempts[-1]["error"])
+                hi = self.stats.hedges_issued - h0
+                if hi > 0:
+                    trace.annotate(
+                        hedged=hi, hedge_won=self.stats.hedges_won > w0)
+        return buf
+
+    def _read_range_retry(self, offset: int, size: int,
+                          deadline: "float | None" = None,
+                          scan: "ScanToken | None" = None,
+                          attempts_out: "list | None" = None) -> bytes:
         cfg = self.config
         if scan is None:
             scan = self._default_scan
@@ -633,7 +674,7 @@ class GenericRangeStore(ByteStore):
             deadline = (scan.deadline if deadline is None
                         else min(deadline, scan.deadline))
         cancel = scan.cancel
-        attempts: list[dict] = []
+        attempts: list[dict] = [] if attempts_out is None else attempts_out
         torn_prefix: "bytes | None" = None
         backoff = cfg.backoff_ms / 1e3
         stats = self.stats

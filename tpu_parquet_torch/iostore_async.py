@@ -25,9 +25,14 @@ fetches gets a handful.  This module multiplexes them on one event loop:
   to the loop), so its future resolves with the request's typed verdict.
 
 ``TPQ_IO_ASYNC=0`` turns routing off (every store takes the threaded
-path); ``TPQ_IO_INFLIGHT`` sizes the cap.  Left out of the reference
-(Queue 1 item 5.5): the flight-recorder source, the request-trace spans
-and ``fold_engine_stats`` (the registry fold of :class:`EngineStats`).
+path); ``TPQ_IO_INFLIGHT`` sizes the cap.
+
+Observability: the engine registers :class:`EngineStats` as a flight
+source (``iostore.engine[<n>]``: a hang dump names the oldest range in
+flight), a request trace riding the scan's cancel token gets one ``fetch``
+span per range (recorded after the fact: coroutines interleave on the one
+engine thread), and :func:`fold_engine_stats` lands the ``io.engine``
+registry subtree and the ``io.queue_wait`` histogram.
 """
 
 from __future__ import annotations
@@ -40,13 +45,16 @@ import time
 import weakref
 
 from .errors import CancelledError, RetryExhaustedError, TransientIOError
-from .obs import LatencyHistogram, env_int
+from .obs import LatencyHistogram, env_int, register_flight_source
 
 __all__ = [
     "DEFAULT_INFLIGHT", "EngineStats", "FetchEngine",
     "default_engine_if_running", "engine_enabled", "engine_for_store",
-    "get_default_engine", "shutdown_default_engine",
+    "fold_engine_stats", "get_default_engine", "shutdown_default_engine",
 ]
+
+# flight-source labels: iostore.engine[1], iostore.engine[2], ...
+_engine_seq = itertools.count(1)
 
 DEFAULT_INFLIGHT = 256
 
@@ -184,6 +192,11 @@ class FetchEngine:
         self._ready = threading.Event()
         self._closed = False
         self._sem: "asyncio.Semaphore | None" = None
+        # the "iostore" label prefix matters: the autopsy scans iostore*
+        # samples for the oldest range in flight, and on the engine path
+        # this table is where it lives
+        register_flight_source(f"iostore.engine[{next(_engine_seq)}]",
+                               self.stats, "sample")
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -323,6 +336,12 @@ class FetchEngine:
         if scan is None:
             scan = getattr(store, "_default_scan", None)
         cancel = scan.cancel if scan is not None else None
+        trace = getattr(cancel, "trace", None) if cancel is not None else None
+        # the request-trace span is recorded after the fact: an open span
+        # here would nest unrelated ranges in flight on this one thread
+        attempts: "list[dict] | None" = [] if trace is not None else None
+        tr0 = time.perf_counter() if trace is not None else 0.0
+        err_name = None
         ev = self._cancel_event(cancel)
         t0 = time.monotonic()
         ok = had_slot = False
@@ -334,16 +353,30 @@ class FetchEngine:
             had_slot = True
             try:
                 buf = await self._read_range_async(
-                    store, offset, size, scan, deadline, ev, cancel)
+                    store, offset, size, scan, deadline, ev, cancel,
+                    attempts_out=attempts)
                 ok = True
                 return buf
             finally:
                 self._sem.release()
+        except BaseException as e:
+            err_name = type(e).__name__
+            raise
         finally:
             estats.note_done(ok, had_slot, time.monotonic() - t_slot)
+            if trace is not None:
+                args = {"offset": offset, "size": size, "engine": True,
+                        "queue_wait_ms": round(
+                            max(t_slot - t0, 0.0) * 1e3, 3)}
+                if attempts:
+                    args["retries"] = len(attempts)
+                    args["last_error"] = attempts[-1]["error"]
+                if err_name is not None:
+                    args["error"] = err_name
+                trace.add_timed("fetch", tr0, time.perf_counter(), **args)
 
     async def _read_range_async(self, store, offset, size, scan, deadline,
-                                ev, cancel):
+                                ev, cancel, attempts_out=None):
         """``GenericRangeStore.read_range``'s retry, deadline and backoff
         loop as a coroutine: every branch, counter and error text mirrors
         the threaded loop (the CPU tests hold the two together)."""
@@ -355,7 +388,7 @@ class FetchEngine:
         if scan is not None and scan.deadline is not None:
             deadline = (scan.deadline if deadline is None
                         else min(deadline, scan.deadline))
-        attempts: list[dict] = []
+        attempts: list[dict] = [] if attempts_out is None else attempts_out
         torn_prefix: "bytes | None" = None
         backoff = cfg.backoff_ms / 1e3
         stats = store.stats
@@ -598,3 +631,15 @@ def shutdown_default_engine(timeout: float = 30.0) -> None:
         eng, _default_engine = _default_engine, None
     if eng is not None:
         eng.close(timeout)
+
+
+def fold_engine_stats(reg) -> None:
+    """Fold the live default engine into a
+    :class:`~tpu_parquet_torch.obs.StatsRegistry`: the ``io.engine``
+    subtree and the ``io.queue_wait`` histogram.  A no-op when no engine
+    ran (local scans carry no engine keys)."""
+    eng = default_engine_if_running()
+    if eng is None or eng.stats.submitted == 0:
+        return
+    reg.add_io({"engine": eng.stats.as_dict()})
+    reg.histogram("io.queue_wait").merge_from(eng.stats.queue_wait_hist)

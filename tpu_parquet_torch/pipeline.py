@@ -26,13 +26,17 @@ first, so it cannot deadlock against itself.
 ``prefetch_map`` takes a ``cancel`` token (checked at unit boundaries)
 and a ``feed`` (the async fetch engine's look-ahead gate).
 
-Left out of the reference: tracer spans, the flight recorder and the
-per-stage latency histograms (so ``as_dict()`` has no
-``stage_histograms``).
+Observability (``obs``): each stage feeds a latency histogram
+(``as_dict()["stage_histograms"]``) and a span on the tracer; each
+``PipelineStats`` is a flight source (``pipeline[<id>]``); a worker that
+raises notes itself in the flight recorder before its future carries the
+error back; a request trace riding ``cancel.trace`` gets one ``decode``
+span per unit.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -42,11 +46,18 @@ from contextlib import contextmanager
 from typing import Callable, Iterable, Iterator, Optional, TypeVar
 
 from .alloc import InFlightBudget
+from .obs import (LatencyHistogram, current_tracer, note_worker_crash,
+                  register_flight_source)
 
 T = TypeVar("T")
 R = TypeVar("R")
 
 STAGES = ("io", "decompress", "recompress", "stage", "dispatch", "finalize")
+
+# per-PipelineStats token on the pipeline_wall trace counter: one trace often
+# carries several stats objects (one per file of a scan), and the summary
+# sums each pipeline's own wall
+_pstats_ids = itertools.count(1)
 
 
 class PipelineStats:
@@ -63,9 +74,15 @@ class PipelineStats:
     ``busy_seconds`` is the sum over stages; ``overlap_efficiency =
     busy_seconds / wall_seconds`` reads 1.0 for a serial run and more when
     stages overlap.  ``stall_seconds`` counts submitter time blocked on the
-    memory budget.  Thread-safe: workers and the consumer add at once."""
+    memory budget.  Thread-safe: workers and the consumer add at once.
 
-    def __init__(self, prefetch: int = 0, budget_bytes: int = 0):
+    Each ``add`` / ``timed`` also feeds a per-stage
+    :class:`~tpu_parquet_torch.obs.LatencyHistogram`, and ``timed`` emits a
+    span on ``tracer`` (the ``TPQ_TRACE`` process tracer by default; a
+    disabled tracer costs one ``if``)."""
+
+    def __init__(self, prefetch: int = 0, budget_bytes: int = 0,
+                 tracer=None):
         self.prefetch = int(prefetch)
         self.budget_bytes = int(budget_bytes)
         self.chunks = 0
@@ -77,8 +94,13 @@ class PipelineStats:
         # point-in-time gauge, not in as_dict() (it ends at 0)
         self.queue_depth = 0
         self._stage_seconds = {s: 0.0 for s in STAGES}
+        self._stage_hist = {s: LatencyHistogram() for s in STAGES}
+        self.tracer = tracer if tracer is not None else current_tracer()
+        self._obs_id = next(_pstats_ids)
         self._lock = threading.Lock()
         self._t0: Optional[float] = None
+        # a flight dump shows every live pipeline's lanes (weakly held)
+        register_flight_source(f"pipeline[{self._obs_id}]", self, "sample")
 
     def add(self, stage: str, seconds: float) -> None:
         if stage not in self._stage_seconds:
@@ -87,18 +109,26 @@ class PipelineStats:
                 f"{', '.join(STAGES)}")
         with self._lock:
             self._stage_seconds[stage] += seconds
+        self._stage_hist[stage].record(seconds)
 
     @contextmanager
-    def timed(self, stage: str):
+    def timed(self, stage: str, **span_args):
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.add(stage, time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self.add(stage, t1 - t0)
+            tr = self.tracer
+            if tr is not None and tr.active:
+                tr.complete(stage, t0, t1, **span_args)
 
-    def add_stall(self, seconds: float) -> None:
+    def add_stall(self, seconds: float, t0: Optional[float] = None) -> None:
         with self._lock:
             self.stall_seconds += seconds
+        tr = self.tracer
+        if tr is not None and tr.active and t0 is not None:
+            tr.complete("stall", t0, t0 + seconds)
 
     def count_chunk(self) -> None:
         with self._lock:
@@ -115,10 +145,28 @@ class PipelineStats:
             if self._t0 is None:
                 self._t0 = now
             self.wall_seconds = now - self._t0
+            wall = self.wall_seconds
+        tr = self.tracer
+        if tr is not None and tr.active and wall:
+            # the pipeline's own wall rides the trace as a counter, so the
+            # trace summary reports this object's overlap efficiency
+            tr.counter("pipeline_wall", seconds=round(wall, 6),
+                       pipe=self._obs_id)
 
     def set_queue_depth(self, n: int) -> None:
         with self._lock:
             self.queue_depth = int(n)
+
+    def sample(self) -> dict:
+        """Counter snapshot for :class:`~tpu_parquet_torch.obs.Sampler`
+        and the watchdog: the cumulative per-stage seconds, the stall
+        total, chunks and the live queue depth."""
+        with self._lock:
+            out = {s: round(v, 6) for s, v in self._stage_seconds.items()}
+            out["stall"] = round(self.stall_seconds, 6)
+            out["chunks"] = self.chunks
+            out["queue_depth"] = self.queue_depth
+        return out
 
     def note_peak(self, budget: InFlightBudget) -> None:
         with self._lock:
@@ -141,6 +189,8 @@ class PipelineStats:
             self.row_groups += row_groups
             self.stall_seconds += stall
             self.peak_in_flight_bytes = max(self.peak_in_flight_bytes, peak)
+        for s in STAGES:
+            self._stage_hist[s].merge_from(other._stage_hist[s])
 
     def stage_seconds(self, stage: str) -> float:
         with self._lock:
@@ -172,6 +222,10 @@ class PipelineStats:
             "stall_seconds": round(self.stall_seconds, 6),
             "peak_in_flight_bytes": self.peak_in_flight_bytes,
             "overlap_efficiency": round(self.overlap_efficiency, 3),
+            # only the stages that saw work
+            "stage_histograms": {s: h.as_dict()
+                                 for s, h in self._stage_hist.items()
+                                 if h.count},
         }
 
 
@@ -280,12 +334,31 @@ def prefetch_map(
     queued-but-not-running items keep the lookahead without convoying on
     the GIL.  ``prefetch <= 0`` is a plain sequential map with no threads.
     """
+    trace = getattr(cancel, "trace", None) if cancel is not None else None
     if prefetch <= 0:
         for item in items:
             if cancel is not None:
                 cancel.check()
-            yield fn(item)
+            if trace is None:
+                yield fn(item)
+            else:
+                with trace.span("decode"):
+                    res = fn(item)
+                yield res
         return
+
+    def run(item):
+        # a dying worker notes itself in the flight recorder (and dumps
+        # under TPQ_FLIGHT) before its future carries the error back
+        try:
+            if trace is None:
+                return fn(item)
+            # one request-trace span per unit, on the worker thread
+            with trace.span("decode"):
+                return fn(item)
+        except BaseException as e:
+            note_worker_crash(e)
+            raise
 
     it = iter(items)
     pending: deque = deque()  # (future, charged cost)
@@ -316,7 +389,7 @@ def prefetch_map(
                 t0 = time.perf_counter()
                 budget.acquire(c, cancel=cancel)
                 if stats is not None:
-                    stats.add_stall(time.perf_counter() - t0)
+                    stats.add_stall(time.perf_counter() - t0, t0)
             if stats is not None:
                 stats.note_peak(budget)
         carried = None
@@ -333,7 +406,7 @@ def prefetch_map(
                 if not ready and (exhausted or not pull(block_ok=True)):
                     break
                 item, c = ready.popleft()
-                pending.append((ex.submit(fn, item), c))
+                pending.append((ex.submit(run, item), c))
                 if stats is not None:
                     stats.set_queue_depth(len(pending))
             if feed is not None:

@@ -37,8 +37,10 @@ crossing a decode site.  :func:`resolve_validate` resolves the readers'
 ``validate_crc=None`` default through ``TPQ_VALIDATE`` (default ``crc``:
 page CRCs are verified when the writer recorded them).
 
-Left out of the reference: the flight-recorder source, the tracer instant
-per record and the ``sample()`` snapshot that fed them.
+Observability: each engine is a flight source (``quarantine[<n>]``, its
+counters and first record: the file, column and page a data-corruption
+autopsy names), and each record is a ``quarantine`` instant on the process
+tracer.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import os
 import threading
 from .errors import (_CTX_KEYS, DataIntegrityError, annotate_data_error,
                      error_context)
-from .obs import warn_env_once
+from .obs import current_tracer, register_flight_source, warn_env_once
 
 __all__ = [
     "ErrorBudget", "Quarantine", "QuarantineLog", "annotate_data_error",
@@ -57,6 +59,9 @@ __all__ = [
 ]
 
 POLICIES = ("raise", "skip_unit", "skip_file")
+
+# flight-source labels: quarantine[1], quarantine[2], ...
+_engine_seq = iter(range(1, 1 << 62))
 
 
 def resolve_policy(policy=None) -> str:
@@ -233,6 +238,10 @@ class Quarantine:
         self.rows_skipped = 0
         self.files_skipped = 0
         self.by_class: dict[str, int] = {}
+        # a wedge or crash dump carries the quarantine state, the first bad
+        # (file, column, page) included
+        register_flight_source(f"quarantine[{next(_engine_seq)}]", self,
+                               "sample")
 
     @property
     def contains(self) -> bool:
@@ -268,6 +277,10 @@ class Quarantine:
             total = self._total_units
             cls = record["error"]
             self.by_class[cls] = self.by_class.get(cls, 0) + 1
+        tr = current_tracer()
+        if tr.active:
+            tr.instant("quarantine", **{k: v for k, v in record.items()
+                                        if k != "message"})
         allowed = self.budget.allowed(total)
         if errors > allowed:
             raise DataIntegrityError(
@@ -299,6 +312,14 @@ class Quarantine:
                 "rows_skipped": self.rows_skipped,
                 "files_skipped": self.files_skipped,
             }
+
+    def sample(self) -> dict:
+        """Flight-source snapshot: the counters and the first record."""
+        out = self.progress()
+        recs = self.log.snapshot()
+        if recs:
+            out["first"] = recs[0]
+        return out
 
     def as_dict(self) -> dict:
         """The counters plus ``by_class`` (multi-engine scans compose by

@@ -37,7 +37,12 @@ host decode signature) serves whole decoded chunks: a warm chunk reads no
 byte, a cold one decodes once under single-flight and is published.  Both
 are shared read-only; ``serve.PlanCache.reader_kwargs`` builds them.  An
 adapter signed for another decode shape or CRC tier is dropped, never
-adopted.  Left out of the reference: the span tracer (``trace=``).
+adopted.
+
+``trace`` picks the span tracer (``obs.resolve_tracer``: None is the
+``TPQ_TRACE`` process tracer, a path a tracer of this reader whose trace
+file, with the registry tree embedded, is written at ``close()``);
+``obs_registry()`` is the reader's metrics tree.
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ from .errors import DataIntegrityError
 from .footer import ParquetError, read_file_metadata
 from .format import FileMetaData
 from .iostore import CoalescedFetcher, require_full, resolve_store
-from .iostore_async import engine_for_store
+from .iostore_async import engine_for_store, fold_engine_stats
+from .obs import StatsRegistry, resolve_tracer
 from .pipeline import PipelineStats, SharedReader, prefetch_map
 from .quarantine import Quarantine, resolve_validate
 from .scanplan import (apply_selection, build_scan_plan,
@@ -109,7 +115,11 @@ class FileReader:
         cancel=None,
         dict_cache=None,
         result_cache=None,
+        trace=None,
     ):
+        # None: the TPQ_TRACE process tracer (a disabled no-op without the
+        # env); a path: this reader's tracer, written at close()
+        self._tracer, self._owns_tracer = resolve_tracer(trace)
         if isinstance(source, (str, os.PathLike)):
             self._f: BinaryIO = open(source, "rb")
             self._owns_file = True
@@ -148,7 +158,8 @@ class FileReader:
             self._sr = SharedReader(self._f, store=self._store)
             self.prefetch = int(prefetch)
             self._pipe_stats = PipelineStats(prefetch=self.prefetch,
-                                             budget_bytes=int(max_memory))
+                                             budget_bytes=int(max_memory),
+                                             tracer=self._tracer)
             # group pruning: groups whose footer stats prove the predicate
             # can never match are skipped by the iteration APIs
             self.row_filter = row_filter
@@ -233,6 +244,25 @@ class FileReader:
         if self._owns_file:
             self._f.close()
             self._owns_file = False
+        if self._owns_tracer:
+            self._tracer.write(registry=self.obs_registry())
+            self._owns_tracer = False
+
+    def obs_registry(self):
+        """This reader's metrics tree (``obs.StatsRegistry``): the
+        pipeline's stage sums and histograms, the alloc peak, the store's
+        counters when it keeps any (and the fetch engine's, when one ran),
+        and the data-error counters once there are any."""
+        reg = StatsRegistry()
+        reg.add_pipeline(self._pipe_stats)
+        reg.note_alloc_peak(self.alloc)
+        if self._store.stats is not None:
+            reg.add_io(self._store.stats)
+        if getattr(self._store, "supports_async", False):
+            fold_engine_stats(reg)
+        if len(self.quarantine.log) or self.quarantine.units_skipped:
+            reg.add_data_errors(self.quarantine)
+        return reg
 
     def __enter__(self):
         return self
@@ -293,7 +323,8 @@ class FileReader:
         Containment (``contain`` and a skip policy): a chunk's data error
         rides the stream as a ``_ChunkFailed``; the consumer records its
         unit once and skips it (``skip_file``: and the rest of the file)."""
-        stats = PipelineStats(prefetch=k, budget_bytes=self.alloc.max_size)
+        stats = PipelineStats(prefetch=k, budget_bytes=self.alloc.max_size,
+                              tracer=self._tracer)
         self._pipe_stats = stats
         budget = InFlightBudget(self.alloc.max_size)
         sr = self._sr

@@ -20,8 +20,9 @@ imports no store and no reader, so every layer can use it.
   :class:`~tpu_parquet_torch.iostore.FaultInjectingStore` through its
   ``_spec_for`` hook.  Its blob is the reference's, byte for byte.
 
-Left out of the reference: the request trace that rides its
-``CancelToken`` (``trace``), with the tracer (Queue 1 item 5.5).
+A request's ``obs.RequestTrace`` rides its ``CancelToken`` (``trace``):
+the token already flows through the readers, the prefetch workers and both
+stores, so every span site guards on ``token.trace is not None``.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ class CancelToken:
     token's ``check()`` is two attribute reads.
     """
 
-    __slots__ = ("deadline", "deadline_s", "_exc", "_lock", "_callbacks")
+    __slots__ = ("deadline", "deadline_s", "_exc", "_lock", "_callbacks",
+                 "trace")
 
     def __init__(self, deadline: "float | None" = None,
                  deadline_s: "float | None" = None):
@@ -72,6 +74,9 @@ class CancelToken:
         self._exc: "BaseException | None" = None
         self._lock = threading.Lock()
         self._callbacks: "list | None" = None
+        # the request's obs.RequestTrace (None: tracing off, span sites
+        # pay one attribute read)
+        self.trace = None
 
     @classmethod
     def with_timeout(cls, seconds: "float | None") -> "CancelToken":

@@ -27,7 +27,8 @@ LRU eviction; ``counters()`` gives hits, misses and evictions per kind.
 arguments; pass ``device=True`` (or the reader's device) for the device
 reader.
 
-Left out of the reference: the request-trace probe span.
+A request trace (``obs.current_request_trace``) gets one ``cache_<kind>``
+span per read-through probe, with its hit.
 """
 
 from __future__ import annotations
@@ -36,11 +37,12 @@ import copy
 import os
 import struct
 import threading
+import time
 from collections import OrderedDict
 
 from ..footer import read_file_metadata
 from ..iostore import ByteStore
-from ..obs import env_int
+from ..obs import current_request_trace, env_int
 from ..scanplan import apply_selection, build_scan_plan, predicate_fingerprint
 from ..schema.core import Schema
 from .result_cache import ResultCache
@@ -134,6 +136,20 @@ class PlanCache:
         """Get or build, single-flight: one builder per key runs (one miss
         counted); concurrent callers wait on the build lock and count as
         hits.  ``build()`` returns ``(value, nbytes)``."""
+        tr = current_request_trace()
+        if tr is None:
+            return self._read_through_inner(kind, key, build)
+        t0 = time.perf_counter()
+        misses0 = self.stats.misses[kind]
+        try:
+            return self._read_through_inner(kind, key, build)
+        finally:
+            # best-effort hit attribution: a neighbour's miss may tick
+            # between the two reads; a probe span is evidence, not a count
+            tr.add_timed(f"cache_{kind}", t0, time.perf_counter(),
+                         hit=self.stats.misses[kind] == misses0)
+
+    def _read_through_inner(self, kind: str, key: tuple, build):
         full = (kind, *key)
         with self._lock:
             hit = self._entries.get(full)

@@ -42,20 +42,22 @@ Where the port departs from the reference:
   tensor; the device reader publishes no view of a larger buffer (it
   clones one at publish time), so the counted bytes are what the tier pins.
 
-Left out of the reference: the flight-recorder source and the request-trace
-probe span.
+Observability: each cache is a flight source (``result_cache``, its
+``counters()``), and a request trace gets a ``result_probe`` span per
+group probe.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import OrderedDict
 
 import torch
 
 from ..alloc import AllocTracker
-from ..obs import env_int
+from ..obs import current_request_trace, env_int, register_flight_source
 
 __all__ = ["BoundResultCache", "ResultCache", "ResultTierStats",
            "decode_signature", "column_nbytes", "device_column_nbytes",
@@ -206,6 +208,7 @@ class ResultCache:
         self._uncachable: set = set()
         # per-tier {file name: evictions}
         self._evict_files = {t: {} for t in TIERS}
+        register_flight_source("result_cache", self, "counters")
 
     # -- keys ------------------------------------------------------------------
 
@@ -579,8 +582,13 @@ class BoundResultCache:
         reader's hit path): hits counted on success, one miss per column on
         failure.  Returns ``{column: value}`` or None."""
         cols = list(columns)
+        tr = current_request_trace()
+        t0 = time.perf_counter() if tr is not None else 0.0
         got = self.cache.lookup_units([self._full(rg, c) for c in cols],
                                       count_misses=True)
+        if tr is not None:
+            tr.add_timed("result_probe", t0, time.perf_counter(), rg=rg,
+                         columns=len(cols), hit=got is not None)
         if got is None:
             return None
         return {c: v for c, (v, _n) in zip(cols, got)}
