@@ -189,10 +189,37 @@ Phases:
     flight dump autopsied as ``network-stall``, and, with the garbage
     collector off, the device memory back to the phase's baseline after
     the hang and after a cancelled read (the verdicts still held);
-16. one JSON line listing every ported kernel (with phase 11's launches as
+16. training input on the card, ``bench.py`` ``bench_loader``'s
+    configuration: lineitem16 SF1 (the 16 columns, phase 6's writer) in
+    250,000-row groups (25 units), its 11 fixed-width columns, batches of
+    8,192, ``shuffle=True``, ``seed=11``, ``shuffle_window=65536``,
+    ``drop_remainder``, ``to_device=True``.  (a) an untimed epoch checked
+    batch by batch against a ``to_device=False`` epoch, then prefetch 0
+    and 4 in turns, two epochs each, each bit-equal to it by a per-batch
+    checksum on the card; rows/s, ``decode_wait_seconds`` and
+    ``max_memory_allocated`` of each, and ``loader_vs_scan`` against a
+    ``scan_files`` pass of the same columns; (b) a ``state_blob()`` after
+    300 batches at prefetch 0, restored into a fresh loader at prefetch 4:
+    the first batches plus the rest equal the uninterrupted epoch; (c)
+    shards (i, 4) partition the rows exactly; (d) unshuffled, the loader's
+    batches equal ``DeviceFileReader.iter_batches(8192)``'s, with the
+    reader's fused K1 and K2 launches on that pass as ``loader_launches``
+    (the loader itself launches none); (e) ``parallel`` on NCCL, a world of
+    one (a ``file://`` rendezvous): the sharded dictionary (with stats),
+    DELTA and PLAIN decodes and ``column_stats`` on 64 pages of 20,000
+    values of ``l_suppkey`` (a 10,000-row int64 dictionary),
+    ``l_orderkey`` and ``l_extendedprice``, each equal to its plain CPU
+    decode, and ``process_local_column(l_orderkey)`` equal to the device
+    reader's column; (f) the resumed loader's ``TPQ_OBS_SPOOL`` member seen
+    by ``FleetAggregator`` with its lanes, and a ledger record of the
+    phase's numbers fingerprinted ``kernel_mode == "cuda"``, checked
+    against itself.  After it: no loader thread alive, the device memory
+    back to its baseline;
+17. one JSON line listing every ported kernel (with phase 11's launches as
     ``pipeline_launches``, phase 12's as ``filter_launches``, phase 13's
-    as ``store_launches``, phase 14's as ``cache_launches`` and phase
-    15's as ``obs_launches``), then the result line.
+    as ``store_launches``, phase 14's as ``cache_launches``, phase 15's
+    as ``obs_launches`` and phase 16's as ``loader_launches``), then the
+    result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -4773,6 +4800,544 @@ def read_obs_phase(torch, ck, work: str, smi: str, *, l16_path: str,
                 xprof_times=xk, hang=hang, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training input on the card
+# ---------------------------------------------------------------------------
+
+# bench.py bench_loader's configuration: lineitem16 SF1 in training-shaped
+# row groups, its 11 fixed-width columns, 8,192-row shuffled batches
+LOADER_GROUP = 250_000
+LOADER_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                  "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                  "l_shipdate", "l_commitdate", "l_receiptdate"]
+LOADER_BATCH = 8192
+LOADER_SEED = 11
+LOADER_WINDOW = 1 << 16
+LOADER_SHARDS = 4
+RESTORE_CUT = 300  # 16(b): batches taken before the state blob
+PAR_PAGES = 64  # 16(e): pages per batch, of pyarrow's 20,000 rows each
+PAR_PAGE_ROWS = 20_000
+SUPP_DICT_ROWS = 10_000  # l_suppkey's keys index a 10,000-row dictionary
+
+
+def dense_values(col):
+    """A flat device column's values (a dictionary column gathered)."""
+    from tpu_parquet_torch.device_reader import DeviceDictColumn
+
+    if isinstance(col, DeviceDictColumn):
+        col = col.materialize()
+    return col.values[:col.num_values]
+
+
+def loader_kw(**kw) -> dict:
+    base = dict(columns=LOADER_COLUMNS, shuffle=True, seed=LOADER_SEED,
+                shuffle_window=LOADER_WINDOW, drop_remainder=True)
+    base.update(kw)
+    return base
+
+
+def word_view(torch, t):
+    """The tensor's bits as int64 or int32 words (floats compare by bits)."""
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+def batch_sums(torch, batch):
+    """A per-batch checksum on the batch's device: the columns' 32-bit
+    words laid end to end, their sum and their index-weighted sum (int64,
+    wrapping); a handful of launches per batch."""
+    w = torch.cat([batch[c].reshape(-1).view(torch.int32)
+                   for c in LOADER_COLUMNS]).to(torch.int64)
+    idx = torch.arange(1, w.numel() + 1, dtype=torch.int64, device=w.device)
+    return torch.stack([w.sum(), (w * idx).sum()])
+
+
+def same_batch(torch, got: dict, want: dict, label: str, i: int) -> None:
+    """A device batch against a host batch, bit for bit."""
+    import numpy as np
+
+    if set(got) != set(want):
+        raise fail(f"{label}: batch {i} keys {sorted(got)} != "
+                   f"{sorted(want)}")
+    for c, h in want.items():
+        d = got[c].cpu().numpy()
+        if (d.dtype != h.dtype or d.shape != h.shape
+                or not np.array_equal(d.view(np.uint8), h.view(np.uint8))):
+            raise fail(f"{label}: batch {i} column {c} differs from the "
+                       f"host epoch")
+
+
+def loader_epoch(torch, paths, device, prefetch: int) -> dict:
+    """One shuffled epoch with ``to_device=True``, timed from the first
+    ``next`` to a synchronize after the last batch; each batch's checksum
+    is taken on the card as it arrives."""
+    from tpu_parquet_torch.data import DataLoader
+
+    loader = DataLoader(paths, LOADER_BATCH, **loader_kw(
+        prefetch=prefetch, to_device=True, device=device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sums, rows = [], 0
+    t0 = time.perf_counter()
+    for batch in loader:
+        sums.append(batch_sums(torch, batch))
+        rows += len(batch["l_orderkey"])
+    del batch
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(sums=torch.stack(sums), seconds=seconds, rows=rows,
+                peak=torch.cuda.max_memory_allocated() - before,
+                stats=loader.stats().as_dict(),
+                registry=loader.obs_registry().as_dict())
+
+
+def loader_depths(torch, paths, device, smi: str) -> dict:
+    """16(a): an untimed epoch checked batch by batch against a
+    ``to_device=False`` epoch, then prefetch 0 and 4 in turns, two passes
+    each, each bit-equal to it by the per-batch checksums; then
+    ``scan_files`` over the same columns for ``loader_vs_scan``."""
+    import itertools
+
+    from tpu_parquet_torch.data import DataLoader
+    from tpu_parquet_torch.device_reader import scan_files
+
+    label = "loader (a)"
+    dev = DataLoader(paths, LOADER_BATCH, **loader_kw(
+        prefetch=2, to_device=True, device=device))
+    host = DataLoader(paths, LOADER_BATCH, **loader_kw(prefetch=2))
+    want, n = [], 0
+    t0 = time.perf_counter()
+    for d, h in itertools.zip_longest(dev, host):
+        if d is None or h is None:
+            raise fail(f"{label}: the device and host epochs differ in "
+                       f"length at batch {n}")
+        same_batch(torch, d, h, label, n)
+        want.append(batch_sums(torch, d))
+        n += 1
+    del d, h
+    want = torch.stack(want)
+    log(f"{label}: untimed epoch of {n} batches x {LOADER_BATCH} rows on "
+        f"the card bit-equal to a to_device=False epoch, batch by batch "
+        f"({time.perf_counter() - t0:.2f} s with the comparison)")
+    runs = {0: [], 4: []}
+    for k in (0, 4, 0, 4):
+        r = loader_epoch(torch, paths, device, k)
+        if r["sums"].shape != want.shape or not torch.equal(r["sums"], want):
+            raise fail(f"{label}: prefetch {k} epoch's checksums differ "
+                       f"from the untimed epoch's")
+        r["sums"] = None
+        runs[k].append(r)
+        log(f"{label}: prefetch {k}: {r['rows'] / r['seconds']:.1f} rows/s "
+            f"({r['rows']} rows in {r['seconds']:.4f} s), "
+            f"decode_wait_seconds {r['stats']['decode_wait_seconds']}, "
+            f"window_peak_rows {r['stats']['window_peak_rows']}, "
+            f"max_memory_allocated +{r['peak']} bytes ({smi})")
+    scans = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = list(scan_files(paths, columns=LOADER_COLUMNS,
+                               device=device))
+        torch.cuda.synchronize()
+        scans.append(time.perf_counter() - t0)
+        del outs
+    rows = runs[4][0]["rows"]
+    total = SF1_ROWS
+    med = {k: sorted(r["seconds"] for r in v)[len(v) // 2]
+           for k, v in runs.items()}
+    scan_s = sorted(scans)[len(scans) // 2]
+    out = dict(batches=n, runs=runs, rows=rows, scan_s=scans,
+               rates={k: [r["rows"] / r["seconds"] for r in v]
+                      for k, v in runs.items()},
+               loader_vs_scan=(rows / med[4]) / (total / scan_s),
+               loader_speedup=med[0] / med[4])
+    log(f"{label}: scan_files over the same columns "
+        + ", ".join(f"{total / s:.1f}" for s in scans)
+        + f" rows/s; loader_vs_scan {out['loader_vs_scan']:.4f} "
+        f"(median prefetch-4 rows/s over median scan_files rows/s, as "
+        f"bench.py computes it); loader_speedup p0/p4 "
+        f"{out['loader_speedup']:.4f} ({smi})")
+    return out
+
+
+def loader_restore(torch, paths, device, spool: str) -> dict:
+    """16(b): a state blob after RESTORE_CUT batches at prefetch 0,
+    restored into a fresh loader at prefetch 4 (publishing to the fleet
+    spool): the first batches plus the rest equal the uninterrupted epoch
+    (a host epoch), batch by batch."""
+    from tpu_parquet_torch.data import DataLoader
+
+    label = "loader (b)"
+    host = iter(DataLoader(paths, LOADER_BATCH, **loader_kw(prefetch=4)))
+    cut = DataLoader(paths, LOADER_BATCH, **loader_kw(
+        prefetch=0, to_device=True, device=device))
+    it = iter(cut)
+    n = 0
+    for batch in it:
+        same_batch(torch, batch, next(host), label, n)
+        n += 1
+        if n == RESTORE_CUT:
+            it.close()
+            break
+    blob = cut.state_blob()
+    resumed = DataLoader(paths, LOADER_BATCH, **loader_kw(
+        prefetch=4, to_device=True, device=device)).restore(blob)
+    os.environ["TPQ_OBS_SPOOL"] = spool
+    try:
+        for batch in resumed:
+            same_batch(torch, batch, next(host), label, n)
+            n += 1
+    finally:
+        os.environ.pop("TPQ_OBS_SPOOL", None)
+    if next(host, None) is not None:
+        raise fail(f"{label}: the resumed loader ended early at batch {n}")
+    log(f"{label}: state_blob() after {RESTORE_CUT} batches at prefetch 0 "
+        f"({len(blob)} bytes), restored at prefetch 4: {RESTORE_CUT} + "
+        f"{n - RESTORE_CUT} batches equal the uninterrupted epoch")
+    return dict(batches=n, blob=len(blob), stats=resumed.stats().as_dict(),
+                registry=resumed.obs_registry().as_dict())
+
+
+def loader_shards(torch, paths, device, keys) -> None:
+    """16(c): shards (i, 4) in one process partition the rows exactly
+    (``l_orderkey`` is strictly increasing, so its keys name the rows)."""
+    from tpu_parquet_torch.data import DataLoader
+
+    parts, sizes = [], []
+    for i in range(LOADER_SHARDS):
+        loader = DataLoader(paths, LOADER_BATCH, **loader_kw(
+            shard=(i, LOADER_SHARDS), drop_remainder=False, prefetch=4,
+            to_device=True, device=device))
+        mine = [b["l_orderkey"][b["mask"]] for b in loader]
+        sizes.append(sum(len(m) for m in mine))
+        parts += mine
+    got = torch.sort(torch.cat(parts)).values
+    want = torch.from_numpy(keys).to(got.device)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise fail(f"loader (c): the {LOADER_SHARDS} shards' rows "
+                   f"({sizes}) do not partition the file's "
+                   f"{len(keys)} rows")
+    log(f"loader (c): shards (i, {LOADER_SHARDS}) hold {sizes} rows, their "
+        f"union is every row exactly once")
+
+
+def loader_vs_reader(torch, ck, path: str, device) -> dict:
+    """16(d): unshuffled, the loader's batches equal
+    ``DeviceFileReader.iter_batches``'s over the same columns; the launch
+    counters' rise on the pass is the reader's (``loader_launches``), the
+    loader's own ``next`` calls launch nothing."""
+    from tpu_parquet_torch.data import DataLoader
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    label = "loader (d)"
+    loader = iter(DataLoader([path], LOADER_BATCH, **loader_kw(
+        shuffle=False, prefetch=4, to_device=True, device=device)))
+    own = {k: 0 for k in ck.launches}
+    n = 0
+    with DeviceFileReader(path, columns=LOADER_COLUMNS, device=device) as r:
+        ck.reset_launches()
+        for want in r.iter_batches(LOADER_BATCH, columns=LOADER_COLUMNS):
+            before = dict(ck.launches)
+            got = next(loader, None)
+            for k, v in ck.launches.items():
+                own[k] += v - before[k]
+            if got is None or set(got) != set(want):
+                raise fail(f"{label}: batch {n} missing or with other "
+                           f"columns")
+            for c in LOADER_COLUMNS:
+                a, b = word_view(torch, got[c]), word_view(torch, want[c])
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise fail(f"{label}: batch {n} column {c} differs "
+                               f"from iter_batches")
+            n += 1
+        counts = dict(ck.launches)
+    if next(loader, None) is not None:
+        raise fail(f"{label}: the loader yields more batches than "
+                   f"iter_batches ({n})")
+    if any(own.values()):
+        raise fail(f"{label}: the loader itself launched {own}")
+    counts = {k: v - own[k] for k, v in counts.items()}
+    for kname in ("hybrid_unpack_combine", "fused_plain_words"):
+        if not counts[kname]:
+            raise fail(f"{label}: iter_batches never launched {kname}")
+    log(f"{label}: unshuffled loader == DeviceFileReader.iter_batches("
+        f"{LOADER_BATCH}) over {n} batches, bit for bit; loader_launches "
+        f"(the reader's pass) {counts}; the loader itself launches no "
+        f"hand-written kernel (it decodes on the host FileReader and "
+        f"ships each batch with one copy per column), as the reference's")
+    return counts
+
+
+def parallel_nccl(torch, work: str, path: str, draws, device, backend,
+                  smi: str) -> None:
+    """16(e): ``parallel`` on a world of one over ``backend`` (NCCL on the
+    card), each sharded decode held against the port's plain CPU decode of
+    the same pages and against the generator."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tpu_parquet_torch import parallel as par
+    from tpu_parquet_torch import torch_kernels as K
+    from tpu_parquet_torch.kernels import delta as delta_host
+    from tpu_parquet_torch.kernels import rle as rle_host
+    from tpu_parquet_torch.reader import FileReader
+
+    label = "parallel (e)"
+    n = PAR_PAGES * PAR_PAGE_ROWS
+    cols = {c: np.concatenate([g[c] for g in draws])[:n]
+            for c in ("l_suppkey", "l_orderkey", "l_extendedprice")}
+    pages = {c: v.reshape(PAR_PAGES, PAR_PAGE_ROWS) for c, v in cols.items()}
+    width = int(SUPP_DICT_ROWS - 1).bit_length()
+    dictionary = np.arange(SUPP_DICT_ROWS, dtype=np.int64)
+    t0 = time.perf_counter()
+    hyb = par.pack_hybrid_pages(
+        [rle_host.encode(p.astype(np.uint64), width)
+         for p in pages["l_suppkey"]], width, PAR_PAGE_ROWS)
+    dlt = par.pack_delta_pages(
+        [delta_host.encode(p, bits=64) for p in pages["l_orderkey"]], 64,
+        PAR_PAGE_ROWS)
+    plain = np.zeros((PAR_PAGES, par._bucket(PAR_PAGE_ROWS * 8 + par._SLACK,
+                                             64)), np.uint8)
+    for i, p in enumerate(pages["l_extendedprice"]):
+        plain[i, :PAR_PAGE_ROWS * 8] = p.view(np.uint8)
+    plain = torch.from_numpy(plain)
+    dict_u8 = torch.from_numpy(dictionary.view(np.uint8).reshape(-1, 8))
+    pack_s = time.perf_counter() - t0
+    rdv = os.path.join(work, "nccl_rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"file://{rdv}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh(device)
+        # the communicator is built at the first collective: time it apart
+        warm = torch.zeros(1, dtype=torch.int64, device=device)
+        dist.all_reduce(warm, group=mesh.get_group("data"))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vals, stats = par.sharded_dict_decode(hyb, dict_u8, "int64", mesh,
+                                              with_stats=True)
+        keys = par.sharded_delta_decode(dlt, 64, mesh)
+        price = par.sharded_plain_decode(plain, "float64", PAR_PAGE_ROWS,
+                                         mesh)
+        kstats = par.column_stats(keys, mesh)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        # the plain CPU decode of the same pages
+        idx = torch.stack([K.expand_rle_hybrid(b, e, r, v, s, width,
+                                               PAR_PAGE_ROWS)
+                           for b, e, r, v, s in zip(
+                               hyb.bufs, hyb.run_ends, hyb.run_is_rle,
+                               hyb.run_values, hyb.run_bit_starts)])
+        cpu = {
+            "l_suppkey": K.dict_gather_bytes(dict_u8, idx.reshape(-1),
+                                             "int64").reshape(idx.shape),
+            "l_orderkey": K.delta_reconstruct(
+                dlt.bufs.reshape(-1), dlt.first_values,
+                dlt.mini_bit_starts + (torch.arange(PAR_PAGES)
+                                       * dlt.bufs.shape[1] * 8)[:, None],
+                dlt.mini_widths, dlt.mini_min_delta, dlt.values_per_mini,
+                PAR_PAGE_ROWS, 64, dlt.max_width),
+            "l_extendedprice": torch.stack([
+                K.plain_decode_fixed(b, "float64", PAR_PAGE_ROWS)
+                for b in plain]),
+        }
+        got = {"l_suppkey": vals, "l_orderkey": keys,
+               "l_extendedprice": price}
+        for c, t in got.items():
+            full = t.full_tensor()
+            if full.device.type != torch.device(device).type:
+                raise fail(f"{label}: {c} decoded on {full.device}")
+            host = full.cpu()
+            if not torch.equal(word_view(torch, host),
+                               word_view(torch, cpu[c])):
+                raise fail(f"{label}: {c} differs from its plain CPU "
+                           f"decode")
+            if not np.array_equal(host.numpy().view(np.uint8),
+                                  pages[c].view(np.uint8)):
+                raise fail(f"{label}: {c} differs from the generator")
+        want_st = [n, int(cols["l_suppkey"].min()),
+                   int(cols["l_suppkey"].max())]
+        if stats.cpu().tolist() != want_st:
+            raise fail(f"{label}: dictionary stats {stats.tolist()} != "
+                       f"{want_st}")
+        want_k = [n, int(cols["l_orderkey"].min()),
+                  int(cols["l_orderkey"].max())]
+        if kstats.cpu().tolist() != want_k:
+            raise fail(f"{label}: column_stats {kstats.tolist()} != "
+                       f"{want_k}")
+        # the multi-host form against the device reader's column
+        from tpu_parquet_torch.device_reader import DeviceFileReader
+
+        t0 = time.perf_counter()
+        with FileReader(path) as r:
+            col, valid = par.process_local_column(r, "l_orderkey", mesh,
+                                                  prefetch=4)
+        local_s = time.perf_counter() - t0
+        with DeviceFileReader(path, columns=["l_orderkey"],
+                              device=device) as r:
+            want = torch.cat([dense_values(g["l_orderkey"])
+                              for g in r.iter_row_groups()])
+        full = col.full_tensor()
+        if valid != SF1_ROWS or not torch.equal(full, want):
+            raise fail(f"{label}: process_local_column(l_orderkey) differs "
+                       f"from the DeviceFileReader column")
+        log(f"{label}: {backend} world of 1, mesh {mesh}: "
+            f"sharded_dict_decode(with_stats) on {PAR_PAGES} l_suppkey "
+            f"pages of {PAR_PAGE_ROWS} (width {width}, {SUPP_DICT_ROWS}-row "
+            f"int64 dictionary), sharded_delta_decode of l_orderkey, "
+            f"sharded_plain_decode of l_extendedprice and column_stats in "
+            f"{dec_s:.4f} s (packing {pack_s:.2f} s on the host, the group "
+            f"and its communicator {setup_s:.2f} s), each "
+            f"equal to its plain CPU decode and the generator; stats "
+            f"{want_st}, {want_k}; process_local_column(l_orderkey) == the "
+            f"DeviceFileReader column ({valid} rows, {local_s:.2f} s) "
+            f"({smi})")
+        log(f"{label}: a world larger than one needs more cards than this "
+            f"machine has; worlds of 4 (1-D and 2x2) run on gloo in "
+            f"tests/test_torch_parallel.py")
+    finally:
+        dist.destroy_process_group()
+
+
+def fleet_check(spool: str, restore: dict) -> None:
+    """16(f), first half: the resumed loader's spool member, seen by
+    ``FleetAggregator`` as a live ``loader`` with its lanes."""
+    from tpu_parquet_torch.obs import fleet_host
+    from tpu_parquet_torch.obs_fleet import FleetAggregator, process_lanes
+
+    label = "fleet (f)"
+    snap = FleetAggregator(spool_dir=spool).scan()
+    key = f"{fleet_host()}:{os.getpid()}"
+    proc = snap["processes"].get(key)
+    if proc is None or proc["role"] != "loader" or proc["stale"]:
+        raise fail(f"{label}: the aggregator does not see {key} as a live "
+                   f"loader: " + ", ".join(
+                       f"{k} role {p['role']} stale {p['stale']} age "
+                       f"{p['heartbeat_age_s']} s"
+                       for k, p in snap["processes"].items()))
+    lanes = process_lanes(proc["registry"])
+    if not lanes["host_decompress"] > 0:
+        raise fail(f"{label}: the loader's lanes are empty: {lanes}")
+    if snap["registry"]["loader"]["batches"] != (
+            restore["batches"] - RESTORE_CUT):
+        raise fail(f"{label}: the spool's loader batches "
+                   f"{snap['registry']['loader']['batches']} != the resumed "
+                   f"loader's {restore['batches'] - RESTORE_CUT}")
+    log(f"{label}: {snap['files_scanned']} spool file(s), process {key} "
+        f"role {proc['role']}, heartbeat {proc['heartbeat_age_s']} s old, "
+        f"lanes " + ", ".join(f"{k} {v:.6f}" for k, v in lanes.items() if v))
+
+
+def ledger_record(work: str, depth: dict, smi: str) -> None:
+    """16(f), second half: a ledger record of phase 16's numbers,
+    fingerprinted ``kernel_mode == "cuda"``, checked against itself."""
+    from tpu_parquet_torch import ledger
+
+    label = "ledger (f)"
+    runs = depth["runs"]
+    cfg = {
+        "rows": depth["rows"],
+        "prefetch0_rows_per_sec": depth["rates"][0][-1],
+        "prefetch4_rows_per_sec": depth["rates"][4][-1],
+        "prefetch0_reps_s": [r["seconds"] for r in runs[0]],
+        "prefetch4_reps_s": [r["seconds"] for r in runs[4]],
+        "loader_speedup": depth["loader_speedup"],
+        "scan_files_rows_per_sec": SF1_ROWS / min(depth["scan_s"]),
+        "scan_files_reps_s": depth["scan_s"],
+        "loader_vs_scan": depth["loader_vs_scan"],
+        "obs": runs[4][-1]["registry"],
+    }
+    path = os.path.join(work, "ledger.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    rec = ledger.make_record({
+        "metric": "loader_prefetch4_rows_per_sec",
+        "value": cfg["prefetch4_rows_per_sec"], "unit": "rows/s",
+        "vs_baseline": None, "device": smi, "configs": {"loader": cfg}})
+    ledger.append(path, rec)
+    back = ledger.load_side(path)
+    env = back["env"]
+    if env.get("kernel_mode") != "cuda" or not env.get("kernel_device"):
+        raise fail(f"{label}: the ledger fingerprint says kernel_mode "
+                   f"{env.get('kernel_mode')!r}")
+    regressions = ledger.check(back, back)
+    if regressions:
+        raise fail(f"{label}: check() of the record against itself: "
+                   f"{regressions}")
+    d = ledger.diff(back, back)
+    log(f"{label}: ledger record appended to {path}: kernel_mode "
+        f"{env['kernel_mode']} on {env['kernel_device']}; check() against "
+        f"itself finds no regression ({d['compared']} metrics compared)")
+
+
+def read_loader_phase(torch, ck, work: str, smi: str, device="cuda",
+                      backend="nccl") -> dict:
+    """Phase 16: training input on the card (lineitem16 SF1 in
+    250,000-row groups, ``bench.py`` ``bench_loader``'s configuration)."""
+    import gc
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    freed = collected_bytes(torch)
+    before = torch.cuda.memory_allocated()
+    draws = list(draw_lineitem16(SF1_ROWS, LOADER_GROUP))
+    path = os.path.join(work, "lineitem16_sf1_rg250k.parquet")
+    secs = write_lineitem16(path, [lineitem_strings(g) for g in draws])
+    log(f"loader: wrote {path}: {SF1_ROWS} rows x {len(L16_COLUMNS)} "
+        f"columns, {len(draws)} row groups of {LOADER_GROUP}, "
+        f"{os.path.getsize(path)} bytes in {secs:.2f} s; batch "
+        f"{LOADER_BATCH}, seed {LOADER_SEED}, shuffle_window "
+        f"{LOADER_WINDOW}, drop_remainder, {len(LOADER_COLUMNS)} columns; "
+        f"{freed} bytes on the card freed by a garbage collection at the "
+        f"phase's start ({smi})")
+    spool = os.path.join(work, "obs_spool")
+    shutil.rmtree(spool, ignore_errors=True)
+    depth = loader_depths(torch, [path], device, smi)
+    restore = loader_restore(torch, [path], device, spool)
+    fleet_check(spool, restore)
+    keys = np.concatenate([g["l_orderkey"] for g in draws])
+    loader_shards(torch, [path], device, keys)
+    del keys
+    launches = loader_vs_reader(torch, ck, path, device)
+    parallel_nccl(torch, work, path, draws, device, backend, smi)
+    del draws
+    ledger_record(work, depth, smi)
+    threads = [t for t in tpq_threads() if t.startswith(
+        ("tpq-prefetch", "tpq-sampler", "tpq-watchdog", "tpq-spool"))]
+    if threads:
+        raise fail(f"phase 16: threads still alive after it: {threads}")
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    if left:
+        raise fail(f"phase 16: {left} bytes still allocated after it")
+    wall = time.perf_counter() - t_phase
+    log(f"loader summary ({smi}): lineitem16 SF1 loader rows/s prefetch 0 "
+        + ", ".join(f"{v:.1f}" for v in depth["rates"][0]) + ", prefetch 4 "
+        + ", ".join(f"{v:.1f}" for v in depth["rates"][4])
+        + f"; decode_wait_seconds p0 "
+        + ", ".join(f"{r['stats']['decode_wait_seconds']}"
+                    for r in depth["runs"][0]) + ", p4 "
+        + ", ".join(f"{r['stats']['decode_wait_seconds']}"
+                    for r in depth["runs"][4])
+        + f"; max_memory_allocated p0 "
+        + ", ".join(f"+{r['peak']}" for r in depth["runs"][0]) + ", p4 "
+        + ", ".join(f"+{r['peak']}" for r in depth["runs"][4])
+        + f" bytes; loader_vs_scan {depth['loader_vs_scan']:.4f}; "
+        f"loader_launches {launches}; 0 bytes left, no loader thread "
+        f"alive; phase 16 wall {wall:.2f} s")
+    return dict(loader_launches=launches, depth=depth, wall=wall)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -4914,7 +5479,12 @@ def main() -> int:
     obs = read_obs_phase(torch, ck, work, smi, l16_path=l16_path, l16=l16,
                          k3_path=k3_path)
 
-    # phase 16: the kernels line and the result line
+    # phase 16: training input on the card (the loader at two depths,
+    # save and restore, shards, against iter_batches, parallel on NCCL,
+    # the fleet spool and the ledger)
+    loader = read_loader_phase(torch, ck, work, smi)
+
+    # phase 17: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "hybrid_unpack_combine", "route": "cuda",
@@ -4978,7 +5548,7 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phases 11's to 15's launches beside each kernel's
+    # phases 11's to 16's launches beside each kernel's
     # main-path count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
@@ -4986,6 +5556,8 @@ def main() -> int:
         entry["store_launches"] = store["launched"].get(entry["name"], 0)
         entry["cache_launches"] = cache["launched"].get(entry["name"], 0)
         entry["obs_launches"] = obs["launched"].get(entry["name"], 0)
+        entry["loader_launches"] = loader["loader_launches"].get(
+            entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

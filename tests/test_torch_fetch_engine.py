@@ -40,9 +40,17 @@ from tpu_parquet_torch.iostore_async import (FetchEngine,
                                              shutdown_default_engine)
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.resilience import CancelToken
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
 
 
 @pytest.fixture(scope="module")

@@ -29,9 +29,18 @@ from tpu_parquet_torch.alloc import MemoryBudgetExceeded
 from tpu_parquet_torch.column import ByteArrayData
 from tpu_parquet_torch.footer import ParquetError
 from tpu_parquet_torch.reader import FileReader
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
+
 
 DEPTHS = [0, 1, 4]
 

@@ -43,9 +43,18 @@ from tpu_parquet_torch.iostore_async import shutdown_default_engine
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
+
 
 IO_ENV = ("TPQ_IO_ASYNC", "TPQ_IO_INFLIGHT", "TPQ_IO_DEADLINE_S",
           "TPQ_IO_RETRIES", "TPQ_IO_BACKOFF_MS", "TPQ_IO_RETRY_BUDGET",

@@ -32,9 +32,17 @@ import pytest
 from tpu_parquet import alloc as ref_alloc
 from tpu_parquet import pipeline as ref_pipeline
 from tpu_parquet_torch import alloc, pipeline
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
 
 
 @pytest.fixture(autouse=True)

@@ -43,9 +43,18 @@ from tpu_parquet_torch.format import (CompressionCodec,
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter, corrupt_page
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
+
 
 N_GROUPS, ROWS = 5, 400
 POLICIES = ["raise", "skip_unit", "skip_file"]

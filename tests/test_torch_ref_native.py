@@ -16,7 +16,14 @@ imports the reference calls it at import: the workers of a parallel run
 collect every file before they run a test, so each worker holds a whole
 library before any test reads through it.
 
-The tests: a latched failure recovers over a whole file; the reference's
+The same module holds :class:`ReferenceCrashes` and its fixture
+``no_reference_crashes``: the ``worker_crash`` events a parity test's
+reference half leaves in the reference's process-global flight rings are
+removed after the test, so ``tests/test_autopsy.py``, which reads the last
+crash of those rings, never finds one of them in its place.
+
+The tests: the helper drops only the crash events added since its mark; a
+latched failure recovers over a whole file; the reference's
 sweep, run while a build is in flight, leaves the build whole; and the
 eight port tests that failed when a worker latched pass in a fresh pytest
 process whose plugin forces the latch before collection.
@@ -28,6 +35,7 @@ import shutil
 import subprocess
 import sys
 import textwrap
+import threading
 
 import pytest
 
@@ -88,6 +96,98 @@ def ensure_reference_native() -> None:
 
 
 ensure_reference_native()
+
+
+def _ring_events(ring) -> list:
+    """A copy of one flight ring; a worker thread may still be appending."""
+    while True:
+        try:
+            return list(ring)
+        except RuntimeError:  # deque mutated during iteration
+            continue
+
+
+class ReferenceCrashes:
+    """The ``worker_crash`` events that a test's reference half leaves in
+    the reference's process-global flight rings
+    (``tpu_parquet.obs.flight_recorder()``).
+
+    ``tests/test_autopsy.py`` takes the last ``worker_crash`` of all rings
+    as the one its own test raised, so a crash that an earlier test left in
+    the same process (a ``CancelledError``, a ``DeadlineExceededError``, a
+    ``HangError`` through a worker) must not stay there.  ``mark()`` records
+    every ring's events before a test; ``drop_new()`` then removes the
+    ``worker_crash`` events that appeared since, whatever their error type,
+    and never an event that was there before the mark."""
+
+    def __init__(self):
+        import tpu_parquet.obs as ref_obs
+
+        self._recorder = ref_obs.flight_recorder()
+        self._before: dict = {}
+
+    def _rings(self) -> list:
+        with self._recorder._lock:
+            return [ring for _name, ring in self._recorder._threads.values()]
+
+    def mark(self) -> None:
+        # the events themselves are kept, so their ids stay unique
+        self._before = {id(ring): (ring, _ring_events(ring))
+                        for ring in self._rings()}
+
+    def drop_new(self) -> int:
+        """Remove the crash events added since ``mark()``; returns how
+        many were removed."""
+        dropped = 0
+        for ring in self._rings():
+            old = self._before.get(id(ring))
+            known = ({id(e) for e in old[1]}
+                     if old is not None and old[0] is ring else set())
+            events = _ring_events(ring)
+            kept = [e for e in events
+                    if id(e) in known or e[1] != "worker_crash"]
+            if len(kept) != len(events):
+                dropped += len(events) - len(kept)
+                ring.clear()
+                ring.extend(kept)
+        self._before = {}
+        return dropped
+
+
+@pytest.fixture
+def no_reference_crashes():
+    """Autouse it in a parity file whose reference half raises through a
+    worker: each test's new reference ``worker_crash`` events are removed
+    after it."""
+    crashes = ReferenceCrashes()
+    crashes.mark()
+    yield crashes
+    crashes.drop_new()
+
+
+def test_reference_crashes_drops_only_new_crash_events():
+    import tpu_parquet.obs as ref_obs
+
+    rec = ref_obs.flight_recorder()
+    outer = ReferenceCrashes()
+    outer.mark()
+    rec.record("i", "worker_crash", 1.0, 0.0, {"type": "Before"})
+    crashes = ReferenceCrashes()
+    crashes.mark()
+    rec.record("i", "worker_crash", 3.0, 0.0, {"type": "ValueError"})
+    rec.record("i", "after", 4.0, 0.0, {})
+    worker = threading.Thread(target=lambda: rec.record(
+        "i", "worker_crash", 5.0, 0.0, {"type": "CancelledError"}))
+    worker.start()
+    worker.join()
+    assert crashes.drop_new() == 2
+    events = [(e["name"], (e.get("args") or {}).get("type"))
+              for t in rec.snapshot()["threads"].values()
+              for e in t["events"]]
+    assert ("worker_crash", "Before") in events
+    assert ("after", None) in events
+    assert not [e for e in events if e[1] in ("ValueError", "CancelledError")]
+    assert outer.drop_new() == 1  # this test leaves no crash behind
 
 
 def test_latched_failure_recovers_over_a_whole_file(monkeypatch):

@@ -55,9 +55,17 @@ from tpu_parquet_torch.resilience import (BreakerBoard, CancelToken,
                                           ChaosPhase, ChaosSchedule)
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
 
 PAIRS = ((S, R, FileReader), (RS, RR, RefReader))
 

@@ -56,9 +56,18 @@ from tpu_parquet_torch.errors import (CancelledError, DeadlineExceededError,
 from tpu_parquet_torch.format import CompressionCodec
 from tpu_parquet_torch.iostore_async import (default_engine_if_running,
                                              shutdown_default_engine)
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
+
 
 SN, GZ, U = (CompressionCodec.SNAPPY, CompressionCodec.GZIP,
              CompressionCodec.UNCOMPRESSED)

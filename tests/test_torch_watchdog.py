@@ -43,9 +43,18 @@ from tpu_parquet_torch.iostore_async import shutdown_default_engine
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (ensure_reference_native,
+                                        no_reference_crashes)  # noqa: F401
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _drop_reference_crashes(no_reference_crashes):
+    """The reference half's ``worker_crash`` events leave with the test
+    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    yield
+
 
 HANG_S = 0.3
 
@@ -99,19 +108,6 @@ def _obs_threads():
                                   "tpq-devtimer"))]
 
 
-def _drop_reference_hang_crashes():
-    """Remove the ``worker_crash`` events a reference read's ``HangError``
-    left in the reference's process-wide flight rings: they would stay the
-    newest crash of this worker process for any later test that reads the
-    rings (``tests/test_autopsy.py`` takes the last one)."""
-    for _name, ring in list(RO.flight_recorder()._threads.values()):
-        kept = [e for e in ring if not (
-            e[1] == "worker_crash" and (e[4] or {}).get("type") == "HangError")]
-        if len(kept) != len(ring):
-            ring.clear()
-            ring.extend(kept)
-
-
 @pytest.fixture
 def env(monkeypatch, tmp_path):
     monkeypatch.setenv("TPQ_PALLAS", "1")
@@ -122,7 +118,6 @@ def env(monkeypatch, tmp_path):
     yield monkeypatch
     shutdown_default_engine()
     ref_shutdown_engine()
-    _drop_reference_hang_crashes()
 
 
 def _hang(make_reader, pkg, dump, monkeypatch, hang_error):

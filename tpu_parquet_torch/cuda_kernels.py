@@ -58,7 +58,7 @@ __all__ = ["unpack_bp_groups", "unpack_bp_groups_plain", "unpack_bits",
            "fused_narrow_geometry", "fused_plain_geometry",
            "FUSED_MAX_OPS", "FUSED_MAX_DEPTH", "FUSED_MAX_PAYLOAD",
            "SNAPPY_OPS_BYTES",
-           "launches", "reset_launches", "build", "KERNELS"]
+           "launches", "reset_launches", "build", "kernel_mode", "KERNELS"]
 
 _GROUPS_PER_TILE = 1024  # K1 tile: 8192 values (the reference's tile)
 # the fused K1's geometry, as csrc/bp_unpack.cu lays it out: positions per
@@ -108,6 +108,17 @@ _libs: dict = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def kernel_mode() -> str:
+    """``"cuda"`` when a CUDA card is present: the entry points decode on
+    it by default and each wrapper launches its kernel (built from
+    ``csrc/`` at first use); ``"plain"`` when only CPU tensors can be
+    decoded, by the kernels' plain versions.  The ledger's environment
+    fingerprint records it (the counterpart of the reference's
+    ``pallas_mode``): a ``plain`` run's device numbers are not kernel
+    measurements."""
+    return "cuda" if torch.cuda.is_available() else "plain"
 
 
 def build_dir() -> str:

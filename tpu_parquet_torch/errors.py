@@ -105,6 +105,17 @@ class CancelledError(RuntimeError):
     purpose: this is an application-level verdict, never a pool internal."""
 
 
+class CheckpointError(ParquetError):
+    """Malformed, incompatible or version-mismatched loader checkpoint
+    state.
+
+    Raised by ``tpu_parquet_torch.data.checkpoint`` for any state blob that
+    cannot be adopted safely: truncation, bad magic, an unknown version,
+    type or range violations and dataset-fingerprint mismatches all land
+    here rather than silently mis-seeking the loader.  Rooted at
+    ParquetError, so one type covers the checkpoint surface too."""
+
+
 class CircuitOpenError(RuntimeError):
     """A per-file circuit breaker is open: the file keeps failing and
     requests touching it fast-fail instead of paying the full retry and
