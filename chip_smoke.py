@@ -215,11 +215,35 @@ Phases:
     phase's numbers fingerprinted ``kernel_mode == "cuda"``, checked
     against itself.  After it: no loader thread alive, the device memory
     back to its baseline;
-17. one JSON line listing every ported kernel (with phase 11's launches as
+17. the serve tier on the card (``serve.ScanService``, device requests on
+    ``cuda``), reusing the files of phases 5, 6 and 16: (a) ``bench.py``
+    ``bench_serve``'s sweep, 1, 4 and 16 client threads on one service of
+    min(clients, 8) workers, device requests over lineitem16 SF1 with the
+    projections rotating over its 16 columns, the first 8 and the first
+    1, at least 12 requests per count, every response bit-equal on the
+    card to an uncached read of its columns; rows/s served, request p50,
+    p95 and p99, ``queue_wait_seconds``, the plan cache's hit rate and the
+    launches (the fused K1 and K2 must run); (b) one device request over
+    the K3 file: exact, K3 launched as in phase 5; (c) a 2 GiB device
+    tier: a second identical request exact, with no store read and no
+    launch; (d) ``bench_serve_tenants``' shape cut to one round: a victim
+    (weight 3) and a noisy tenant's flood (weight 1), one worker, 20 ms
+    per range, isolated, FIFO and fair: fair's victim p99 must be under
+    FIFO's; (e) a device stream (``stream=True, device=True,
+    batch_rows=8192``) over phase 16's 11 fixed-width columns: every full
+    batch equal to ``DeviceFileReader.iter_batches``', the padded tail to
+    the file, a cursor resumed bit-identically, a deadline and a cancel
+    ending it typed; (f) a blacked-out file tripping its breaker while a
+    healthy one stays exact, brownout shedding ``PRIORITY_LOW`` and
+    admitting ``PRIORITY_HIGH``, a stalled store under ``hang_s=2``
+    raising ``HangError`` for its request alone.  After every service: no
+    worker alive and no budget held; after the phase no ``tpq-`` thread
+    and no byte above its start;
+18. one JSON line listing every ported kernel (with phase 11's launches as
     ``pipeline_launches``, phase 12's as ``filter_launches``, phase 13's
     as ``store_launches``, phase 14's as ``cache_launches``, phase 15's
-    as ``obs_launches`` and phase 16's as ``loader_launches``), then the
-    result line.
+    as ``obs_launches``, phase 16's as ``loader_launches`` and phase 17's
+    as ``serve_launches``), then the result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
@@ -5338,6 +5362,594 @@ def read_loader_phase(torch, ck, work: str, smi: str, device="cuda",
     return dict(loader_launches=launches, depth=depth, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serve tier on the card
+# ---------------------------------------------------------------------------
+
+# bench.py bench_serve's sweep: client threads on one ScanService of
+# min(clients, 8) workers, projections rotating over all 16 columns, the
+# first 8 and the first 1; at least SERVE_MIN_REQUESTS requests per count
+SERVE_CLIENTS = (1, 4, 16)
+SERVE_MIN_REQUESTS = 12
+# bench.py bench_serve_tenants' shape, cut to one round: 20 ms per range,
+# one worker, victim weight 3 against noisy weight 1
+SERVE_LATENCY_S = 0.020
+SERVE_NOISY = 12
+SERVE_VICTIM = 4
+SERVE_HANG_S = 2.0  # 17(f)'s watchdog deadline
+STREAM_CUT = 300  # 17(e): batches taken before the cursor
+STREAM_DEADLINE_S = 0.5  # 17(e): the deadline that ends a stream
+
+
+def serve_projections() -> list:
+    return [L16_COLUMNS, L16_COLUMNS[:8], L16_COLUMNS[:1]]
+
+
+def same_response(torch, res: dict, path: str, base, label: str) -> None:
+    """A device response's columns (``{path: {column: column | [one per
+    row group]}}``) against an uncached read's groups, every tensor bit for
+    bit on the card."""
+    cols = res[path]
+    if list(cols) != list(base[0]):
+        raise fail(f"{label}: columns {list(cols)}, want {list(base[0])}")
+    parts = {n: (v if isinstance(v, list) else [v]) for n, v in cols.items()}
+    groups = [{n: p[i] for n, p in parts.items()}
+              for i in range(len(next(iter(parts.values()))))]
+    same_on_card(torch, groups, base, label)
+
+
+def latency_ms(walls: list) -> dict:
+    """Nearest-rank p50, p95 and p99 of the clients' request walls (the
+    service's ``serve.request`` histogram holds bucket edges only)."""
+    s = sorted(walls)
+    return {q: s[min(int(v * len(s)), len(s) - 1)] * 1e3
+            for q, v in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99))}
+
+
+def closed_clean(svc, label: str) -> None:
+    """After ``close()``: no worker alive and nothing charged."""
+    import threading
+
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("tpq-serve")]
+    held = svc._budget.held + sum(t.budget.held for t in
+                                  svc.tenants.tenants().values())
+    if alive or held:
+        raise fail(f"{label}: after close(), workers {alive}, {held} "
+                   f"budget bytes held")
+
+
+def serve_sweep(torch, ck, path: str, bases: dict, single_s: float,
+                smi: str, launched: dict) -> dict:
+    """17(a): 1, 4 and 16 clients on one service, device requests."""
+    import threading
+
+    from tpu_parquet_torch.serve import ScanRequest, ScanService
+
+    projections = serve_projections()
+    out = {}
+    for clients in SERVE_CLIENTS:
+        label = f"serve (a) {clients} client(s)"
+        q = -(-SERVE_MIN_REQUESTS // clients)
+        svc = ScanService(concurrency=min(clients, 8),
+                          queue_depth=max(2 * clients, 4))
+        got, errors, walls = [], [], []
+
+        def client(ci, svc=svc, got=got, errors=errors, walls=walls, q=q):
+            try:
+                for i in range(q):
+                    pi = (ci + i) % len(projections)
+                    t0 = time.perf_counter()
+                    res = svc.scan(ScanRequest(path,
+                                               columns=projections[pi],
+                                               device=True), timeout=600)
+                    walls.append(time.perf_counter() - t0)
+                    got.append((pi, ci, i, res))
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(detached(e))
+
+        threads = [threading.Thread(target=client, args=(ci,))
+                   for ci in range(clients)]
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ck.launches)
+        tree = svc.obs_registry().as_dict()
+        svc.close()
+        closed_clean(svc, label)
+        if errors:
+            raise fail(f"{label}: {errors[0]!r}")
+        for pi, ci, i, res in got:
+            same_response(torch, res, path, bases[pi]["outs"],
+                          f"{label}, client {ci} request {i}")
+        n = len(got)
+        del got, res
+        add_launches(launched, counts)
+        want = {}
+        for pi in [(ci + i) % len(projections) for ci in range(clients)
+                   for i in range(q)]:
+            add_launches(want, bases[pi]["counts"])
+        for kname in ("hybrid_unpack_combine", "fused_plain_words"):
+            if not counts.get(kname):
+                raise fail(f"{label}: {kname} never launched")
+        sv = tree["serve"]
+        cache = sv["cache"]
+        hits = sum(cache[f"{k}_hits"] for k in ("footer", "plan", "dict"))
+        total = hits + sum(cache[f"{k}_misses"]
+                           for k in ("footer", "plan", "dict"))
+        plan_rate = cache["plan_hits"] / max(cache["plan_hits"]
+                                             + cache["plan_misses"], 1)
+        rows = sv["rows"]
+        lat = latency_ms(walls)
+        out[clients] = dict(requests=n, wall=wall, rows=rows,
+                            rows_per_s=rows / wall, lat=lat,
+                            queue_wait=sv["queue_wait_seconds"],
+                            plan_hit_rate=plan_rate,
+                            hit_rate=hits / max(total, 1), counts=counts)
+        log(f"{label}: {n} device requests ({q} per client), every "
+            f"response bit-equal to the uncached read of its columns; "
+            f"{rows} rows served in {wall:.4f} s = "
+            f"{rows / wall:.1f} rows/s (one uncached 16-column read "
+            f"{SF1_ROWS / single_s:.1f}); request walls p50 "
+            f"{lat['p50']:.3f} "
+            f"ms, p95 {lat['p95']:.3f} ms, p99 {lat['p99']:.3f} ms; "
+            f"queue_wait_seconds {sv['queue_wait_seconds']}, exec_seconds "
+            f"{sv['exec_seconds']}; plan cache hit rate {plan_rate:.4f} "
+            f"(footer+plan+dict {hits / max(total, 1):.4f}); launches "
+            f"{counts} (the same requests read uncached: {want}) ({smi})")
+    return out
+
+
+def serve_k3(torch, ck, path: str, base: dict, want_k3: int, smi: str,
+             launched: dict) -> dict:
+    """17(b): one device request over the K3 file: exact, K3 launched as
+    in phase 5."""
+    from tpu_parquet_torch.serve import ScanRequest, ScanService
+
+    label = "serve (b) K3 file"
+    with ScanService(concurrency=1) as svc:
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = svc.scan(ScanRequest(path, columns=K3_COLUMNS, device=True),
+                       timeout=600)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ck.launches)
+    closed_clean(svc, label)
+    same_response(torch, res, path, base["outs"], label)
+    del res
+    add_launches(launched, counts)
+    if counts != base["counts"] or counts["fused_narrow_words"] != want_k3:
+        raise fail(f"{label}: launches {counts}, want the uncached read's "
+                   f"{base['counts']} ({want_k3} K3)")
+    log(f"{label}: bit-equal to the uncached read, launches {counts} "
+        f"(K3 {want_k3}, as phase 5); {K3_ROWS / secs:.1f} rows/s "
+        f"(uncached read {K3_ROWS / base['seconds']:.1f}) ({smi})")
+    return dict(counts=counts, rows_per_s=K3_ROWS / secs)
+
+
+def serve_cached(torch, ck, path: str, base: dict, smi: str,
+                 launched: dict) -> dict:
+    """17(c): a 2 GiB device tier: a second identical device request is
+    exact, reads nothing and launches nothing."""
+    from tpu_parquet_torch.serve import ScanRequest, ScanService
+
+    label = "serve (c) result cache"
+    reads = [0]
+    svc = ScanService(concurrency=1, result_cache_mb=0,
+                      result_cache_hbm_mb=CACHE_HBM_MB,
+                      store=counting_local_factory(reads))
+    times, counts = [], []
+    try:
+        for i in range(2):
+            before = reads[0]
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            res = svc.scan(ScanRequest(path, columns=L16_COLUMNS,
+                                       device=True), timeout=600)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(dict(ck.launches))
+            same_response(torch, res, path, base["outs"],
+                          f"{label} request {i + 1}")
+            del res
+            if i == 0:
+                cold_reads = reads[0] - before
+            elif reads[0] != before or any(counts[1].values()):
+                raise fail(f"{label}: the warm request read "
+                           f"{reads[0] - before} ranges, launched "
+                           f"{counts[1]}")
+        dev = svc.cache.results.counters()["device"]
+    finally:
+        svc.close()
+    closed_clean(svc, label)
+    add_launches(launched, counts[0])
+    if counts[0] != base["counts"]:
+        raise fail(f"{label}: cold launches {counts[0]}, want "
+                   f"{base['counts']}")
+    log(f"{label}: cold request {times[0] * 1e3:.3f} ms ({cold_reads} store "
+        f"reads, launches as the uncached read), warm request "
+        f"{times[1] * 1e3:.3f} ms: 0 store reads, 0 launches, bit-equal; "
+        f"device tier {dev['entries']} chunks, {dev['held_bytes']} bytes, "
+        f"{dev['hits']} hits ({smi})")
+    return dict(cold_ms=times[0] * 1e3, warm_ms=times[1] * 1e3)
+
+
+def serve_tenants(torch, ck, path: str, smi: str, launched: dict) -> dict:
+    """17(d): a victim (weight 3) under a noisy tenant's flood (weight 1),
+    one worker, 20 ms per range: isolated, FIFO and fair."""
+    from tpu_parquet_torch.iostore import (FaultInjectingStore, FaultSpec,
+                                           IOConfig, LocalStore)
+    from tpu_parquet_torch.serve import ScanRequest, ScanService
+
+    col = [L16_COLUMNS[0]]
+    out = {}
+    for phase, fair in (("isolated", True), ("fifo", False), ("fair", True)):
+        svc = ScanService(
+            concurrency=1, queue_depth=4 * (SERVE_NOISY + SERVE_VICTIM),
+            fair=fair, result_cache_mb=0,
+            store=lambda f: FaultInjectingStore(
+                LocalStore(f), FaultSpec(latency_s=SERVE_LATENCY_S),
+                config=IOConfig(backoff_ms=1.0)))
+        svc.register_tenant("victim", weight=3)
+        svc.register_tenant("noisy", weight=1)
+        try:
+            ck.reset_launches()
+            noisy = ([svc.submit(ScanRequest(path, columns=col, device=True,
+                                             tenant="noisy"))
+                      for _ in range(SERVE_NOISY)]
+                     if phase != "isolated" else [])
+            walls = []
+            for _ in range(SERVE_VICTIM):
+                t0 = time.perf_counter()
+                svc.scan(ScanRequest(path, columns=col, device=True,
+                                     tenant="victim"), timeout=600)
+                walls.append(time.perf_counter() - t0)
+            for t in noisy:
+                t.result(600)
+            del noisy
+            add_launches(launched, dict(ck.launches))
+            st = svc.serve_stats()["tenants"]
+        finally:
+            svc.close()
+        closed_clean(svc, f"serve (d) {phase}")
+        out[phase] = dict(p99_ms=max(walls) * 1e3,
+                          p50_ms=sorted(walls)[len(walls) // 2] * 1e3,
+                          victim=st["victim"]["submitted"],
+                          noisy=st.get("noisy", {}).get("submitted", 0))
+    stop_engine("serve (d)")
+    if not out["fair"]["p99_ms"] < out["fifo"]["p99_ms"]:
+        raise fail(f"serve (d): victim p99 fair {out['fair']['p99_ms']:.3f}"
+                   f" ms not under FIFO {out['fifo']['p99_ms']:.3f} ms")
+    log("serve (d) tenants, " + f"{SERVE_NOISY} noisy and {SERVE_VICTIM} "
+        f"victim device requests of {col[0]}, one worker, "
+        f"{SERVE_LATENCY_S * 1e3:.0f} ms per range: victim p99 "
+        + ", ".join(f"{k} {v['p99_ms']:.3f} ms (p50 {v['p50_ms']:.3f})"
+                    for k, v in out.items())
+        + f"; fair/FIFO {out['fair']['p99_ms'] / out['fifo']['p99_ms']:.4f}"
+        f" ({smi})")
+    return out
+
+
+def stream_batches(torch, svc, path: str, **req) -> list:
+    from tpu_parquet_torch.serve import ScanRequest
+
+    return svc.scan(ScanRequest(path, columns=LOADER_COLUMNS, stream=True,
+                                device=True, batch_rows=LOADER_BATCH,
+                                **req), timeout=600)
+
+
+def same_stream_batch(torch, got: dict, want: dict, label: str) -> None:
+    if set(got) != set(LOADER_COLUMNS) | {"mask"}:
+        raise fail(f"{label}: batch keys {sorted(got)}")
+    if not bool(got["mask"].all()):
+        raise fail(f"{label}: a full batch has masked rows")
+    for c in LOADER_COLUMNS:
+        a, b = word_view(torch, got[c]), word_view(torch, want[c])
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise fail(f"{label}: column {c} differs from iter_batches")
+
+
+def serve_stream(torch, path: str, loader_rate: float, smi: str) -> dict:
+    """17(e): a device stream over the 11 fixed-width columns of phase 16's
+    25-group file against ``iter_batches``, a cursor resumed, a deadline
+    and a cancel."""
+    import numpy as np
+
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+    from tpu_parquet_torch.errors import (CancelledError,
+                                          DeadlineExceededError)
+    from tpu_parquet_torch.reader import FileReader
+    from tpu_parquet_torch.serve import ScanRequest, ScanService
+
+    label = "serve (e) device stream"
+    with DeviceFileReader(path, columns=LOADER_COLUMNS) as r:
+        want = list(r.iter_batches(LOADER_BATCH, columns=LOADER_COLUMNS))
+        n_groups = len(r.metadata.row_groups)
+    rem = SF1_ROWS - len(want) * LOADER_BATCH
+    with FileReader(path, columns=LOADER_COLUMNS) as h:
+        tail = {c: np.concatenate([h.read_row_group(g)[c].values
+                                   for g in (n_groups - 2, n_groups - 1)]
+                                  )[-rem:] for c in LOADER_COLUMNS}
+    svc = ScanService(concurrency=1)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(stream_batches(torch, svc, path))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if len(got) != len(want) + 1:
+            raise fail(f"{label}: {len(got)} batches, want "
+                       f"{len(want) + 1} ({len(want)} full and the tail)")
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g["mask"].device.type != svc.device.type:
+                raise fail(f"{label}: batch {i} on {g['mask'].device}")
+            same_stream_batch(torch, g, w, f"{label} batch {i}")
+        last = got[-1]
+        if int(last["mask"].sum()) != rem or bool(last["mask"][rem:].any()):
+            raise fail(f"{label}: the tail's mask does not hold its {rem} "
+                       f"rows")
+        for c in LOADER_COLUMNS:
+            h = last[c][:rem].cpu().numpy()
+            if not np.array_equal(h.view(np.uint8),
+                                  np.ascontiguousarray(tail[c]).view(
+                                      np.uint8)):
+                raise fail(f"{label}: the tail's {c} differs from the file")
+        del got, last
+        # a cursor mid-stream, resumed in a new session
+        s1 = stream_batches(torch, svc, path)
+        for _ in range(STREAM_CUT):
+            next(s1)
+        blob = s1.cursor()
+        s1.close()
+        rest = list(stream_batches(torch, svc, path, cursor=blob))
+        if len(rest) != len(want) + 1 - STREAM_CUT:
+            raise fail(f"{label}: {len(rest)} batches after the cursor")
+        for i, (g, w) in enumerate(zip(rest, want[STREAM_CUT:])):
+            same_stream_batch(torch, g, w,
+                              f"{label} resumed batch {STREAM_CUT + i}")
+        del rest
+        # a deadline and a cancel end the stream, typed
+        verdicts = {}
+        for kind in ("deadline", "cancel"):
+            taken = 0
+            try:
+                s = stream_batches(torch, svc, path, **(
+                    {"deadline_s": STREAM_DEADLINE_S}
+                    if kind == "deadline" else {}))
+                for _ in s:
+                    taken += 1
+                    if kind == "cancel" and taken == 3:
+                        s.cancel()
+                    elif kind == "deadline":
+                        time.sleep(0.02)  # a consumer slower than the stream
+                raise fail(f"{label}: the {kind} never ended the stream")
+            except (DeadlineExceededError, CancelledError) as e:
+                verdicts[kind] = (type(e).__name__, taken)
+            s = None
+        if (verdicts["deadline"][0] != "DeadlineExceededError"
+                or verdicts["cancel"][0] != "CancelledError"):
+            raise fail(f"{label}: verdicts {verdicts}")
+        st = svc.serve_stats()
+    finally:
+        svc.close()
+    closed_clean(svc, label)
+    del want
+    rate = SF1_ROWS / secs
+    log(f"{label}: {SF1_ROWS} rows in "
+        f"{secs:.4f} s = {rate:.1f} rows/s (phase 16's shuffled loader "
+        f"{loader_rate:.1f}); every full batch equal to "
+        f"iter_batches({LOADER_BATCH}), the padded tail's {rem} rows equal "
+        f"to the file's; a cursor after {STREAM_CUT} batches resumed "
+        f"bit-identically; deadline -> {verdicts['deadline'][0]} after "
+        f"{verdicts['deadline'][1]} batches, cancel -> "
+        f"{verdicts['cancel'][0]}; stream_sessions "
+        f"{st['stream_sessions']}, stream_batches {st['stream_batches']} "
+        f"({smi})")
+    return dict(rows_per_s=rate, verdicts=verdicts)
+
+
+def serve_faults(torch, work: str, l16_path: str, k3_path: str, bases: dict,
+                 smi: str, launched: dict) -> dict:
+    """17(f): a blacked-out file trips its breaker, brownout sheds low
+    priority, a stalled store hangs one request alone."""
+    from tpu_parquet_torch.errors import (CircuitOpenError, HangError,
+                                          OverloadError,
+                                          RetryExhaustedError)
+    from tpu_parquet_torch.iostore import (FaultInjectingStore, FaultSpec,
+                                           IOConfig, LocalStore)
+    from tpu_parquet_torch.resilience import BreakerBoard
+    from tpu_parquet_torch.serve import (PRIORITY_HIGH, PRIORITY_LOW,
+                                         ScanRequest, ScanService)
+
+    one = serve_projections()[2]
+    base = bases[2]["outs"]
+    out = {}
+
+    # the blackout: every read of the K3 file fails
+    label = "serve (f) blackout"
+
+    def blackout(f):
+        victim = (os.path.abspath(getattr(f, "name", "") or "")
+                  == os.path.abspath(k3_path))
+        return FaultInjectingStore(
+            LocalStore(f), FaultSpec(fail_first=1 << 30) if victim
+            else FaultSpec(),
+            config=IOConfig(retries=1, backoff_ms=0, retry_budget=8))
+
+    board = BreakerBoard(fails=2, window_s=60, cooldown_s=60)
+    with ScanService(concurrency=2, breakers=board, store=blackout) as svc:
+        seen = []
+        for _ in range(4):
+            try:
+                svc.scan(ScanRequest(k3_path, device=True), timeout=600)
+                seen.append("ok")
+            except (RetryExhaustedError, CircuitOpenError) as e:
+                seen.append(type(detached(e)).__name__)
+            res = svc.scan(ScanRequest(l16_path, columns=one, device=True),
+                           timeout=600)
+            same_response(torch, res, l16_path, base, f"{label} healthy")
+            del res
+        circ = svc.serve_stats()["circuit"]
+    closed_clean(svc, label)
+    if (seen != ["RetryExhaustedError"] * 2 + ["CircuitOpenError"] * 2
+            or circ["open_files"] != [str(k3_path)]):
+        raise fail(f"{label}: outcomes {seen}, circuit {circ}")
+    out["blackout"] = seen
+    log(f"{label}: the K3 file {seen}; the breaker open on it "
+        f"({circ['opened']} opened, {circ['fast_fails']} fast fails); "
+        f"lineitem16's {one[0]} bit-equal between every try ({smi})")
+
+    # brownout: low priority shed, high admitted
+    label = "serve (f) brownout"
+    svc = ScanService(concurrency=1, queue_depth=4, brownout=0.25,
+                      store=lambda f: FaultInjectingStore(
+                          LocalStore(f), FaultSpec(latency_s=SERVE_LATENCY_S),
+                          config=IOConfig(backoff_ms=0)))
+    try:
+        tickets, shed = [], None
+        for _ in range(10):
+            try:
+                tickets.append(svc.submit(ScanRequest(
+                    l16_path, columns=one, device=True,
+                    priority=PRIORITY_LOW)))
+            except OverloadError as e:
+                shed = detached(e)
+        if shed is None or shed.shed_priority != PRIORITY_LOW:
+            raise fail(f"{label}: no low-priority request shed")
+        tickets.append(svc.submit(ScanRequest(
+            l16_path, columns=one, device=True, priority=PRIORITY_HIGH)))
+        for i, t in enumerate(tickets):
+            same_response(torch, t.result(600), l16_path, base,
+                          f"{label} request {i}")
+        tickets = None
+        sv = svc.serve_stats()
+    finally:
+        svc.close()
+    closed_clean(svc, label)
+    out["brownout"] = dict(shed_low=sv["sheds"]["low"],
+                           completed=sv["completed"],
+                           retry_after_s=shed.retry_after_s)
+    log(f"{label}: {sv['sheds']['low']} low-priority requests shed "
+        f"(\"{shed}\", retry_after_s {shed.retry_after_s}), the "
+        f"high-priority one admitted; {sv['completed']} completed, "
+        f"bit-equal ({smi})")
+
+    # a stalled store: one request hangs, its neighbour completes
+    label = "serve (f) hang"
+    stall, stores = stall_third_fetch()
+
+    def hang_factory(f):
+        if (os.path.abspath(getattr(f, "name", "") or "")
+                == os.path.abspath(k3_path)):
+            return stall(f)
+        return LocalStore(f)
+
+    dump = os.path.join(work, "serve_hang_flight.json")
+    os.environ["TPQ_FLIGHT"] = dump
+    svc = ScanService(concurrency=2, hang_s=SERVE_HANG_S, store=hang_factory)
+    try:
+        t0 = time.perf_counter()
+        stuck = svc.submit(ScanRequest(k3_path, device=True, prefetch=4))
+        healthy = svc.submit(ScanRequest(l16_path, columns=one,
+                                         device=True))
+        same_response(torch, healthy.result(600), l16_path, base,
+                      f"{label} healthy")
+        healthy = None
+        try:
+            stuck.result(600)
+            raise fail(f"{label}: the stalled request completed")
+        except HangError as e:
+            hung_s = time.perf_counter() - t0
+            err = detached(e)
+        sv = svc.serve_stats()
+    finally:
+        for st in stores:
+            st.release()
+        svc.close()
+        os.environ.pop("TPQ_FLIGHT", None)
+    closed_clean(svc, label)
+    if sv["failed"] != 1 or sv["completed"] != 1:
+        raise fail(f"{label}: {sv['failed']} failed, {sv['completed']} "
+                   f"completed")
+    out["hang_s"] = hung_s
+    log(f"{label}: HangError after {hung_s:.3f} s under hang_s="
+        f"{SERVE_HANG_S} for the stalled request alone (dump "
+        f"{err.dump_path}); its neighbour bit-equal ({smi})")
+    stop_engine(label)
+    return out
+
+
+def read_serve_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                     k3_path: str, k3_main: dict, loader: dict) -> dict:
+    """Phase 17: the serve tier on the card (``ScanService`` device
+    requests over lineitem16 SF1 and the K3 file, the result cache,
+    tenants, a device stream, faults)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    freed = collected_bytes(torch)
+    before = torch.cuda.memory_allocated()
+    log(f"serve: {freed} bytes on the card freed by a garbage collection at "
+        f"the phase's start ({smi})")
+    launched: dict = {}
+    bases = []
+    for cols in serve_projections():
+        ck.reset_launches()
+        outs, secs, _ = timed_pass(torch, l16_path, cols)
+        bases.append(dict(outs=outs, seconds=secs,
+                          counts=dict(ck.launches)))
+    del outs
+    ck.reset_launches()
+    k3_outs, k3_secs, _ = timed_pass(torch, k3_path, K3_COLUMNS)
+    k3_base = dict(outs=k3_outs, seconds=k3_secs, counts=dict(ck.launches))
+    del k3_outs
+    sweep = serve_sweep(torch, ck, l16_path, bases, bases[0]["seconds"],
+                        smi, launched)
+    k3 = serve_k3(torch, ck, k3_path, k3_base,
+                  k3_main["counts"]["fused_narrow_words"], smi, launched)
+    del k3_base
+    cached = serve_cached(torch, ck, l16_path, bases[0], smi, launched)
+    tenants = serve_tenants(torch, ck, l16_path, smi, launched)
+    stream = serve_stream(
+        torch, os.path.join(work, "lineitem16_sf1_rg250k.parquet"),
+        loader["depth"]["rates"][0][0], smi)
+    faults = serve_faults(torch, work, l16_path, k3_path, bases, smi,
+                          launched)
+    single = SF1_ROWS / bases[0]["seconds"]
+    del bases
+    threads = tpq_threads()
+    if threads:
+        raise fail(f"phase 17: threads still alive after it: {threads}")
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    if left:
+        raise fail(f"phase 17: {left} bytes still allocated after it")
+    wall = time.perf_counter() - t_phase
+    log(f"serve summary ({smi}): rows/s served "
+        + ", ".join(f"{c} client(s) {v['rows_per_s']:.1f} (p99 "
+                    f"{v['lat']['p99']:.3f} ms, queue wait "
+                    f"{v['queue_wait']} s)" for c, v in sweep.items())
+        + f" against one uncached read {single:.1f}; K3 request "
+        f"{k3['rows_per_s']:.1f}; warm request {cached['warm_ms']:.3f} ms "
+        f"(cold {cached['cold_ms']:.3f}); victim p99 FIFO "
+        f"{tenants['fifo']['p99_ms']:.3f} ms, fair "
+        f"{tenants['fair']['p99_ms']:.3f} ms; stream "
+        f"{stream['rows_per_s']:.1f} rows/s; hang at {faults['hang_s']:.3f}"
+        f" s; serve_launches {launched}; 0 bytes left, no tpq- thread "
+        f"alive; phase 17 wall {wall:.2f} s")
+    return dict(launched=launched, sweep=sweep, wall=wall)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -5484,7 +6096,12 @@ def main() -> int:
     # the fleet spool and the ledger)
     loader = read_loader_phase(torch, ck, work, smi)
 
-    # phase 17: the kernels line and the result line
+    # phase 17: the serve tier (a concurrency sweep of device requests, the
+    # K3 file, the result cache, tenants, a device stream, faults)
+    serve = read_serve_phase(torch, ck, work, smi, l16_path=l16_path,
+                             k3_path=k3_path, k3_main=k3_main, loader=loader)
+
+    # phase 18: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "hybrid_unpack_combine", "route": "cuda",
@@ -5548,8 +6165,7 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phases 11's to 16's launches beside each kernel's
-    # main-path count
+    # phases 11's to 17's launches beside each kernel's main-path count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
         entry["filter_launches"] = filt["launched"].get(entry["name"], 0)
@@ -5558,6 +6174,7 @@ def main() -> int:
         entry["obs_launches"] = obs["launched"].get(entry["name"], 0)
         entry["loader_launches"] = loader["loader_launches"].get(
             entry["name"], 0)
+        entry["serve_launches"] = serve["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -357,7 +357,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                      "write.manifest", "predicate", "scanplan",
                      "quarantine", "iostore", "iostore_async",
                      "resilience", "obs", "serve", "serve.cache",
-                     "serve.result_cache", "errors"):
+                     "serve.result_cache", "serve.service", "serve.stream",
+                     "serve.tenancy", "errors"):
             assert "tpu_parquet_torch." + name in names, name
         # the whole obs layer, exercised: still no jax, no tpu_parquet
         from tpu_parquet_torch import obs

@@ -79,6 +79,29 @@ class RetryExhaustedError(IOError):
         self.size = size
 
 
+class OverloadError(RuntimeError):
+    """A scan service refused a request: its admission queue is full, or
+    brownout (``TPQ_SERVE_BROWNOUT``) shed the request's priority band.
+
+    Raised by :class:`tpu_parquet_torch.serve.ScanService` at submission,
+    at once: the caller is never blocked, so it can back off or go
+    elsewhere.  Not a ParquetError (nothing is malformed) and not an
+    IOError (nothing was read).  ``queue_depth`` and ``in_flight`` give the
+    admission state at the refusal, ``retry_after_s`` the service's
+    back-off hint from its drain rate, and ``shed_priority`` the band that
+    was shed (None for a plain queue-full refusal)."""
+
+    def __init__(self, message: str, queue_depth: "int | None" = None,
+                 in_flight: "int | None" = None,
+                 retry_after_s: "float | None" = None,
+                 shed_priority: "int | None" = None):
+        super().__init__(message)
+        self.queue_depth = queue_depth
+        self.in_flight = in_flight
+        self.retry_after_s = retry_after_s
+        self.shed_priority = shed_priority
+
+
 class DeadlineExceededError(TimeoutError):
     """A request's end-to-end deadline expired before it finished.
 

@@ -804,6 +804,10 @@ class FlightRecorder:
                 except Exception:  # noqa: BLE001 — a dump must not fail
                     entry["stack"] = []
             tout[str(tid)] = entry
+        # the frames map holds this very frame, whose locals hold the map:
+        # left bound, that cycle keeps every thread's frames at the dump
+        # (a hung scan's staged tensors among them) until a collection
+        frames = f = None
         doc = {
             "flight_version": FLIGHT_VERSION,
             "obs_version": OBS_VERSION,
