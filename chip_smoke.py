@@ -239,23 +239,50 @@ Phases:
     raising ``HangError`` for its request alone.  After every service: no
     worker alive and no budget held; after the phase no ``tpq-`` thread
     and no byte above its start;
-18. one JSON line listing every ported kernel (with phase 11's launches as
+18. the write side, read back on the card: (a) ``bench.py``
+    ``bench_write_scale``'s encode, 12 row groups of 500,000 rows (``k``
+    INT64 below 2^40, ``v`` DOUBLE, seed 11), with the single
+    ``FileWriter`` and ``write.write_sharded`` at 1, 4 and 8 workers, each
+    file byte-identical to the single writer's, rows/s and the
+    ``WriteStats`` lanes of each, then the file read on the card against
+    the batches; (b) lineitem16 SF1 (phase 6's groups and writer settings)
+    through ``write_sharded`` at 4 workers: as one file, byte-identical to
+    phase 6's, and as a manifest dataset, read through ``scan_files`` on
+    the card bit-equal to phase 6's file with phase 6's launches; (c)
+    (a)'s batches as 48 files of 125,000 rows, ``compact``ed (files,
+    codec, modeled ``link_bytes_ratio``, seconds), both datasets read
+    through ``scan_files`` on the card in turns, exact, rows/s and the
+    measured link bytes shipped beside the modeled ratio; (d) the
+    fragmented dataset compacted twice with a ``PlanCache`` while a
+    ``ScanService(device="cuda")`` sweeps it: every sweep one whole
+    generation, equal to the batches; (e) ``merge_files`` over (b)'s
+    members: byte-identical to phase 6's file, read on the card bit-equal;
+    (f) 100,000 records through ``floor.Writer`` (timestamps in each unit,
+    INT96, decimal, uuid, a nested record), equal through ``floor.Reader``,
+    the leaves on the card equal to the host reader's.  After it: no
+    ``tpq-`` thread, no temporary file, no byte above its start;
+19. one JSON line listing every ported kernel (with phase 11's launches as
     ``pipeline_launches``, phase 12's as ``filter_launches``, phase 13's
     as ``store_launches``, phase 14's as ``cache_launches``, phase 15's
-    as ``obs_launches``, phase 16's as ``loader_launches`` and phase 17's
-    as ``serve_launches``), then the result line.
+    as ``obs_launches``, phase 16's as ``loader_launches``, phase 17's
+    as ``serve_launches`` and phase 18's as ``write_launches``), then the
+    result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
+import decimal
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import uuid
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
@@ -1532,20 +1559,19 @@ def read_k3_path(torch, ck, path: str, groups, smi: str) -> dict:
 # phases 6-7: the whole 16-column lineitem, and PLAIN strings
 # ---------------------------------------------------------------------------
 
-def write_lineitem16(path: str, groups, columns=L16_COLUMNS, codec=None,
-                     dictionary: bool = True) -> float:
-    """``bench.py`` ``gen_lineitem16``'s writer settings with the port's
-    writer: the STRING columns UTF8, SNAPPY unless ``codec`` says
+def lineitem16_layout(columns=L16_COLUMNS, codec=None,
+                      dictionary: bool = True) -> tuple:
+    """``bench.py`` ``gen_lineitem16``'s schema and writer settings for the
+    port's writer: the STRING columns UTF8, SNAPPY unless ``codec`` says
     otherwise, dictionary on unless ``dictionary`` is false, DELTA for the
-    four DELTA columns, page CRCs, one row group per generated group."""
-    from tpu_parquet_torch.column import ByteArrayData, ColumnData
+    four DELTA columns, page CRCs.  Returns ``(schema, FileWriter
+    keywords)``."""
     from tpu_parquet_torch.format import (CompressionCodec, ConvertedType,
                                           Encoding,
                                           FieldRepetitionType as FRT,
                                           LogicalType, StringType, Type)
     from tpu_parquet_torch.schema.core import (ColumnParameters,
                                                build_schema, data_column)
-    from tpu_parquet_torch.writer import FileWriter
 
     types = {"l_linenumber": Type.INT32, "l_extendedprice": Type.DOUBLE,
              "l_discount": Type.DOUBLE, "l_tax": Type.DOUBLE,
@@ -1561,20 +1587,33 @@ def write_lineitem16(path: str, groups, columns=L16_COLUMNS, codec=None,
                                    converted_type=ConvertedType.UTF8))
         return data_column(c, types.get(c, Type.INT64), FRT.REQUIRED)
 
-    schema = build_schema([column(c) for c in columns])
+    return build_schema([column(c) for c in columns]), dict(
+        codec=CompressionCodec.SNAPPY if codec is None else codec,
+        use_dictionary=dictionary, write_crc=True, row_group_size=128 << 20,
+        column_encodings={c: Encoding.DELTA_BINARY_PACKED
+                          for c in DELTA_COLUMNS if c in columns})
+
+
+def lineitem16_batch(g: dict, columns=L16_COLUMNS) -> dict:
+    """One generated group as the writer's batch (strings as
+    ``ColumnData``)."""
+    from tpu_parquet_torch.column import ByteArrayData, ColumnData
+
+    return {c: ColumnData(values=g[c]) if isinstance(g[c], ByteArrayData)
+            else g[c] for c in columns}
+
+
+def write_lineitem16(path: str, groups, columns=L16_COLUMNS, codec=None,
+                     dictionary: bool = True) -> float:
+    """lineitem16 with :func:`lineitem16_layout`'s settings, one row group
+    per generated group."""
+    from tpu_parquet_torch.writer import FileWriter
+
+    schema, opts = lineitem16_layout(columns, codec, dictionary)
     t0 = time.perf_counter()
-    with FileWriter(path, schema,
-                    codec=CompressionCodec.SNAPPY if codec is None else codec,
-                    use_dictionary=dictionary, write_crc=True,
-                    row_group_size=128 << 20,
-                    column_encodings={c: Encoding.DELTA_BINARY_PACKED
-                                      for c in DELTA_COLUMNS
-                                      if c in columns}) as w:
+    with FileWriter(path, schema, **opts) as w:
         for g in groups:
-            w.write_columns({
-                c: ColumnData(values=g[c])
-                if isinstance(g[c], ByteArrayData) else g[c]
-                for c in columns})
+            w.write_columns(lineitem16_batch(g, columns))
             w.flush_row_group()
     return time.perf_counter() - t0
 
@@ -3078,6 +3117,56 @@ def collected_bytes(torch) -> int:
     return before - torch.cuda.memory_allocated()
 
 
+class FrozenHeap:
+    """A timed pass with the objects alive before it moved into the
+    collector's permanent generation (``gc.freeze``), and every collection
+    that runs during the pass recorded.
+
+    By phase 13 the script holds the inputs and results of twelve phases,
+    and a full collection that walks them stops every thread for a few
+    hundred milliseconds: a pause of the script's own heap, not of the
+    scan under test.  Frozen, they are not walked; what the pass itself
+    allocates is still collected.  ``full_s`` is the full collection that
+    ran before the freeze, ``pauses`` the (generation, seconds) of each
+    collection inside the block."""
+
+    def __init__(self):
+        self.full_s = 0.0
+        self.pauses: list = []
+        self._t0 = None
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append((info["generation"],
+                                time.perf_counter() - self._t0))
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+
+        t0 = time.perf_counter()
+        gc.collect()
+        self.full_s = time.perf_counter() - t0
+        gc.freeze()
+        gc.callbacks.append(self._note)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._note)
+        gc.unfreeze()
+        return False
+
+    def summary(self) -> str:
+        longest = max((s for _, s in self.pauses), default=0.0)
+        return (f"a full collection before it {self.full_s:.4f} s; "
+                f"{len(self.pauses)} collections in it, the longest "
+                f"{longest:.4f} s")
+
+
 def tpq_threads() -> list:
     import threading
 
@@ -3866,15 +3955,18 @@ def store_cancel(torch, ck, smi: str, path: str, base: dict,
             (f"deadline {deadline} s", None, deadline,
              "DeadlineExceededError")):
         label = f"store {name}"
-        tok = CancelToken.with_timeout(timeout)
-        timer = threading.Timer(fire, tok.cancel) if fire else None
         stores: list = []
-        if timer is not None:
-            timer.start()
-        got = store_pass(torch, ck, path, K3_COLUMNS, k, "1", stop=timer,
-                         cancel=tok,
-                         store=fault_factory({"latency_s": STORE_LATENCY_S},
-                                             stores))
+        # the earlier phases' heap frozen: a full collection walking it is
+        # a pause of this script, and would land in the bound below
+        with FrozenHeap() as heap:
+            tok = CancelToken.with_timeout(timeout)
+            timer = threading.Timer(fire, tok.cancel) if fire else None
+            if timer is not None:
+                timer.start()
+            got = store_pass(torch, ck, path, K3_COLUMNS, k, "1",
+                             stop=timer, cancel=tok,
+                             store=fault_factory(
+                                 {"latency_s": STORE_LATENCY_S}, stores))
         err = got["error"]
         # one unit: a row group of the clean read at K, plus a request
         unit = base["seconds"] / len(base["outs"]) + STORE_LATENCY_S
@@ -3882,14 +3974,15 @@ def store_cancel(torch, ck, smi: str, path: str, base: dict,
                 or (timeout is not None
                     and got["seconds"] > timeout + unit + 0.25)):
             raise fail(f"{label}: {err!r} after {got['seconds']:.4f} s, "
-                       f"records {got['records']}")
+                       f"records {got['records']}; {heap.summary()}")
         if any("inflight_offset" in st.stats.sample() for st in stores):
             raise fail(f"{label}: a range is still in flight")
         out[name] = got["seconds"]
         log(f"{label}: {want}: {err} after {len(got['outs'])} of "
             f"{len(base['outs'])} row groups, {got['seconds']:.4f} s (a "
-            f"unit: {unit:.4f} s); no thread, pinned buffer, ledger byte, "
-            f"budget charge or range in flight left ({smi})")
+            f"unit: {unit:.4f} s; {heap.summary()}); no thread, pinned "
+            f"buffer, ledger byte, budget charge or range in flight left "
+            f"({smi})")
     got = store_pass(torch, ck, path, K3_COLUMNS, k, "1",
                      store=fault_factory({"latency_s": STORE_LATENCY_S}, []))
     same_read(torch, "store cancel re-read", got, base)
@@ -5950,6 +6043,520 @@ def read_serve_phase(torch, ck, work: str, smi: str, *, l16_path: str,
     return dict(launched=launched, sweep=sweep, wall=wall)
 
 
+WRITE_GROUPS = 12  # 18(a), bench.py bench_write_scale: 12 row groups
+WRITE_GROUP_ROWS = 500_000  # of 500,000 rows
+WRITE_SEED = 11
+WRITE_WORKERS = (1, 4, 8)
+FRAG_PARTS = 4  # 18(c): each batch in 4 files, 48 files of 125,000 rows
+COMPACT_PASSES = 3  # 18(c): scan_files passes of each dataset, in turns
+FLOOR_RECORDS = 100_000  # 18(f)
+FLOOR_SCHEMA = """message rec {
+  required int64 id;
+  required int64 ts_ms (TIMESTAMP(MILLIS,true));
+  required int64 ts_us (TIMESTAMP(MICROS,true));
+  required int64 ts_ns (TIMESTAMP(NANOS,true));
+  required int96 legacy;
+  required int64 price (DECIMAL(18,4));
+  required fixed_len_byte_array(16) uid (UUID);
+  required group addr {
+    required binary city (STRING);
+    optional binary zip (STRING);
+  }
+}"""
+
+
+@dataclasses.dataclass
+class FloorAddr:
+    city: str
+    zip: str | None
+
+
+@dataclasses.dataclass
+class FloorRecord:
+    id: int
+    ts_ms: datetime.datetime
+    ts_us: datetime.datetime
+    ts_ns: datetime.datetime
+    legacy: datetime.datetime
+    price: decimal.Decimal
+    uid: uuid.UUID
+    addr: FloorAddr
+
+
+def write_scale_schema():
+    from tpu_parquet_torch.format import FieldRepetitionType as FRT, Type
+    from tpu_parquet_torch.schema.core import build_schema, data_column
+
+    return build_schema([data_column("k", Type.INT64, FRT.REQUIRED),
+                         data_column("v", Type.DOUBLE, FRT.REQUIRED)])
+
+
+def write_scale_batches() -> list:
+    """``bench.py`` ``bench_write_scale``'s batches: ``k`` INT64 uniform
+    below 2^40, ``v`` DOUBLE, seed 11."""
+    import numpy as np
+
+    rng = np.random.default_rng(WRITE_SEED)
+    return [{"k": rng.integers(0, 1 << 40, WRITE_GROUP_ROWS).astype(np.int64),
+             "v": rng.random(WRITE_GROUP_ROWS)} for _ in range(WRITE_GROUPS)]
+
+
+def fresh_dir(path: str) -> str:
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def same_file(a: str, b: str, label: str) -> None:
+    import filecmp
+
+    if not filecmp.cmp(a, b, shallow=False):
+        raise fail(f"{label}: {a} ({os.path.getsize(a)} bytes) is not "
+                   f"byte-identical to {b} ({os.path.getsize(b)} bytes)")
+
+
+def write_lanes(st) -> str:
+    from tpu_parquet_torch.write import WRITE_STAGES
+
+    d = st.as_dict()
+    return (", ".join(f"{s} {d[s + '_seconds']} s" for s in WRITE_STAGES)
+            + f", stall_seconds {d['stall_seconds']}, workers "
+            f"{d['workers']}, wall_seconds {d['wall_seconds']}")
+
+
+def no_write_leftovers(d: str, label: str) -> None:
+    """After a write: no ``tpq-`` thread and no temporary file."""
+    threads = tpq_threads()
+    temps = [f for f in os.listdir(d) if ".tmp-" in f]
+    if threads or temps:
+        raise fail(f"{label}: threads {threads}, temporary files {temps} "
+                   f"left after the write")
+
+
+def write_encode(torch, ck, d: str, smi: str, launched: dict) -> dict:
+    """18(a): ``bench_write_scale``'s encode with the single writer and
+    ``write_sharded`` at each worker count, byte-identical, then read back
+    on the card."""
+    from tpu_parquet_torch.write import WriteStats, write_sharded
+    from tpu_parquet_torch.writer import FileWriter
+
+    schema, batches = write_scale_schema(), write_scale_batches()
+    rows = WRITE_GROUPS * WRITE_GROUP_ROWS
+    single = os.path.join(d, "single.parquet")
+    st = WriteStats()
+    t0 = time.perf_counter()
+    with FileWriter(single, schema, stats=st) as w:
+        for b in batches:
+            w.write_columns(b)
+            w.flush_row_group()
+    single_s = time.perf_counter() - t0
+    rates = {"single": rows / single_s}
+    log(f"write (a) single writer: {rows} rows in {WRITE_GROUPS} row "
+        f"groups, {os.path.getsize(single)} bytes in {single_s:.4f} s = "
+        f"{rows / single_s:.1f} rows/s; lanes {write_lanes(st)} ({smi})")
+    for n in WRITE_WORKERS:
+        label = f"write (a) write_sharded workers={n}"
+        path = os.path.join(d, f"sharded_w{n}.parquet")
+        st = WriteStats()
+        t0 = time.perf_counter()
+        res = write_sharded(path, schema, batches, workers=n, stats=st)
+        secs = time.perf_counter() - t0
+        no_write_leftovers(d, label)
+        same_file(path, single, label)
+        os.unlink(path)
+        rates[n] = rows / secs
+        log(f"{label}: {res.rows} rows, {res.bytes_written} bytes, "
+            f"byte-identical to the single writer's file, in {secs:.4f} s "
+            f"= {rows / secs:.1f} rows/s ({single_s / secs:.3f}x the single "
+            f"writer); lanes {write_lanes(st)} ({smi})")
+    main = read_main_path(torch, ck, single, batches, "write (a) read-back",
+                          columns=["k", "v"])
+    add_launches(launched, main["counts"])
+    return dict(rates=rates, batches=batches, schema=schema, single=single,
+                read_rows_per_s=main["rows_per_s"])
+
+
+def write_lineitem16_sets(torch, ck, d: str, smi: str, *, l16_path: str,
+                          l16_groups, l16: dict, launched: dict) -> dict:
+    """18(b) and (e): lineitem16 SF1 through ``write_sharded`` at 4
+    workers, as one file (byte-identical to phase 6's) and as a manifest
+    dataset read through ``scan_files`` on the card; then ``merge_files``
+    over the manifest's members, read back on the card."""
+    from tpu_parquet_torch.write import WriteStats, merge_files, write_sharded
+
+    schema, opts = lineitem16_layout()
+    label = "write (b) lineitem16 write_sharded workers=4, file layout"
+    path = os.path.join(d, "lineitem16_sharded.parquet")
+    st = WriteStats()
+    t0 = time.perf_counter()
+    write_sharded(path, schema, (lineitem16_batch(g) for g in l16_groups),
+                  workers=4, stats=st, **opts)
+    file_s = time.perf_counter() - t0
+    no_write_leftovers(d, label)
+    same_file(path, l16_path, label)
+    os.unlink(path)
+    log(f"{label}: byte-identical to phase 6's single-writer file, "
+        f"{SF1_ROWS / file_s:.1f} rows/s ({file_s:.4f} s); lanes "
+        f"{write_lanes(st)} ({smi})")
+    label = "write (b) lineitem16 write_sharded workers=4, manifest layout"
+    ds = fresh_dir(os.path.join(d, "lineitem16_ds"))
+    t0 = time.perf_counter()
+    res = write_sharded(ds, schema, (lineitem16_batch(g) for g in l16_groups),
+                        workers=4, layout="manifest", **opts)
+    ds_s = time.perf_counter() - t0
+    no_write_leftovers(ds, label)
+    base, _, _ = timed_pass(torch, l16_path, L16_COLUMNS)
+    outs, secs, counts, _, _, rows = scan_pass(torch, ck, ds, 0)
+    same_on_card(torch, outs, base, label)
+    del outs
+    if rows != SF1_ROWS or counts != l16["counts"]:
+        raise fail(f"{label}: {rows} rows, launches {counts}; phase 6's "
+                   f"single pass launched {l16['counts']}")
+    add_launches(launched, counts)
+    log(f"{label}: {res.files} members, generation {res.generation}, "
+        f"written in {ds_s:.4f} s; scan_files over the manifest on the "
+        f"card bit-equal to phase 6's file, {rows / secs:.1f} rows/s, "
+        f"launches {counts} (phase 6's one pass) ({smi})")
+    label = "write (e) merge_files over (b)'s members"
+    merged = os.path.join(d, "lineitem16_merged.parquet")
+    st = WriteStats()
+    t0 = time.perf_counter()
+    merge_files(merged, res.paths, stats=st)
+    merge_s = time.perf_counter() - t0
+    no_write_leftovers(d, label)
+    same_file(merged, l16_path, label)
+    ck.reset_launches()
+    outs, secs, _ = timed_pass(torch, merged, L16_COLUMNS)
+    counts = dict(ck.launches)
+    same_on_card(torch, outs, base, label)
+    del outs, base
+    if counts != l16["counts"]:
+        raise fail(f"{label}: launches {counts}, phase 6's {l16['counts']}")
+    add_launches(launched, counts)
+    log(f"{label}: {len(res.paths)} files merged in {merge_s:.4f} s "
+        f"(lanes {write_lanes(st)}), byte-identical to phase 6's file; "
+        f"read on the card bit-equal, {SF1_ROWS / secs:.1f} rows/s ({smi})")
+    shutil.rmtree(ds)
+    os.unlink(merged)
+    return dict(file_rows_per_s=SF1_ROWS / file_s)
+
+
+def concat_check(outs, want: dict, label: str) -> None:
+    """The groups' columns, concatenated on the host, bit for bit against
+    ``want`` (a column name to its whole array)."""
+    import numpy as np
+
+    for name, exp in want.items():
+        got = np.concatenate([g[name].to_host() for g in outs])
+        if got.dtype != exp.dtype or not np.array_equal(
+                got.view(np.uint8), exp.view(np.uint8)):
+            raise fail(f"{label}: column {name} differs from the batches")
+
+
+def write_fragments(d: str, schema, batches) -> list:
+    """``bench_write_scale``'s fragmented dataset: each batch in
+    ``FRAG_PARTS`` files."""
+    from tpu_parquet_torch.writer import FileWriter
+
+    small = []
+    part = WRITE_GROUP_ROWS // FRAG_PARTS
+    for i, b in enumerate(batches):
+        for j in range(FRAG_PARTS):
+            p = os.path.join(d, f"in-{i:03d}-{j}.parquet")
+            with FileWriter(p, schema) as w:
+                w.write_columns({k: v[j * part:(j + 1) * part]
+                                 for k, v in b.items()})
+            small.append(p)
+    return small
+
+
+def write_compaction(torch, ck, d: str, enc: dict, smi: str,
+                     launched: dict) -> dict:
+    """18(c): the fragmented dataset compacted, then each read through
+    ``scan_files`` on the card, in turns."""
+    import numpy as np
+
+    from tpu_parquet_torch.format import CompressionCodec
+    from tpu_parquet_torch.write import WriteStats, compact
+
+    frag = fresh_dir(os.path.join(d, "frag"))
+    want = {c: np.concatenate([b[c] for b in enc["batches"]])
+            for c in ("k", "v")}
+    small = write_fragments(frag, enc["schema"], enc["batches"])
+    st = WriteStats()
+    t0 = time.perf_counter()
+    rep = compact(small, out=frag, workers=pipeline_depth(), stats=st)
+    compact_s = time.perf_counter() - t0
+    no_write_leftovers(frag, "write (c) compact")
+    codec = CompressionCodec(rep.codec).name
+    log(f"write (c) compact: {rep.files_before} files ({rep.bytes_before} "
+        f"bytes, {rep.row_groups_before} row groups) -> {rep.files_after} "
+        f"({rep.bytes_after} bytes, {rep.row_groups_after} row groups), "
+        f"codec {codec}, modeled link bytes {rep.link_bytes_before} -> "
+        f"{rep.link_bytes_after} (link_bytes_ratio "
+        f"{rep.link_bytes_ratio:.4f}), {compact_s:.4f} s; lanes "
+        f"{write_lanes(st)} ({smi})")
+    sources = {"fragmented": small, "compacted": frag}
+    seen: dict = {n: [] for n in sources}
+    shipped: dict = {}
+    order = ["fragmented", "compacted", "compacted", "fragmented"]
+    for i in range(COMPACT_PASSES * 2):
+        name = order[i % 4]
+        made: list = []
+        outs, secs, counts, _, _, rows = scan_pass(torch, ck, sources[name],
+                                                   0, made=made)
+        label = f"write (c) {name} pass {len(seen[name]) + 1}"
+        if rows != len(want["k"]):
+            raise fail(f"{label}: {rows} rows, want {len(want['k'])}")
+        if not seen[name]:
+            concat_check(outs, want, label)
+            shipped[name] = (sum(r.stats().link_bytes_shipped for r in made),
+                             sum(r.stats().link_bytes_logical for r in made))
+            log(f"{label}: {len(outs)} row groups bit-exact against the "
+                f"batches; launches {counts}; routes "
+                f"{route_table(made[0].stats().as_dict())} (first file); "
+                f"link bytes shipped {shipped[name][0]} of logical "
+                f"{shipped[name][1]}")
+        del outs
+        add_launches(launched, counts)
+        seen[name].append(rows / secs)
+    for r in made:
+        check_released([r], "write (c)")
+    measured = shipped["compacted"][0] / shipped["fragmented"][0]
+    rates = {n: float(np.median(v)) for n, v in seen.items()}
+    log(f"write (c) scan_files rows/s, passes in turns: " + "; ".join(
+        f"{n} {', '.join(f'{x:.1f}' for x in v)} (median {rates[n]:.1f})"
+        for n, v in seen.items())
+        + f"; compacted/fragmented {rates['compacted'] / rates['fragmented']:.4f}x;"
+        f" link bytes shipped compacted/fragmented {measured:.4f} (modeled "
+        f"link_bytes_ratio {rep.link_bytes_ratio:.4f}) ({smi})")
+    return dict(frag=frag, small=small, want=want, rates=rates,
+                measured_ratio=measured, modeled_ratio=rep.link_bytes_ratio,
+                codec=codec, compact_s=compact_s)
+
+
+def write_live_compaction(torch, ck, comp: dict, smi: str) -> dict:
+    """18(d): ``compact`` twice with a ``PlanCache`` while a
+    ``ScanService(device="cuda")`` sweeps the dataset: every sweep serves
+    one whole generation, equal to the batches."""
+    import threading
+
+    import numpy as np
+
+    from tpu_parquet_torch.serve import PlanCache, ScanRequest, ScanService
+    from tpu_parquet_torch.write import compact, load_manifest, write_manifest
+
+    frag, want = comp["frag"], comp["want"]
+    first = write_manifest(frag, comp["small"]).generation
+    cache = PlanCache()
+    svc = ScanService(concurrency=2, cache=cache)
+    sweeps, errors = [], []
+    stop = threading.Event()
+
+    def sweep():
+        try:
+            while not stop.is_set():
+                m = load_manifest(frag)
+                parts: dict = {}
+                for p in m.member_paths():
+                    res = svc.scan(ScanRequest(p, device=True), timeout=600)
+                    for n, v in res[p].items():
+                        parts.setdefault(n, []).extend(
+                            v if isinstance(v, list) else [v])
+                    del res
+                for n, exp in want.items():
+                    got = np.concatenate([c.to_host() for c in parts[n]])
+                    if not np.array_equal(got.view(np.uint8),
+                                          exp.view(np.uint8)):
+                        raise AssertionError(
+                            f"generation {m.generation}: column {n} torn "
+                            f"or stale")
+                del parts
+                sweeps.append((m.generation, len(m.files)))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(detached(e))
+
+    t = threading.Thread(target=sweep, name="write-d-sweep")
+    t.start()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        reps = [compact(frag, plan_cache=cache, workers=pipeline_depth())
+                for _ in range(2)]
+        final = reps[-1].generation
+        deadline = time.monotonic() + 300
+        while (t.is_alive() and time.monotonic() < deadline
+               and not any(g == final for g, _ in sweeps)):
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        t.join(600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    svc.close()
+    closed_clean(svc, "write (d)")
+    if t.is_alive() or errors:
+        raise fail(f"write (d): sweep alive {t.is_alive()}, "
+                   f"{errors[0] if errors else ''!r}")
+    if final not in {g for g, _ in sweeps}:
+        raise fail(f"write (d): no sweep of the final generation {final}; "
+                   f"sweeps {sweeps}")
+    log(f"write (d) compaction under a live ScanService(device='cuda') "
+        f"sweep: generations {first} -> {reps[0].generation} -> {final} in "
+        f"{wall:.4f} s; {len(sweeps)} sweeps, each one whole generation "
+        f"bit-equal to the batches (generation, members): {sweeps}; plan "
+        f"cache counters {cache.counters()}; launches {counts} ({smi})")
+    return dict(sweeps=len(sweeps), counts=counts)
+
+
+def floor_records() -> list:
+    """``FLOOR_RECORDS`` records from a seed: timestamps in each unit (each
+    a whole number of its unit), INT96, decimal, uuid, a nested record."""
+    import numpy as np
+
+    utc = datetime.timezone.utc
+    base = datetime.datetime(2020, 1, 1, tzinfo=utc)
+    n = FLOOR_RECORDS
+    rng = np.random.default_rng(18)
+    ms = rng.integers(0, 10**11, n).tolist()
+    us = rng.integers(0, 10**14, n).tolist()
+    cents = rng.integers(-10**12, 10**12, n).tolist()
+    hi = rng.integers(0, 1 << 62, n).tolist()
+    return [FloorRecord(
+        id=i, ts_ms=base + datetime.timedelta(milliseconds=ms[i]),
+        ts_us=base + datetime.timedelta(microseconds=us[i]),
+        ts_ns=base + datetime.timedelta(microseconds=us[n - 1 - i]),
+        legacy=base + datetime.timedelta(microseconds=us[(7 * i) % n]),
+        price=decimal.Decimal(cents[i]).scaleb(-4),
+        uid=uuid.UUID(int=(hi[i] << 64) | i),
+        addr=FloorAddr(city=f"city{i % 50}",
+                       zip=None if i % 3 == 0 else f"{i:05d}"))
+        for i in range(n)]
+
+
+def write_floor(torch, ck, d: str, smi: str, launched: dict) -> dict:
+    """18(f): ``floor.Writer`` records, back through ``floor.Reader``
+    equal, and the flat leaves through ``DeviceFileReader`` on the card
+    equal to the host reader's."""
+    import numpy as np
+
+    from tpu_parquet_torch import floor
+    from tpu_parquet_torch.column import ByteArrayData
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+    from tpu_parquet_torch.reader import FileReader
+    from tpu_parquet_torch.schema.dsl import parse_schema_definition
+
+    recs = floor_records()
+    path = os.path.join(d, "floor.parquet")
+    t0 = time.perf_counter()
+    with floor.Writer(path, schema=parse_schema_definition(FLOOR_SCHEMA)) as w:
+        w.write_many(recs)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with floor.Reader(path, obj_type=FloorRecord) as r:
+        back = r.scan_all()
+    read_s = time.perf_counter() - t0
+    if back != recs:
+        bad = next(i for i, (a, b) in enumerate(zip(back, recs)) if a != b) \
+            if len(back) == len(recs) else len(back)
+        raise fail(f"write (f) floor: record {bad} read back differs")
+    del back
+    with FileReader(path) as r:
+        host = r.read_all()
+    ck.reset_launches()
+    with DeviceFileReader(path) as r:
+        outs = list(r.iter_row_groups())
+        torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    add_launches(launched, counts)
+    for name, cd in host.items():
+        got = [g[name] for g in outs]
+        if isinstance(cd.values, ByteArrayData):
+            vals = [c.to_host() for c in got]
+            off = np.concatenate([vals[0].offsets] + [
+                v.offsets[1:] + sum(len(x.heap) for x in vals[:j + 1])
+                for j, v in enumerate(vals[1:])])
+            heap = np.concatenate([v.heap for v in vals])
+            same = (np.array_equal(off, cd.values.offsets)
+                    and np.array_equal(heap, cd.values.heap))
+        else:
+            v = np.concatenate([c.to_host() for c in got])
+            same = v.dtype == cd.values.dtype and np.array_equal(
+                v.view(np.uint8), cd.values.view(np.uint8))
+        if cd.def_levels is not None:
+            dl = np.concatenate([c.levels_to_host()[0] for c in got])
+            same = same and np.array_equal(dl, cd.def_levels)
+        if not same:
+            raise fail(f"write (f) floor: leaf {name} on the card differs "
+                       f"from the host reader's")
+    ids = np.concatenate([g["id"].to_host() for g in outs])
+    if not np.array_equal(ids, np.arange(FLOOR_RECORDS)):
+        raise fail("write (f) floor: ids on the card are not 0..n-1")
+    del outs
+    log(f"write (f) floor: {FLOOR_RECORDS} records written in "
+        f"{write_s:.4f} s ({FLOOR_RECORDS / write_s:.1f} records/s), read "
+        f"back equal through floor.Reader in {read_s:.4f} s "
+        f"({FLOOR_RECORDS / read_s:.1f} records/s); its {len(host)} leaves "
+        f"{sorted(host)} on the card equal to the host reader's; launches "
+        f"{counts} ({smi})")
+    return dict(write_s=write_s, read_s=read_s)
+
+
+def read_write_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                     l16_groups, l16: dict) -> dict:
+    """Phase 18: the write side (the single writer, ``write_sharded``,
+    ``merge_files``, ``compact`` under a live sweep, ``floor``) read back
+    on the card."""
+    import gc
+
+    t_phase = time.perf_counter()
+    freed = collected_bytes(torch)
+    before = torch.cuda.memory_allocated()
+    log(f"write: {freed} bytes on the card freed by a garbage collection at "
+        f"the phase's start ({smi})")
+    d = fresh_dir(os.path.join(work, "write"))
+    launched: dict = {}
+    enc = write_encode(torch, ck, d, smi, launched)
+    l16w = write_lineitem16_sets(torch, ck, d, smi, l16_path=l16_path,
+                                 l16_groups=l16_groups, l16=l16,
+                                 launched=launched)
+    comp = write_compaction(torch, ck, d, enc, smi, launched)
+    live = write_live_compaction(torch, ck, comp, smi)
+    add_launches(launched, live["counts"])
+    fl = write_floor(torch, ck, d, smi, launched)
+    del enc["batches"], comp["want"]
+    for name in ("hybrid_unpack_combine", "fused_plain_words"):
+        if not launched.get(name):
+            raise fail(f"phase 18: {name} never launched")
+    threads = tpq_threads()
+    if threads:
+        raise fail(f"phase 18: threads still alive after it: {threads}")
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    if left:
+        raise fail(f"phase 18: {left} bytes still allocated after it")
+    shutil.rmtree(d)
+    wall = time.perf_counter() - t_phase
+    r = enc["rates"]
+    log(f"write summary ({smi}): encode rows/s single {r['single']:.1f}, "
+        + ", ".join(f"workers {n} {r[n]:.1f} ({r[n] / r['single']:.3f}x)"
+                    for n in WRITE_WORKERS)
+        + f"; lineitem16 sharded (4 workers) {l16w['file_rows_per_s']:.1f} "
+        f"rows/s; compaction {comp['compact_s']:.4f} s, codec "
+        f"{comp['codec']}, scan_files compacted "
+        f"{comp['rates']['compacted']:.1f} vs fragmented "
+        f"{comp['rates']['fragmented']:.1f} rows/s, link bytes shipped "
+        f"ratio {comp['measured_ratio']:.4f} (modeled "
+        f"{comp['modeled_ratio']:.4f}); {live['sweeps']} live sweeps; floor "
+        f"{FLOOR_RECORDS / fl['write_s']:.1f} records/s written, "
+        f"{FLOOR_RECORDS / fl['read_s']:.1f} read; write_launches "
+        f"{launched}; 0 bytes left, no tpq- thread alive; phase 18 wall "
+        f"{wall:.2f} s")
+    return dict(launched=launched, wall=wall)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tpu_parquet_torch")):
         print("chip_smoke: the tpu_parquet_torch package is not beside this "
@@ -6080,7 +6687,6 @@ def main() -> int:
         torch, ck, work, smi, l16_path=l16_path, l16_groups=l16_groups,
         l16=l16, req_path=req_path, req_groups=groups, k3_path=k3_path,
         k3_groups=k3_groups)
-    del l16_groups
 
     # phase 14: the read caches (footers, plans, dictionaries, results)
     cache = read_cache_phase(torch, ck, work, smi, l16_path=l16_path,
@@ -6101,7 +6707,13 @@ def main() -> int:
     serve = read_serve_phase(torch, ck, work, smi, l16_path=l16_path,
                              k3_path=k3_path, k3_main=k3_main, loader=loader)
 
-    # phase 18: the kernels line and the result line
+    # phase 18: the write side (the single writer, write_sharded in both
+    # layouts, merge_files, compact under a live sweep, floor), read back
+    write = read_write_phase(torch, ck, work, smi, l16_path=l16_path,
+                             l16_groups=l16_groups, l16=l16)
+    del l16_groups
+
+    # phase 19: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "hybrid_unpack_combine", "route": "cuda",
@@ -6165,7 +6777,7 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phases 11's to 17's launches beside each kernel's main-path count
+    # phases 11's to 18's launches beside each kernel's main-path count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
         entry["filter_launches"] = filt["launched"].get(entry["name"], 0)
@@ -6175,6 +6787,7 @@ def main() -> int:
         entry["loader_launches"] = loader["loader_launches"].get(
             entry["name"], 0)
         entry["serve_launches"] = serve["launched"].get(entry["name"], 0)
+        entry["write_launches"] = write["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,6 +19,9 @@ registry neither); the stores' own counters stand in for the latter.
 import gc
 import io
 import logging
+import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -43,16 +46,17 @@ from tpu_parquet_torch.iostore_async import shutdown_default_engine
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter
-from tests.test_torch_ref_native import (ensure_reference_native,
-                                        no_reference_crashes)  # noqa: F401
+from tests.test_torch_ref_native import (  # noqa: F401 — the fixtures
+    ensure_reference_native, no_reference_crashes, reference_env_warnings)
 
 ensure_reference_native()
 
 
 @pytest.fixture(autouse=True)
-def _drop_reference_crashes(no_reference_crashes):
+def _drop_reference_crashes(no_reference_crashes, reference_env_warnings):
     """The reference half's ``worker_crash`` events leave with the test
-    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    (``tests/test_autopsy.py`` reads the last one of the process), and so
+    do the once-per-value env warnings it spent."""
     yield
 
 
@@ -528,7 +532,9 @@ KNOB_NAMES = [k[0] for k in _knobs()]
 def test_malformed_env_degrades_with_warning(name, io_env, caplog):
     _n, resolve, ref_resolve, default = dict(
         (k[0], k) for k in _knobs())[name]
-    bad = f"abc-{name}"  # unique per knob: the once-per-value warning fires
+    # unique per knob, so the once-per-value warning fires, and never the
+    # value ``tests/test_iostore.py`` sets for the same knob
+    bad = f"torch-abc-{name}"
     io_env.setenv(name, bad)
     texts = []
     for fn in (resolve, ref_resolve):
@@ -539,6 +545,22 @@ def test_malformed_env_degrades_with_warning(name, io_env, caplog):
         texts.append([r.getMessage() for r in caplog.records
                       if bad in r.getMessage()])
     assert texts[0] == texts[1] and len(texts[0]) == 1
+
+
+def test_the_references_env_warning_test_passes_after_this_file():
+    """The reference warns once per ``(name, raw)`` pair in a process: this
+    file's malformed-knob cases must not spend the pairs that
+    ``tests/test_iostore.py`` later looks for in the same worker."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:xdist",
+         "-p", "no:cacheprovider", "-p", "no:randomly",
+         "tests/test_torch_iostore.py::test_malformed_env_degrades_with_warning",
+         "tests/test_torch_iostore.py::test_valid_env_still_parses",
+         "tests/test_iostore.py::test_malformed_env_degrades_with_warning"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("name", KNOB_NAMES)

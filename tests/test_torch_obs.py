@@ -26,9 +26,17 @@ from tpu_parquet_torch import obs as PO
 from tpu_parquet_torch.device_reader import DeviceFileReader
 from tpu_parquet_torch.pipeline import STAGES, PipelineStats
 from tpu_parquet_torch.reader import FileReader
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (  # noqa: F401 — the fixture
+    ensure_reference_native, reference_env_warnings)
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _restore_reference_env_warnings(reference_env_warnings):
+    """The once-per-value env warnings the reference half spends (its
+    resolvers read malformed values here) leave with the test."""
+    yield
 
 ROWS, GROUP = 6_000, 2_000
 BOTH = pytest.mark.parametrize("mod", [RO, PO], ids=["ref", "port"])

@@ -43,16 +43,17 @@ from tpu_parquet_torch.format import (CompressionCodec,
 from tpu_parquet_torch.reader import FileReader
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter, corrupt_page
-from tests.test_torch_ref_native import (ensure_reference_native,
-                                        no_reference_crashes)  # noqa: F401
+from tests.test_torch_ref_native import (  # noqa: F401 — the fixtures
+    ensure_reference_native, no_reference_crashes, reference_env_warnings)
 
 ensure_reference_native()
 
 
 @pytest.fixture(autouse=True)
-def _drop_reference_crashes(no_reference_crashes):
+def _drop_reference_crashes(no_reference_crashes, reference_env_warnings):
     """The reference half's ``worker_crash`` events leave with the test
-    (``tests/test_autopsy.py`` reads the last one of the process)."""
+    (``tests/test_autopsy.py`` reads the last one of the process), and so
+    do the once-per-value env warnings it spent."""
     yield
 
 

@@ -155,6 +155,21 @@ class ReferenceCrashes:
 
 
 @pytest.fixture
+def reference_env_warnings():
+    """Autouse it in a parity file that calls a reference env resolver
+    under a malformed value: the reference warns once per ``(name, raw)``
+    pair for the whole process (``tpu_parquet.obs._env_warned``), so a pair
+    spent here would silence the warning a later reference test in the same
+    worker looks for.  The set is restored as the test found it."""
+    from tpu_parquet import obs as ref_obs
+
+    saved = set(ref_obs._env_warned)
+    yield
+    ref_obs._env_warned.clear()
+    ref_obs._env_warned.update(saved)
+
+
+@pytest.fixture
 def no_reference_crashes():
     """Autouse it in a parity file whose reference half raises through a
     worker: each test's new reference ``worker_crash`` events are removed

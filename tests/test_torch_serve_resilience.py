@@ -53,19 +53,19 @@ from tpu_parquet_torch.format import (CompressionCodec,
 from tpu_parquet_torch.schema.core import build_schema, data_column
 from tpu_parquet_torch.writer import FileWriter
 from tests.test_torch_iostore import io_env  # noqa: F401 — the fixture
-from tests.test_torch_ref_native import (ensure_reference_native,
-                                        no_reference_crashes)  # noqa: F401
+from tests.test_torch_ref_native import (  # noqa: F401 — the fixtures
+    ensure_reference_native, no_reference_crashes, reference_env_warnings)
 
 ensure_reference_native()
 
 
 @pytest.fixture(autouse=True)
-def _parity_env(io_env, no_reference_crashes):
+def _parity_env(io_env, no_reference_crashes, reference_env_warnings):
     """``io_env``: the reference's device reads in Pallas interpret mode,
     no IO knob set, both packages' default fetch engines (process-wide,
     both threads named ``tpq-fetch``) stopped around the test and no
     ``tpq-`` thread left by it; the reference's ``worker_crash`` events
-    leave with the test."""
+    and the once-per-value env warnings it spent leave with the test."""
     yield
 
 

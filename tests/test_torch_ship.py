@@ -38,9 +38,17 @@ from tpu_parquet_torch import native
 from tpu_parquet_torch import ship as TS
 from tpu_parquet_torch import torch_kernels as TK
 from tpu_parquet_torch.torch_decode import _bucket, _bucket_bytes
-from tests.test_torch_ref_native import ensure_reference_native
+from tests.test_torch_ref_native import (  # noqa: F401 — the fixture
+    ensure_reference_native, reference_env_warnings)
 
 ensure_reference_native()
+
+
+@pytest.fixture(autouse=True)
+def _restore_reference_env_warnings(reference_env_warnings):
+    """The once-per-value env warnings the reference half spends (its
+    resolvers read malformed values here) leave with the test."""
+    yield
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -12,6 +12,7 @@ reference's fallback threshold (> 32767 distinct values → plain, chunk_writer.
 from __future__ import annotations
 
 import struct
+import time
 import zlib
 from dataclasses import dataclass, field
 from typing import Optional
@@ -250,6 +251,7 @@ class ChunkEncoder:
         write_crc: bool = False,
         encoding: Optional[Encoding] = None,
         write_statistics: bool = True,
+        stats=None,
     ):
         self.leaf = leaf
         self.codec = codec
@@ -262,9 +264,22 @@ class ChunkEncoder:
         # (min, max) bytes for dict-encoded BYTE_ARRAY page stats; set per
         # write() from the dictionary (O(distinct)), see _page_statistics
         self._dict_stat_bounds = None
+        # write-side lane attribution (write.WriteStats): write() books
+        # its codec passes as `compress`, the sink write loop as `flush`,
+        # and the remaining chunk wall as `encode` — the three lanes the
+        # doctor needs to name a slow write's bottleneck
+        self.stats = stats
+        self._compress_s = 0.0
 
     def _compress(self, raw) -> bytes:
-        return compress_block(raw, self.codec)
+        """compress_block with the codec pass booked into the `compress`
+        write lane (one perf_counter pair per page when stats are on)."""
+        if self.stats is None:
+            return compress_block(raw, self.codec)
+        t0 = time.perf_counter()
+        out = compress_block(raw, self.codec)
+        self._compress_s += time.perf_counter() - t0
+        return out
 
     # -- page boundary selection ----------------------------------------------
 
@@ -310,6 +325,8 @@ class ChunkEncoder:
 
     def write(self, cd: ColumnData, sink, offset: int) -> ChunkWriteResult:
         """Serialize the chunk into sink (a writable), starting at file offset."""
+        t_start = time.perf_counter() if self.stats is not None else 0.0
+        self._compress_s = 0.0
         leaf = self.leaf
         ptype = leaf.physical_type
         # normalize the all-defined shorthand (def_levels=None with max_def>0)
@@ -430,8 +447,24 @@ class ChunkEncoder:
                     stat_values, ptype, null_count=n_slots - len(cd.values),
                 )
 
-        for part in parts:
-            sink.write(part)
+        if self.stats is not None:
+            t_flush = time.perf_counter()
+            for part in parts:
+                sink.write(part)
+            flush_s = time.perf_counter() - t_flush
+            # the chunk's three write lanes, partitioned exactly: codec
+            # passes (compress), the sink write loop (flush), and the
+            # remaining encode wall (dict build, page cutting, values,
+            # headers) — the doctor's slow-write attribution basis
+            self.stats.add("compress", self._compress_s)
+            self.stats.add("flush", flush_s)
+            self.stats.add(
+                "encode",
+                max(time.perf_counter() - t_start
+                    - self._compress_s - flush_s, 0.0))
+        else:
+            for part in parts:
+                sink.write(part)
 
         md = ColumnMetaData(
             type=int(ptype),

@@ -1,4 +1,4 @@
-"""Schema layer: the tree model (definition-language parser and autoschema are not part of this package)."""
+"""Schema layer: tree model, definition-language parser, validation, autoschema."""
 
 from .core import (
     ColumnParameters,

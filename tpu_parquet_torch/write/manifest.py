@@ -1,19 +1,30 @@
-"""Versioned multi-file manifest: N parquet files read as ONE dataset.
+"""Versioned multi-file manifest: N parquet files published as ONE dataset.
 
-The counterpart of ``tpu_parquet.write.manifest``, cut to its read half.
-A manifest is one JSON document (``tpq_manifest.json``) listing the member
-files of a dataset with their row, byte and row-group counts, under a
-monotonically increasing generation number; the writer publishes it
-atomically, so a reader sees one complete file set.  ``scan_files`` accepts
-a manifest path (or a directory holding one) and expands it to the member
-list through :func:`expand_dataset`.
+The sharded writer's manifest layout and the compaction service both need a
+commit point: a reader that opens the dataset mid-write (or mid-compaction)
+must see either the previous complete file set or the next one — never a
+half-renamed mixture.  The manifest is that commit point:
 
-The document is validated strictly: wrong magic or version, missing or
-negative fields, and member paths that escape the dataset directory are
-:class:`~tpu_parquet_torch.errors.ParquetError` rejections.
+- a single JSON document (``tpq_manifest.json``) listing the member files
+  with their row/byte/row-group counts, under a monotonically increasing
+  **generation** number;
+- written atomically (temp file in the same directory + ``fsync`` +
+  ``os.replace``), so the flip from generation G to G+1 is one rename —
+  POSIX guarantees readers see exactly one of the two documents;
+- member files are themselves published by rename before the manifest
+  flips, so every path a manifest references is complete the instant the
+  manifest is visible.
 
-Left out: the writing half (``write_manifest``, ``atomic_publish``), the
-sharded writer and compaction.
+Readers consume a manifest transparently: ``DataLoader(files=...)`` and
+``scan_files(paths=...)`` accept a manifest path (or a directory holding
+one) and expand it to the member list via :func:`expand_dataset` — one
+dataset handle for the training job, however many files the writer cut.
+
+The document is versioned and validated with the same strictness as the
+loader checkpoint blob: wrong magic/version, non-monotonic or missing
+fields, and absolute-path escapes are typed
+:class:`~tpu_parquet_torch.errors.ParquetError` rejections, never best-effort
+parses.
 """
 
 from __future__ import annotations
@@ -26,7 +37,8 @@ from typing import Union
 from ..errors import ParquetError
 
 __all__ = ["Manifest", "ManifestEntry", "MANIFEST_NAME", "MANIFEST_VERSION",
-           "load_manifest", "find_manifest", "expand_dataset"]
+           "write_manifest", "load_manifest", "find_manifest",
+           "expand_dataset", "atomic_publish"]
 
 MANIFEST_VERSION = 1
 MANIFEST_MAGIC = "TPQM"
@@ -35,7 +47,7 @@ MANIFEST_NAME = "tpq_manifest.json"
 
 @dataclass
 class ManifestEntry:
-    """One member file, its path relative to the manifest's directory."""
+    """One member file, path relative to the manifest's directory."""
 
     path: str
     rows: int
@@ -52,7 +64,7 @@ class Manifest:
     generation: int
     files: list = field(default_factory=list)  # [ManifestEntry]
     created_by: str = ""
-    path: str = ""  # where it was loaded from
+    path: str = ""  # where it was loaded from / written to
 
     @property
     def total_rows(self) -> int:
@@ -84,8 +96,8 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def load_manifest(path: Union[str, os.PathLike]) -> Manifest:
-    """Load and validate a manifest document (the file itself, or a
-    directory containing ``tpq_manifest.json``)."""
+    """Load + validate a manifest document (the file itself, or a directory
+    containing ``tpq_manifest.json``)."""
     path = os.fspath(path)
     if os.path.isdir(path):
         path = os.path.join(path, MANIFEST_NAME)
@@ -130,10 +142,72 @@ def load_manifest(path: Union[str, os.PathLike]) -> Manifest:
     return m
 
 
+def atomic_publish(data: bytes, final_path: str) -> None:
+    """Write ``data`` to ``final_path`` atomically: same-directory temp +
+    ``fsync`` + ``os.replace`` — a reader sees the old document or the new
+    one, never a torn one."""
+    tmp = f"{final_path}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final_path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def write_manifest(dirpath: Union[str, os.PathLike], entries,
+                   generation: "int | None" = None,
+                   created_by: str = "") -> Manifest:
+    """Publish a manifest over ``entries`` in ``dirpath``, atomically.
+
+    ``generation=None`` bumps the existing manifest's generation (1 for a
+    fresh dataset) — the monotonic counter the plan/result caches key
+    invalidation on.  An explicit ``generation`` must still move forward.
+    """
+    dirpath = os.fspath(dirpath)
+    path = os.path.join(dirpath, MANIFEST_NAME)
+    prev_gen = 0
+    if os.path.exists(path):
+        prev_gen = load_manifest(path).generation
+    if generation is None:
+        generation = prev_gen + 1
+    elif generation <= prev_gen:
+        raise ParquetError(
+            f"manifest generation must advance: {generation} <= current "
+            f"{prev_gen}")
+    ents = []
+    for e in entries:
+        if isinstance(e, ManifestEntry):
+            ents.append(e)
+        else:  # a member path: stat it for the counts
+            p = os.fspath(e)
+            from ..footer import read_file_metadata
+
+            md = read_file_metadata(p)
+            ents.append(ManifestEntry(
+                path=os.path.relpath(p, dirpath),
+                rows=int(md.num_rows or 0),
+                nbytes=os.path.getsize(p),
+                row_groups=len(md.row_groups or [])))
+    if not ents:
+        raise ParquetError("manifest needs at least one member file")
+    m = Manifest(generation=generation, files=ents,
+                 created_by=created_by, path=path)
+    doc = json.dumps(m.as_dict(), indent=1, sort_keys=True)
+    atomic_publish(doc.encode("utf-8"), path)
+    return m
+
+
 def find_manifest(source) -> "str | None":
     """The manifest path ``source`` denotes, or None when it is a plain
-    file or anything else: a path ending in the manifest name, or a
-    directory containing one."""
+    file/anything else: a path ending in the manifest name, or a directory
+    containing one."""
     if not isinstance(source, (str, os.PathLike)):
         return None
     p = os.fspath(source)
@@ -145,10 +219,10 @@ def find_manifest(source) -> "str | None":
 
 
 def expand_dataset(files) -> "tuple[list, Manifest | None]":
-    """Resolve a reader's ``files`` argument: a manifest path (or a
-    directory holding one) expands to its member list; a plain path or an
-    iterable of paths passes through.  Returns ``(paths,
-    manifest_or_None)``."""
+    """Resolve a reader's ``files`` argument against the manifest contract:
+    a manifest path (or a directory holding one) expands to its member
+    list; a plain path or an iterable of paths passes through unchanged.
+    Returns ``(paths, manifest_or_None)``."""
     if isinstance(files, (str, os.PathLike)):
         mp = find_manifest(files)
         if mp is not None:
@@ -159,7 +233,8 @@ def expand_dataset(files) -> "tuple[list, Manifest | None]":
     for f in files:
         mp = find_manifest(f)
         if mp is not None:
-            out.extend(load_manifest(mp).member_paths())
+            m = load_manifest(mp)
+            out.extend(m.member_paths())
         else:
             out.append(os.fspath(f))
     return out, None

@@ -13,7 +13,6 @@ close.  Row-group/column key-value metadata via flush options (file_writer.go:
 
 from __future__ import annotations
 
-import logging
 import os
 from typing import BinaryIO, Optional, Sequence, Union
 
@@ -57,14 +56,14 @@ def resolve_write_crc(write_crc=None) -> bool:
     with one warning (the same discipline as ``resolve_validate``).
     """
     if write_crc is None:
+        from .obs import warn_env_once
+
         raw = os.environ.get("TPQ_WRITE_CRC", "1").strip().lower()
         if raw in _CRC_ON:
             return True
         if raw in _CRC_OFF:
             return False
-        logging.getLogger(__name__).warning(
-            "%s=%r is not valid; using %r", "TPQ_WRITE_CRC", raw,
-            "1 (CRCs written)")
+        warn_env_once("TPQ_WRITE_CRC", raw, "1 (CRCs written)")
         return True
     if isinstance(write_crc, bool):
         return write_crc
@@ -101,6 +100,7 @@ class FileWriter:
         created_by: str = DEFAULT_CREATED_BY,
         kv_metadata: Optional[dict] = None,
         column_encodings: Optional[dict] = None,
+        stats=None,
     ):
         if isinstance(sink, (str, os.PathLike)):
             self._f: BinaryIO = open(sink, "wb")
@@ -125,6 +125,10 @@ class FileWriter:
             tuple(k.split(".")) if isinstance(k, str) else tuple(k): Encoding(v)
             for k, v in (column_encodings or {}).items()
         }
+        # optional write-side observability (write.WriteStats): encode/
+        # compress/flush lane seconds + row counters for the registry
+        # `write` section — the doctor's slow-write attribution
+        self.stats = stats
 
         self._shredder = Shredder(schema)
         self._row_groups: list[RowGroup] = []
@@ -134,6 +138,8 @@ class FileWriter:
         self._pos = 0
         self._closed = False
         self._write(MAGIC)
+        if self.stats is not None:
+            self.stats.touch_wall()  # the writer's wall spans open..close
 
     # -- plumbing -------------------------------------------------------------
 
@@ -286,6 +292,7 @@ class FileWriter:
                 write_crc=self.write_crc,
                 encoding=self.column_encodings.get(leaf.path),
                 write_statistics=self.write_statistics,
+                stats=self.stats,
             )
             res = enc.write(cd, self._f, self._pos)
             self._pos += res.total_compressed
@@ -317,6 +324,9 @@ class FileWriter:
         self._total_rows += num_rows
         self._pending_cols = None
         self._pending_rows = 0
+        if self.stats is not None:
+            self.stats.count_row_group(num_rows, chunks=len(chunks))
+            self.stats.touch_wall()
 
     def close(self) -> None:
         if self._closed:
@@ -339,7 +349,12 @@ class FileWriter:
             ],
         )
         footer = serialize_footer(meta)
-        self._write(footer)
+        if self.stats is not None:
+            with self.stats.timed("flush", nbytes=len(footer)):
+                self._write(footer)
+            self.stats.touch_wall()
+        else:
+            self._write(footer)
         if self._owns_file:
             self._f.close()
         self._closed = True
