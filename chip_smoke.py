@@ -261,11 +261,35 @@ Phases:
     INT96, decimal, uuid, a nested record), equal through ``floor.Reader``,
     the leaves on the card equal to the host reader's.  After it: no
     ``tpq-`` thread, no temporary file, no byte above its start;
-19. one JSON line listing every ported kernel (with phase 11's launches as
+19. the CLI, ``python -m tpu_parquet_torch.cli.pq_tool`` and
+    ``tpu_parquet_torch.cli.csv2parquet`` as child processes: (a)
+    ``rowcount``, ``meta``, ``schema`` and ``stats`` on phase 6's
+    lineitem16 SF1 file, checked against the generator; (b) on a
+    100,000-row lineitem16 cut (phase 6's generator and writer settings:
+    ``cat`` and ``split`` make one Python call per row), ``head``, ``cat``
+    (every field of every row against the generator), ``split`` into at
+    least 3 parts and ``merge`` of the parts; (c) ``merge`` of phase
+    18(b)'s manifest members, byte-identical to phase 6's file, with phase
+    6's launches; (d) ``compact`` of 18(c)'s 48 fragments, made again; (e)
+    ``csv2parquet`` of the cut as CSV with type hints (dates as DATE); (f)
+    ``trace`` and ``doctor`` on phase 15's trace, ``autopsy`` on its hang
+    dump (phase 15's verdict) and ``top`` on phase 16's spool.  Every
+    output file read back through ``DeviceFileReader(device="cuda")``,
+    exactly; each command's seconds printed;
+20. the fuzz harness, ``python -m tpu_parquet_torch.fuzz --device cuda``
+    in a child process (a kernel's fault cannot poison this one): every
+    file of ``tests/fuzz_corpus/`` and ``tests/fuzz_corpus_torch/``
+    replayed, then ``tests/test_fuzz.py``'s smoke batch (seed 1234, 120
+    runs of ``file_reader``, 400 of every other target) with
+    ``device_reader`` and ``result_cache`` on the card, crashers not
+    saved: no crasher, the fused K1 launched, the seconds and launches
+    per kernel printed;
+21. one JSON line listing every ported kernel (with phase 11's launches as
     ``pipeline_launches``, phase 12's as ``filter_launches``, phase 13's
     as ``store_launches``, phase 14's as ``cache_launches``, phase 15's
     as ``obs_launches``, phase 16's as ``loader_launches``, phase 17's
-    as ``serve_launches`` and phase 18's as ``write_launches``), then the
+    as ``serve_launches``, phase 18's as ``write_launches``, phase 19's
+    as ``cli_launches`` and phase 20's as ``fuzz_launches``), then the
     result line.
 
 Any failure exits non-zero; no phase swallows its own failure.
@@ -6236,9 +6260,10 @@ def write_lineitem16_sets(torch, ck, d: str, smi: str, *, l16_path: str,
     log(f"{label}: {len(res.paths)} files merged in {merge_s:.4f} s "
         f"(lanes {write_lanes(st)}), byte-identical to phase 6's file; "
         f"read on the card bit-equal, {SF1_ROWS / secs:.1f} rows/s ({smi})")
-    shutil.rmtree(ds)
     os.unlink(merged)
-    return dict(file_rows_per_s=SF1_ROWS / file_s)
+    # the members stay for phase 19's merge
+    return dict(file_rows_per_s=SF1_ROWS / file_s, ds=ds,
+                members=[os.path.relpath(p, ds) for p in res.paths])
 
 
 def concat_check(outs, want: dict, label: str) -> None:
@@ -6537,6 +6562,9 @@ def read_write_phase(torch, ck, work: str, smi: str, *, l16_path: str,
     left = torch.cuda.memory_allocated() - before
     if left:
         raise fail(f"phase 18: {left} bytes still allocated after it")
+    kept = os.path.join(work, "lineitem16_members")
+    shutil.rmtree(kept, ignore_errors=True)
+    os.replace(l16w["ds"], kept)
     shutil.rmtree(d)
     wall = time.perf_counter() - t_phase
     r = enc["rates"]
@@ -6554,7 +6582,357 @@ def read_write_phase(torch, ck, work: str, smi: str, *, l16_path: str,
         f"{FLOOR_RECORDS / fl['read_s']:.1f} read; write_launches "
         f"{launched}; 0 bytes left, no tpq- thread alive; phase 18 wall "
         f"{wall:.2f} s")
-    return dict(launched=launched, wall=wall)
+    return dict(launched=launched, wall=wall,
+                members=[os.path.join(kept, m) for m in l16w["members"]])
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the CLI on the card's files
+# ---------------------------------------------------------------------------
+
+# 19: the row commands (cat, split, csv2parquet) make one Python call per
+# row in the reference too, so they run on a 100,000-row cut of lineitem16
+CLI_ROWS = 100_000
+CLI_SPLIT_PARTS = 3  # split must cut the cut into at least this many parts
+CLI_HINTS = {"l_orderkey": "int64", "l_partkey": "int64",
+             "l_suppkey": "int64", "l_linenumber": "int32",
+             "l_quantity": "int64", "l_extendedprice": "double",
+             "l_discount": "double", "l_tax": "double",
+             "l_shipdate": "date", "l_commitdate": "date",
+             "l_receiptdate": "date"}
+
+
+def child_env() -> dict:
+    """The environment of a child process: no ``TPQ_`` knob an earlier
+    phase left set (a spool, a flight path) reaches it."""
+    return {k: v for k, v in os.environ.items() if not k.startswith("TPQ_")}
+
+
+def run_cli(args, label: str, times: list,
+            module: str = "tpu_parquet_torch.cli.pq_tool") -> str:
+    """``python -m <module> <args>`` from the checkout; fails on a non-zero
+    exit.  Its seconds go to ``times``; returns its stdout."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args], cwd=HERE,
+                       env=child_env(), capture_output=True, text=True,
+                       timeout=900)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise fail(f"{label}: {module} {' '.join(args[:2])} exited "
+                   f"{r.returncode}: {r.stderr[-3000:]}")
+    times.append((label, secs))
+    return r.stdout
+
+
+def host_column(parts) -> tuple:
+    """One column's pieces (``to_host()`` of each row group, or generator
+    arrays) as one comparable value: a STRING column's lengths and heap, a
+    fixed-width column's dtype and bytes."""
+    import numpy as np
+
+    from tpu_parquet_torch.column import ByteArrayData
+
+    if isinstance(parts[0], ByteArrayData):
+        lens = np.concatenate([np.diff(np.asarray(p.offsets, np.int64))
+                               for p in parts])
+        heap = b"".join(bytes(np.asarray(p.heap)[int(p.offsets[0]):
+                                                 int(p.offsets[-1])])
+                        for p in parts)
+        return ("bytes", lens.tobytes(), heap)
+    arr = np.concatenate([np.asarray(p) for p in parts])
+    return (str(arr.dtype), arr.view(np.uint8).tobytes())
+
+
+def read_back(torch, ck, paths, columns, label: str, launched: dict):
+    """Every row group of ``paths`` read on the card through
+    ``DeviceFileReader(device="cuda")``; returns ({column: host value},
+    rows, the launches of the reads, added to ``launched``)."""
+    from tpu_parquet_torch.device_reader import DeviceFileReader
+
+    parts: dict = {c: [] for c in columns}
+    rows = 0
+    ck.reset_launches()
+    for p in paths:
+        with DeviceFileReader(p, columns=columns, device="cuda") as r:
+            for g in r.iter_row_groups():
+                for c in columns:
+                    parts[c].append(g[c].to_host())
+                rows += len(parts[columns[0]][-1])
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    add_launches(launched, counts)
+    return {c: host_column(v) for c, v in parts.items()}, rows, counts
+
+
+def same_columns(got: dict, want: dict, label: str) -> None:
+    for name, exp in want.items():
+        if got.get(name) != exp:
+            raise fail(f"{label}: column {name} differs")
+
+
+def cat_check(text: str, g: dict, label: str) -> int:
+    """``cat``'s JSON lines against the generator's rows, every field."""
+    lines = text.splitlines()
+    if len(lines) != CLI_ROWS:
+        raise fail(f"{label}: {len(lines)} lines, want {CLI_ROWS}")
+    cols = {c: (v.to_list() if hasattr(v, "to_list") else v.tolist())
+            for c, v in g.items()}
+    for c in STRING_COLUMNS:
+        cols[c] = [b.decode() for b in cols[c]]
+    for i, line in enumerate(lines):
+        row = json.loads(line)
+        for c in L16_COLUMNS:
+            if row[c] != cols[c][i]:
+                raise fail(f"{label}: row {i} column {c}: {row[c]!r}, want "
+                           f"{cols[c][i]!r}")
+    return len(lines)
+
+
+def write_cli_csv(path: str, g: dict) -> None:
+    """The cut as CSV: integers and dates as text (dates ISO), doubles as
+    ``repr`` (read back exactly), strings as written."""
+    import csv
+
+    epoch = datetime.date(1970, 1, 1)
+    cols = []
+    for c in L16_COLUMNS:
+        v = g[c]
+        if c in STRING_COLUMNS:
+            cols.append([b.decode() for b in v.to_list()])
+        elif CLI_HINTS[c] == "date":
+            cols.append([(epoch + datetime.timedelta(days=int(d))).isoformat()
+                         for d in v])
+        else:
+            cols.append([repr(x) for x in v.tolist()])
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(L16_COLUMNS)
+        w.writerows(zip(*cols))
+
+
+def read_cli_phase(torch, ck, work: str, smi: str, *, l16_path: str,
+                   l16_groups, l16: dict, members: list, obs: dict) -> dict:
+    """Phase 19: ``python -m tpu_parquet_torch.cli.pq_tool`` and
+    ``tpu_parquet_torch.cli.csv2parquet`` as child processes on the
+    files of phases 6, 15, 16 and 18, every output read back on the
+    card."""
+    import numpy as np
+
+    from tpu_parquet_torch.schema.dsl import parse_schema_definition
+
+    t_phase = time.perf_counter()
+    d = fresh_dir(os.path.join(work, "cli"))
+    launched: dict = {}
+    times: list = []
+    label = "cli (a) footer commands on lineitem16 SF1"
+    out = run_cli(["rowcount", l16_path], "rowcount", times)
+    if out.strip() != str(SF1_ROWS):
+        raise fail(f"{label}: rowcount printed {out.strip()!r}")
+    out = run_cli(["meta", l16_path], "meta", times)
+    for want in (f"rows: {SF1_ROWS}", f"row groups: {len(l16_groups)}"):
+        if want not in out:
+            raise fail(f"{label}: meta lacks {want!r}")
+    out = run_cli(["schema", l16_path], "schema", times)
+    if parse_schema_definition(out).num_columns != len(L16_COLUMNS):
+        raise fail(f"{label}: the schema printed does not parse to "
+                   f"{len(L16_COLUMNS)} columns")
+    out = run_cli(["stats", l16_path], "stats", times)
+    keys = [ln.split() for ln in out.splitlines()
+            if ln.strip().startswith("l_orderkey ")]
+    want = [(f"min={int(g['l_orderkey'].min())}",
+             f"max={int(g['l_orderkey'].max())}") for g in l16_groups]
+    if [tuple(k[1:3]) for k in keys] != want:
+        raise fail(f"{label}: stats' l_orderkey ranges {keys} differ from "
+                   f"the generator's {want}")
+    log(f"{label}: rowcount {SF1_ROWS}, meta, schema ({len(L16_COLUMNS)} "
+        f"columns parsed back), stats (l_orderkey's range per row group "
+        f"equal to the generator's) ({smi})")
+
+    # (b) the row commands on the 100,000-row cut
+    label = f"cli (b) row commands on a {CLI_ROWS}-row lineitem16 cut"
+    g = lineitem_strings(next(draw_lineitem16(CLI_ROWS)))
+    cut = os.path.join(d, "lineitem16_cut.parquet")
+    write_lineitem16(cut, [g])
+    want_cut = {c: host_column([g[c]]) for c in L16_COLUMNS}
+    head = run_cli(["head", "-n", "3", cut], "head", times)
+    if [json.loads(ln)["l_orderkey"] for ln in head.splitlines()] != \
+            g["l_orderkey"][:3].tolist():
+        raise fail(f"{label}: head's first keys differ")
+    n = cat_check(run_cli(["cat", cut], "cat", times), g, label)
+    size = os.path.getsize(cut)
+    pattern = os.path.join(d, "part_{}.parquet")
+    # the parts are written with the writer's defaults, larger per row
+    # than the cut (DELTA and dictionaries off): a third of its size makes
+    # about four
+    run_cli(["split", "--size", str(size // CLI_SPLIT_PARTS),
+             "--output-pattern", pattern, cut], "split", times)
+    parts = [pattern.format(i) for i in range(len(
+        [f for f in os.listdir(d) if f.startswith("part_")]))]
+    if len(parts) < CLI_SPLIT_PARTS:
+        raise fail(f"{label}: split made {len(parts)} parts, want at least "
+                   f"{CLI_SPLIT_PARTS}")
+    got, rows, _ = read_back(torch, ck, parts, L16_COLUMNS, label, launched)
+    same_columns(got, want_cut, f"{label}, split parts")
+    merged = os.path.join(d, "merged_parts.parquet")
+    run_cli(["merge", merged, *parts], "merge (split parts)", times)
+    got, rows, counts = read_back(torch, ck, [merged], L16_COLUMNS, label,
+                                  launched)
+    same_columns(got, want_cut, f"{label}, merged parts")
+    log(f"{label}: cat {n} rows equal to the generator; split into "
+        f"{len(parts)} parts and merged back, both read on the card equal "
+        f"to the cut ({rows} rows, launches {counts}) ({smi})")
+
+    # (c) merge of phase 18(b)'s manifest members: phase 6's file again
+    label = "cli (c) merge of 18(b)'s members"
+    merged = os.path.join(d, "lineitem16_merged.parquet")
+    run_cli(["merge", merged, *members], "merge (18(b) members)", times)
+    same_file(merged, l16_path, label)
+    base, _, _ = timed_pass(torch, l16_path, L16_COLUMNS)
+    ck.reset_launches()
+    outs, secs, _ = timed_pass(torch, merged, L16_COLUMNS)
+    counts = dict(ck.launches)
+    same_on_card(torch, outs, base, label)
+    del outs, base
+    if counts != l16["counts"]:
+        raise fail(f"{label}: launches {counts}, phase 6's {l16['counts']}")
+    add_launches(launched, counts)
+    os.unlink(merged)
+    log(f"{label}: {len(members)} members merged, byte-identical to phase "
+        f"6's file; read on the card bit-equal, {SF1_ROWS / secs:.1f} rows/s, "
+        f"launches {counts} ({smi})")
+
+    # (d) compact of 18(c)'s 48 fragments
+    label = "cli (d) compact of 18(c)'s fragments"
+    frag = fresh_dir(os.path.join(d, "frag"))
+    batches = write_scale_batches()
+    small = write_fragments(frag, write_scale_schema(), batches)
+    out = run_cli(["compact", *small, "--out", frag], "compact", times)
+    if f"compacted {len(small)} file(s)" not in out:
+        raise fail(f"{label}: compact printed {out!r}")
+    from tpu_parquet_torch.write import load_manifest
+
+    m = load_manifest(frag)
+    got, rows, counts = read_back(torch, ck, m.member_paths(), ["k", "v"],
+                                  label, launched)
+    same_columns(got, {c: host_column([b[c] for b in batches])
+                       for c in ("k", "v")}, label)
+    del batches
+    log(f"{label}: {out.strip().splitlines()[0]}; the compacted dataset "
+        f"({len(m.files)} file(s), {rows} rows) read on the card equal to the "
+        f"batches, launches {counts} ({smi})")
+    shutil.rmtree(frag)
+
+    # (e) csv2parquet on the cut as CSV, with type hints
+    label = "cli (e) csv2parquet"
+    csv_path = os.path.join(d, "lineitem16_cut.csv")
+    write_cli_csv(csv_path, g)
+    conv = os.path.join(d, "lineitem16_cut_csv.parquet")
+    out = run_cli(["-i", csv_path, "-o", conv, "--type-hints",
+                   ",".join(f"{c}={t}" for c, t in CLI_HINTS.items())],
+                  "csv2parquet", times,
+                  module="tpu_parquet_torch.cli.csv2parquet")
+    if f"wrote {CLI_ROWS} rows" not in out:
+        raise fail(f"{label}: printed {out!r}")
+    got, rows, counts = read_back(torch, ck, [conv], L16_COLUMNS, label,
+                                  launched)
+    same_columns(got, want_cut, label)
+    del g
+    log(f"{label}: {CLI_ROWS} CSV rows with type hints (dates as DATE) "
+        f"converted, read on the card equal to the cut, launches {counts} "
+        f"({smi})")
+
+    # (f) the obs artifacts of phases 15 and 16
+    label = "cli (f) trace, doctor, autopsy, top"
+    trace = os.path.join(work, "obs_trace.json")
+    out = run_cli(["trace", trace], "trace", times)
+    for want in ("stage", "dispatch", "overlap efficiency"):
+        if want not in out:
+            raise fail(f"{label}: trace lacks {want!r}")
+    out = run_cli(["doctor", trace], "doctor", times)
+    verdict = [ln for ln in out.splitlines() if ln.startswith("verdict:")]
+    if not verdict:
+        raise fail(f"{label}: doctor printed no verdict: {out!r}")
+    out = run_cli(["autopsy", os.path.join(work, "obs_hang_dump.json")],
+                  "autopsy", times)
+    if f"verdict: {obs['hang']['verdict']}" not in out:
+        raise fail(f"{label}: autopsy printed no "
+                   f"{obs['hang']['verdict']!r} verdict: {out[-2000:]!r}")
+    out = run_cli(["top", "--once", "--stale", "1e9",
+                   os.path.join(work, "obs_spool")], "top", times)
+    if "process(es)" not in out:
+        raise fail(f"{label}: top printed {out!r}")
+    log(f"{label}: trace's stages, doctor {verdict[0]!r}, autopsy "
+        f"{obs['hang']['verdict']} as phase 15's, top over phase 16's spool "
+        f"({smi})")
+    shutil.rmtree(d)
+    for name in ("hybrid_unpack_combine", "fused_plain_words"):
+        if not launched.get(name):
+            raise fail(f"phase 19: {name} never launched")
+    wall = time.perf_counter() - t_phase
+    log(f"cli summary ({smi}): command seconds " + ", ".join(
+        f"{n} {s:.3f}" for n, s in times) + f"; cli_launches {launched}; "
+        f"phase 19 wall {wall:.2f} s")
+    return dict(launched=launched, times=times, wall=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the fuzz harness on the card
+# ---------------------------------------------------------------------------
+
+FUZZ_SEED = 1234  # tests/test_fuzz.py's smoke batch
+FUZZ_RUNS = 400
+FUZZ_FILE_READER_RUNS = 120
+
+
+def read_fuzz_phase(work: str, smi: str) -> dict:
+    """Phase 20: ``python -m tpu_parquet_torch.fuzz`` in a child process
+    on the card: both corpus directories replayed, then the smoke batch,
+    crashers not saved (a kernel's out-of-bounds read would poison this
+    process, so it runs in its own)."""
+    t_phase = time.perf_counter()
+    summary = os.path.join(work, "fuzz_summary.json")
+    dirs = [os.path.join(HERE, "tests", "fuzz_corpus"),
+            os.path.join(HERE, "tests", "fuzz_corpus_torch")]
+    n_files = sum(1 for p in dirs if os.path.isdir(p)
+                  for f in os.listdir(p) if not f.startswith("."))
+    args = ["--device", "cuda", "--seed", str(FUZZ_SEED), "--runs",
+            str(FUZZ_RUNS), "--target-runs",
+            f"file_reader={FUZZ_FILE_READER_RUNS}", "--no-save", "--json",
+            summary]
+    for p in dirs:
+        args += ["--replay", p]
+    r = subprocess.run([sys.executable, "-m", "tpu_parquet_torch.fuzz",
+                        *args], cwd=HERE, env=child_env(),
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise fail(f"phase 20: the fuzz harness exited {r.returncode}: "
+                   f"{r.stderr[-4000:]}")
+    with open(summary) as f:
+        doc = json.load(f)
+    os.unlink(summary)
+    rep = doc["replay"]
+    if rep["files"] != n_files or rep["crashers"]:
+        raise fail(f"phase 20: replay of {rep['files']} files (want "
+                   f"{n_files}), crashers {rep['failed']}")
+    bad = {t: v["crashers"] for t, v in doc["targets"].items()
+           if v["crashers"]}
+    if bad or len(doc["targets"]) != 24:
+        raise fail(f"phase 20: crashers {bad}, targets "
+                   f"{sorted(doc['targets'])}")
+    launches = doc["launches"]
+    if not launches.get("hybrid_unpack_combine"):
+        raise fail(f"phase 20: the fused K1 never launched: {launches}")
+    wall = time.perf_counter() - t_phase
+    log(f"fuzz (a) replay on the card: {rep['files']} corpus files, 0 "
+        f"crashers, {rep['seconds']:.3f} s ({smi})")
+    log(f"fuzz (b) smoke batch on the card, seed {FUZZ_SEED}: " + ", ".join(
+        f"{t} {v['runs']} runs 0 crashers {v['seconds']:.3f} s "
+        f"({v['runs'] / v['seconds']:.1f} runs/s)"
+        for t, v in doc["targets"].items()) + f" ({smi})")
+    log(f"fuzz summary ({smi}): fuzz_launches {launches}; phase 20 wall "
+        f"{wall:.2f} s")
+    return dict(launched=launches, targets=doc["targets"], replay=rep,
+                wall=wall)
 
 
 def main() -> int:
@@ -6711,9 +7089,21 @@ def main() -> int:
     # layouts, merge_files, compact under a live sweep, floor), read back
     write = read_write_phase(torch, ck, work, smi, l16_path=l16_path,
                              l16_groups=l16_groups, l16=l16)
-    del l16_groups
 
-    # phase 19: the kernels line and the result line
+    # phase 19: the CLI as child processes on the card's files (footer
+    # commands at SF1, row commands on a 100,000-row cut, merge, compact,
+    # csv2parquet, the obs artifacts), every output read back on the card
+    cli = read_cli_phase(torch, ck, work, smi, l16_path=l16_path,
+                         l16_groups=l16_groups, l16=l16,
+                         members=write["members"], obs=obs)
+    del l16_groups
+    shutil.rmtree(os.path.dirname(write["members"][0]))
+
+    # phase 20: the fuzz harness in a child process on the card (both
+    # corpus directories, the smoke batch of every target)
+    fuzz = read_fuzz_phase(work, smi)
+
+    # phase 21: the kernels line and the result line
     t14 = k1["timings"][14]
     kernels = [
         {"name": "hybrid_unpack_combine", "route": "cuda",
@@ -6777,7 +7167,7 @@ def main() -> int:
         + ", scan_files " + ", ".join(
             f"{n} {v:.1f}" for n, v in pipe["scan"].items())
         + f" ({smi})")
-    # phases 11's to 18's launches beside each kernel's main-path count
+    # phases 11's to 20's launches beside each kernel's main-path count
     for entry in kernels:
         entry["pipeline_launches"] = pipe["launched"].get(entry["name"], 0)
         entry["filter_launches"] = filt["launched"].get(entry["name"], 0)
@@ -6788,6 +7178,8 @@ def main() -> int:
             entry["name"], 0)
         entry["serve_launches"] = serve["launched"].get(entry["name"], 0)
         entry["write_launches"] = write["launched"].get(entry["name"], 0)
+        entry["cli_launches"] = cli["launched"].get(entry["name"], 0)
+        entry["fuzz_launches"] = fuzz["launched"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

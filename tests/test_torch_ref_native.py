@@ -118,12 +118,14 @@ class ReferenceCrashes:
     ``HangError`` through a worker) must not stay there.  ``mark()`` records
     every ring's events before a test; ``drop_new()`` then removes the
     ``worker_crash`` events that appeared since, whatever their error type,
-    and never an event that was there before the mark."""
+    and never an event that was there before the mark.  ``recorder`` is the
+    reference's global one unless a test passes its own."""
 
-    def __init__(self):
+    def __init__(self, recorder=None):
         import tpu_parquet.obs as ref_obs
 
-        self._recorder = ref_obs.flight_recorder()
+        self._recorder = (ref_obs.flight_recorder() if recorder is None
+                          else recorder)
         self._before: dict = {}
 
     def _rings(self) -> list:
@@ -180,14 +182,21 @@ def no_reference_crashes():
     crashes.drop_new()
 
 
+def _events(rec) -> list:
+    return [(e["name"], e.get("args") or {})
+            for t in rec.snapshot()["threads"].values() for e in t["events"]]
+
+
 def test_reference_crashes_drops_only_new_crash_events():
+    """The logic, on a recorder of the test's own: no event another test
+    left in the global rings can enter the checks."""
     import tpu_parquet.obs as ref_obs
 
-    rec = ref_obs.flight_recorder()
-    outer = ReferenceCrashes()
+    rec = ref_obs.FlightRecorder(capacity=64)
+    outer = ReferenceCrashes(rec)
     outer.mark()
     rec.record("i", "worker_crash", 1.0, 0.0, {"type": "Before"})
-    crashes = ReferenceCrashes()
+    crashes = ReferenceCrashes(rec)
     crashes.mark()
     rec.record("i", "worker_crash", 3.0, 0.0, {"type": "ValueError"})
     rec.record("i", "after", 4.0, 0.0, {})
@@ -196,13 +205,70 @@ def test_reference_crashes_drops_only_new_crash_events():
     worker.start()
     worker.join()
     assert crashes.drop_new() == 2
-    events = [(e["name"], (e.get("args") or {}).get("type"))
-              for t in rec.snapshot()["threads"].values()
-              for e in t["events"]]
+    events = [(name, args.get("type")) for name, args in _events(rec)]
     assert ("worker_crash", "Before") in events
     assert ("after", None) in events
     assert not [e for e in events if e[1] in ("ValueError", "CancelledError")]
     assert outer.drop_new() == 1  # this test leaves no crash behind
+    assert _events(rec) == [("after", {})]
+
+
+def test_reference_crashes_on_the_global_recorder_keep_older_events():
+    """On the reference's global rings, which may hold the crashes of
+    earlier tests (``tests/test_pipeline.py`` leaves a ``ValueError``):
+    exactly the events this test tagged go, every older one stays.  The
+    test records on its own thread's ring only; a full ring evicts its
+    oldest events, so that ring is held to the events it had plus the new
+    ones, cut to its length, less the dropped crash."""
+    import tpu_parquet.obs as ref_obs
+
+    rec = ref_obs.flight_recorder()
+    tag = f"tagged-{os.getpid()}-{threading.get_ident()}"
+    older = ("i", "worker_crash", 0.5, 0.0,
+             {"type": "ValueError", "tag": f"older-{tag}"})
+    rec.record(*older)
+    with rec._lock:
+        rings = {ident: ring for ident, (_n, ring) in rec._threads.items()}
+    mine = rings[threading.get_ident()]
+    before = {ident: _ring_events(ring) for ident, ring in rings.items()}
+    crashes = ReferenceCrashes()
+    crashes.mark()
+    crash = ("i", "worker_crash", 3.0, 0.0, {"type": "ValueError", "tag": tag})
+    after = ("i", "after", 4.0, 0.0, {"tag": tag})
+    rec.record(*crash)
+    rec.record(*after)
+    assert crashes.drop_new() == 1
+    for ident, ring in rings.items():
+        if ring is mine:
+            want = (before[ident] + [crash, after])[-ring.maxlen:]
+            want = [e for e in want if e[4] is not crash[4]]
+        else:
+            want = before[ident]
+        assert _ring_events(ring) == want
+    assert older in _ring_events(mine)
+    # leave the global rings as this test found them
+    kept = [e for e in _ring_events(mine)
+            if e[4] is not after[4] and e[4] is not older[4]]
+    mine.clear()
+    mine.extend(kept)
+
+
+def test_the_crash_ring_test_passes_after_the_references_pipeline_test():
+    """``tests/test_pipeline.py``'s worker error leaves a reference
+    ``worker_crash`` in the global rings; this file's tests pass after it
+    in one process."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:xdist",
+         "-p", "no:cacheprovider", "-p", "no:randomly",
+         "tests/test_pipeline.py::test_prefetch_map_error_position_and_cleanup",
+         "tests/test_torch_ref_native.py::"
+         "test_reference_crashes_drops_only_new_crash_events",
+         "tests/test_torch_ref_native.py::"
+         "test_reference_crashes_on_the_global_recorder_keep_older_events"],
+        cwd=_REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    assert "3 passed" in out.stdout, out.stdout[-4000:]
 
 
 def test_latched_failure_recovers_over_a_whole_file(monkeypatch):

@@ -90,15 +90,15 @@ HBM_SPILL_PASSES = 2
 
 def parse_route(raw, *, source: str = "TPQ_FORCE_ROUTE") -> "str | None":
     """Validate a route name from the environment against ``ROUTES``.
-    Malformed values degrade to unforced routing with one warning line
-    instead of a raise."""
+    Malformed values degrade to unforced routing with one warning line per
+    value (``obs.warn_env_once``) instead of a raise."""
     v = (raw or "").strip()
     if not v:
         return None
     if v not in ROUTES:
-        logging.getLogger(__name__).warning(
-            "%s=%r is not valid; using %r", source, v,
-            "cost-ranked routes (unforced)")
+        from .obs import warn_env_once
+
+        warn_env_once(source, v, "cost-ranked routes (unforced)")
         return None
     return v
 

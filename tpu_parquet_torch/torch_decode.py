@@ -359,6 +359,18 @@ def parse_delta_meta(buf: bytes, bits: int, pos: int = 0) -> DeltaMeta:
     return _meta_from_headers(delta_host.parse_headers(buf, pos))
 
 
+def _native_delta_meta(buf: bytes, pos: int) -> Optional[DeltaMeta]:
+    """The native walk alone (a fuzz parity oracle, ``fuzz.fuzz_delta``);
+    None without the native library."""
+    hdrs = delta_host.native_headers(buf, pos)
+    return None if hdrs is None else _meta_from_headers(hdrs)
+
+
+def _parse_delta_meta_py(buf: bytes, bits: int, pos: int = 0) -> DeltaMeta:
+    """The Python walk alone (a fuzz parity oracle, ``fuzz.fuzz_delta``)."""
+    return _meta_from_headers(delta_host.python_headers(buf, pos))
+
+
 # ---------------------------------------------------------------------------
 # data pages
 # ---------------------------------------------------------------------------
