@@ -313,7 +313,14 @@ def _third_fetch():
 
 def _hang_dump(path, dump, monkeypatch):
     """A port read through a store stalling on its third fetch, under
-    ``hang_s=0.3`` and ``hang_policy="raise"``: the watchdog's dump."""
+    ``hang_s=2.0`` and ``hang_policy="raise"``: the watchdog's dump.
+
+    The dump has to find the read blocked on the stall: the consumer
+    waiting on the feed, one worker holding the stalled span's lock on the
+    fetch's future and the other on that lock.  ``hang_s`` is longer than
+    a row group's decode on a busy CPU takes, or the dog fires while the
+    consumer still decodes an earlier group and the second worker is idle
+    (a dump with no ``io-wait`` thread, on a loaded machine)."""
     from tpu_parquet_torch.device_reader import DeviceFileReader
     from tpu_parquet_torch.iostore import (FaultInjectingStore, FaultSpec,
                                            IOConfig, LocalStore)
@@ -329,7 +336,7 @@ def _hang_dump(path, dump, monkeypatch):
         stores.append(st)
         return st
 
-    r = DeviceFileReader(path, device="cpu", prefetch=2, hang_s=0.3,
+    r = DeviceFileReader(path, device="cpu", prefetch=2, hang_s=2.0,
                          hang_policy="raise", store=make)
     try:
         with pytest.raises(errors.HangError) as ei:

@@ -27,6 +27,7 @@ from .footer import ParquetError
 from .format import Encoding, PageHeader, PageType, Type, parse_encoding
 from .iostore import require_full
 from .kernels import bitpack, bytearray as ba_codec, delta, plain, rle
+from .obs import PART_CRC, PART_PAGE_PARSE, host_part, timed_part
 from .schema.core import SchemaNode
 from .thrift import ThriftError, read_struct
 
@@ -66,6 +67,7 @@ def _read_page_header(buf: bytes, pos: int):
     return res
 
 
+@host_part(PART_PAGE_PARSE)
 def walk_pages(buf: bytes, total_values: int) -> list[PageSlice]:
     """Parse page headers until the chunk's declared value count is consumed.
 
@@ -122,7 +124,7 @@ def walk_pages(buf: bytes, total_values: int) -> list[PageSlice]:
 def _check_crc(header: PageHeader, payload: bytes, validate: bool) -> None:
     if not validate or header.crc is None:
         return
-    actual = zlib.crc32(payload) & 0xFFFFFFFF
+    actual = timed_part(PART_CRC, zlib.crc32, payload) & 0xFFFFFFFF
     if actual != header.crc & 0xFFFFFFFF:
         raise ParquetError(
             f"page CRC mismatch: header {header.crc & 0xFFFFFFFF:#x}, data {actual:#x}"

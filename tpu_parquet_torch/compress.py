@@ -36,6 +36,7 @@ except ImportError:  # pragma: no cover - present in target image
     _zstd = None
 
 from . import native as _native
+from .obs import PART_DECOMPRESS, host_part
 
 
 class CompressionError(ParquetError):
@@ -293,6 +294,7 @@ def compress_block(block: bytes, codec: int) -> bytes:
     return get_codec(codec).compress_block(block)
 
 
+@host_part(PART_DECOMPRESS)
 def decompress_block(block: bytes, codec: int, uncompressed_size: int):
     """Decompress and validate the size declared in the page header.
 

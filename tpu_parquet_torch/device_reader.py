@@ -109,10 +109,11 @@ from .iostore import CoalescedFetcher, require_full
 from .iostore_async import engine_for_store
 from .kernels import bitpack
 from .kernels.delta import _read_uvarint
-from .obs import (Sampler, StatsRegistry, Watchdog, current_request_trace,
-                  env_float, env_int, register_flight_registry,
-                  resolve_hang_s, resolve_sample_ms, resolve_tracer,
-                  warn_env_once)
+from .obs import (PART_READ, HostPhaseStats, Sampler, StatsRegistry,
+                  Watchdog, current_request_trace, env_float, env_int,
+                  register_flight_registry, resolve_hang_s,
+                  resolve_sample_ms, resolve_tracer, snappy_walks_settle,
+                  timed_part, warn_env_once)
 from .pipeline import PipelineStats, prefetch_map
 from .quarantine import Quarantine
 # a chunk's data error riding the ordered chunk feed: ``_prepare_row_group``
@@ -130,7 +131,7 @@ from .ship import (
 )
 from .torch_decode import (
     DeviceColumnData, ParsedDataPage, _bucket, _bucket_bytes, _bucket_count,
-    _SLACK, _PTYPE_TO_NAME, _concat_ragged, _hybrid, _hybrid_vw,
+    _SLACK, _PTYPE_TO_NAME, _concat_ragged, _h2d, _hybrid, _hybrid_vw,
     _max_index, _plain, _plain_flba, _plain_rows,
     _resolve_device, host_decode_dictionary, parse_data_page,
     parse_delta_meta, parse_hybrid_meta,
@@ -346,12 +347,14 @@ class _RowGroupStager:
     ``device``, with host buffers from ``pool``.  ``ready`` is the event
     recorded after the last copy.  A ``timed`` stager on the card brackets
     each copy with timing events (``copy_marks``: the device lane's
-    ``h2d``)."""
+    ``h2d``).  ``host_phase`` (the reader's ``HostPhaseStats``) takes the
+    strip jobs' CPU seconds on the worker."""
 
     STRIP = 16 << 20
 
     def __init__(self, executor=None, device: "torch.device | None" = None,
-                 pool: "_PinnedPool | None" = None, timed: bool = False):
+                 pool: "_PinnedPool | None" = None, timed: bool = False,
+                 host_phase: "HostPhaseStats | None" = None):
         # ("arr", u8, base, nbytes) | ("segs", segments, base, nbytes)
         self._parts: list[tuple] = []
         self.total = 0
@@ -366,6 +369,7 @@ class _RowGroupStager:
         self.ready = None
         self._timed = bool(timed) and self._stream is not None
         self.copy_marks: list = []  # (start, end) timing events per copy
+        self._host_phase = host_phase
 
     def _reserve(self, nbytes: int, reserve: int | None) -> int:
         base = self.total
@@ -486,7 +490,17 @@ class _RowGroupStager:
             lo = self._flushed
             self._flushed += self.STRIP
             self._strip_futs.append(
-                self._ex.submit(self._ship, lo, self.STRIP))
+                self._ex.submit(self._ship_strip, lo, self.STRIP))
+
+    def _ship_strip(self, lo: int, nbytes: int) -> torch.Tensor:
+        """A strip job on the worker: ``_ship``, its CPU seconds to the
+        reader's ``stage_cpu_seconds``."""
+        c0 = time.thread_time()
+        try:
+            return self._ship(lo, nbytes)
+        finally:
+            if self._host_phase is not None:
+                self._host_phase.add_stage_cpu(time.thread_time() - c0)
 
     def abandon(self) -> None:
         """Drop a row group whose host phase failed: join the strips in
@@ -972,6 +986,7 @@ def _plan_snappy_ops(stager: _RowGroupStager, specs, extra_tables=()):
             r = spec[3] if len(spec) > 3 and spec[3] is not None else (
                 native.snappy_plan(payload, out_len))
             if r is None or isinstance(r, int):
+                snappy_walks_settle(False)
                 return None
             plans.append((spec, r, out_len))
             n_ops_total += len(r[0])
@@ -981,6 +996,8 @@ def _plan_snappy_ops(stager: _RowGroupStager, specs, extra_tables=()):
             n_ops_total += 1
         total_out += out_len
     if n_ops_total == 0 or n_ops_total > _SNAPPY_MAX_OPS:
+        # every stream walked for this shipment is thrown away
+        snappy_walks_settle(False)
         return None
     out_pad = _bucket_bytes(total_out + 8, 8)
     segs = [
@@ -993,7 +1010,9 @@ def _plan_snappy_ops(stager: _RowGroupStager, specs, extra_tables=()):
     extra_bytes = sum(np.ascontiguousarray(t).nbytes for t in extra_tables)
     if (stager.total + shipped + SNAPPY_OPS_BYTES * n_ops_pad + extra_bytes
             + out_pad > (_I32_MAX >> 1)):
+        snappy_walks_settle(False)
         return None  # i32 source/table math would overflow
+    snappy_walks_settle(True)
     bases = stager.add_segments(segs)
     ends = np.empty(n_ops_total, np.int64)
     asrc = np.empty(n_ops_total, np.int64)
@@ -1077,9 +1096,11 @@ def _fused_narrow_tables(comp, out_len: int):
     dst_end, op_src, is_lit, depth = r
     n_ops = len(dst_end)
     if n_ops == 0 or depth > FUSED_MAX_DEPTH:
+        snappy_walks_settle(False)
         return None
     n_ops_pad = _bucket(n_ops)
     if n_ops_pad > FUSED_MAX_OPS:
+        snappy_walks_settle(False)
         return None
     out_pad = _bucket_bytes(out_len + 8, 8)
     ppad = _bucket_bytes(max(len(comp), 1), 64)
@@ -1861,6 +1882,7 @@ class _ChunkAssembler:
                 if isinstance(r, int):
                     # malformed stream: materialize so the codec's
                     # diagnostics raise
+                    snappy_walks_settle(False)
                     p.materialize()
                     return None
                 specs.append(("comp", payload, ulen, r))
@@ -1877,6 +1899,7 @@ class _ChunkAssembler:
         # decompress, which loses to the device resolve on large chunks
         if (lazy_out > 0 and comp_bytes > SNAPPY_WORTH_RATIO * lazy_out
                 and lazy_out > _SNAPPY_SMALL_OUT):
+            snappy_walks_settle(False)
             return None
         vbase_t, vstart_t, pages_pad, defined = _fixed_value_tables(
             sizes, [p.defined for p in self.pages])
@@ -2012,7 +2035,9 @@ class _ChunkAssembler:
         count = fused_narrow_count_pad(defined)
         if (stager.total + len(comp) + SNAPPY_OPS_BYTES * n_ops_pad + ppad
                 + out_pad > (_I32_MAX >> 1)):
+            snappy_walks_settle(False)
             return None  # i32 table/source math (checked before mutation)
+        snappy_walks_settle(True)
         tbase = _pack_tables(stager, tables)
         pbase = stager.add(np.frombuffer(comp, np.uint8))
         # K3 reads ppad payload bytes from pbase
@@ -2615,16 +2640,15 @@ class _ChunkAssembler:
         helper = DeviceChunkDecoder(self.leaf, device=self.device)
         dev = self.device
         if self.dict_u8 is not None:
-            helper.dict_u8 = torch.from_numpy(
-                np.ascontiguousarray(self.dict_u8)).to(dev)
+            helper.dict_u8 = _h2d(np.ascontiguousarray(self.dict_u8), dev)
         helper.dict_dtype = self.dict_dtype
         helper.dict_len = self.dict_len
         if self.dict_ragged is not None:
             helper._dict_host_offsets = self.dict_ragged.offsets
-            helper.dict_offsets = torch.from_numpy(np.ascontiguousarray(
-                self.dict_ragged.offsets, dtype=np.int64)).to(dev)
-            helper.dict_heap = torch.from_numpy(
-                np.ascontiguousarray(self.dict_ragged.heap)).to(dev)
+            helper.dict_offsets = _h2d(np.ascontiguousarray(
+                self.dict_ragged.offsets, dtype=np.int64), dev)
+            helper.dict_heap = _h2d(
+                np.ascontiguousarray(self.dict_ragged.heap), dev)
         vals_parts, off_parts, heap_parts = [], [], []
         for p in self.pages:
             v, off, heap = helper._decode_values_device(
@@ -2861,7 +2885,11 @@ class ReaderStats:
     ``ReaderStats`` cut to this slice).  Per route in ``ship_routes``:
     streams, ``logical`` bytes (what plain shipping would move) and
     ``shipped`` bytes (what the route registered for transfer);
-    ``link_bytes_logical``/``link_bytes_shipped`` are their sums."""
+    ``link_bytes_logical``/``link_bytes_shipped`` are their sums.
+
+    :meth:`host_parts` is the port's split of the host phase
+    (``obs.HostPhaseStats``); it stays out of :meth:`as_dict`, whose keys
+    are the reference's."""
 
     row_groups: int = 0
     chunks: int = 0
@@ -2892,6 +2920,18 @@ class ReaderStats:
     fused_fallbacks: int = 0
     # the link rate the planner assumed (TPQ_LINK_MBPS or its default)
     planner_link_mbps: float = 0.0
+    host_phase: HostPhaseStats = field(default_factory=HostPhaseStats,
+                                       repr=False, compare=False)
+
+    def host_parts(self) -> dict:
+        """The host phase's self-time split: seconds per part (``read``,
+        ``crc``, ``decompress``, ``page_parse``, ``run_walk``,
+        ``snappy_walk``, ``transcode``, ``host_copy``, and ``python``, the
+        remainder: they sum to ``host_seconds``), the host phase's and the
+        staging thread's CPU seconds, and the snappy tag walk's counts.
+        The host phase is ``host_seconds`` at prefetch 0; with the chunk
+        feed it adds each chunk's collection on the pool."""
+        return self.host_phase.as_dict()
 
     def count_route(self, route: str, logical: int, shipped: int,
                     predicted: float = 0.0, predicted_device: float = 0.0,
@@ -3529,7 +3569,10 @@ class DeviceFileReader:
         self._sampler = Sampler(self._tracer, resolve_sample_ms(sample_ms),
                                 track_id=self._pipe_stats._obs_id)
         if self._sampler.enabled:
-            self._sampler.add_source("reader_progress", self._sample_progress)
+            self._sampler.add_source(
+                "reader_progress",
+                lambda: {**self._sample_progress(),
+                         **self._stats.host_phase.progress()})
             self._sampler.add_source("pipeline_lanes",
                                      lambda: self._pipe_stats.sample())
             self._sampler.add_source("alloc_bytes", self._sample_alloc)
@@ -3722,29 +3765,39 @@ class DeviceFileReader:
         t0 = time.perf_counter()
         if self._t0 is None:
             self._t0 = t0
-        leaves = {l.path: l for l in self.schema.selected_leaves()}
-        out: dict[str, DeviceColumnData] = {}
-        f = self._sr.as_file()
-        self.alloc.reset()
-        if collected is None:
-            skip_pages, rows_dropped, planned_bufs = self._plan_page_pruning(
-                rg, leaves, index=index)
-        else:
-            skip_pages, planned_bufs = None, {}
-            rows_dropped = collected["rows_dropped"]
-        stager = _RowGroupStager(executor, self.device, self._pinned,
-                                 timed=self._device_timer.enabled)
+        phase = self._stats.host_phase
+        unit = phase.begin()
         try:
-            plans = self._plan_chunks(index, rg, leaves, f, collected,
-                                      skip_pages, planned_bufs, stager, out)
+            leaves = {l.path: l for l in self.schema.selected_leaves()}
+            out: dict[str, DeviceColumnData] = {}
+            f = self._sr.as_file()
+            self.alloc.reset()
+            if collected is None:
+                skip_pages, rows_dropped, planned_bufs = (
+                    self._plan_page_pruning(rg, leaves, index=index))
+            else:
+                skip_pages, planned_bufs = None, {}
+                rows_dropped = collected["rows_dropped"]
+            stager = _RowGroupStager(executor, self.device, self._pinned,
+                                     timed=self._device_timer.enabled,
+                                     host_phase=phase)
+            try:
+                plans = self._plan_chunks(index, rg, leaves, f, collected,
+                                          skip_pages, planned_bufs, stager,
+                                          out)
+            except BaseException:
+                stager.abandon()
+                raise
         except BaseException:
-            stager.abandon()
+            phase.drop(unit)
             raise
+        rows = (rg.num_rows or 0) - rows_dropped
         self._stats.row_groups += 1
-        self._stats.rows += (rg.num_rows or 0) - rows_dropped
+        self._stats.rows += rows
         self._stats.staged_bytes += stager.total
         now = time.perf_counter()
         self._stats.host_seconds += now - t0
+        phase.end(unit, now - t0, rows)
         self._stats.wall_seconds = now - self._t0
         tr = self._pipe_stats.tracer
         if tr is not None and tr.active:
@@ -3804,10 +3857,20 @@ class DeviceFileReader:
         """``_prepare_row_group``'s chunk loop: each selected chunk's
         assembler (collected here, or taken from the feed), its plan on
         ``stager``, the counters, and the route memo.  An empty or fully
-        pruned chunk becomes a placeholder column in ``out``."""
+        pruned chunk becomes a placeholder column in ``out``.
+
+        With the tracer active each chunk is a ``chunk`` span (``column``,
+        ``pages``, ``route``) holding ``collect`` (read and page walk),
+        ``preship`` (route choice and its host work) and ``finish`` (the
+        device plan); the chunk feed records the first two on its
+        workers."""
         plans: list[tuple[str, _Plan]] = []
+        tr = self._pipe_stats.tracer
+        spans = tr is not None and tr.active
         for path, leaf, _chunk, md, offset in row_group_chunks(rg, leaves):
             name = ".".join(path)
+            t_chunk = time.perf_counter()
+            t_collect = t_preship = None
             if collected is not None:
                 entry = collected["chunks"].get(path)
                 if entry is None:
@@ -3829,7 +3892,8 @@ class DeviceFileReader:
                 buf = planned_bufs.get(path)
                 if buf is None:
                     f.seek(offset)
-                    buf = f.read(md.total_compressed_size)
+                    buf = timed_part(PART_READ, f.read,
+                                     md.total_compressed_size)
                 require_full(buf, offset, md.total_compressed_size,
                              context=f"column {name}")
                 self._stats.chunks += 1
@@ -3845,9 +3909,12 @@ class DeviceFileReader:
                                      skip_pages=(skip_pages or {}).get(path),
                                      context=ctx, device=self.device,
                                      dict_cache=self._dict_cache)
+                t_collect = time.perf_counter()
                 asm.preship(self._ship_planner, self._pipe_stats,
                             route_hint=self._plan.route_hint(index, name))
-            self._stats.pages += len(asm.pages)
+                t_preship = time.perf_counter()
+            n_pages = len(asm.pages)
+            self._stats.pages += n_pages
             self._stats.pages_pruned += asm.pages_pruned
             if not asm.pages:
                 # empty or fully pruned: an empty int64 placeholder
@@ -3858,12 +3925,16 @@ class DeviceFileReader:
                     max_def=leaf.max_def, max_rep=leaf.max_rep,
                     num_leaf_slots=0,
                 )
+                if spans:
+                    self._chunk_spans(tr, name, 0, None, t_chunk, t_collect,
+                                      t_preship, None)
                 continue
+            t_finish = time.perf_counter()
             plan = asm.finish(stager)
+            t_done = time.perf_counter()
             plans.append((name, plan))
             self._stats.pages_device_expanded += asm.pages_kept_compressed
             self._stats.fused_fallbacks += asm.fused_fallbacks
-            tr = self._pipe_stats.tracer
             logical_sum = shipped_sum = 0
             best_route, best_bytes = None, -1
             for (route, logical, shipped, predicted, predicted_dev,
@@ -3874,7 +3945,7 @@ class DeviceFileReader:
                 shipped_sum += shipped
                 if shipped > best_bytes:
                     best_route, best_bytes = route, shipped
-                if tr is not None and tr.active:
+                if spans:
                     # one instant per shipped stream: the trace summary
                     # folds them into its per-route prediction table
                     tr.instant("ship", route=route, column=name,
@@ -3888,6 +3959,10 @@ class DeviceFileReader:
             plan.bytes_staged = shipped_sum
             # memoize the decision: a replay starts preship from it
             self._plan.note_route(index, name, plan.route, plan.family)
+            if spans:
+                self._chunk_spans(tr, name, n_pages, plan.route,
+                                  t_chunk, t_collect, t_preship,
+                                  (t_finish, t_done))
         seen = set(out) | {name for name, _ in plans}
         missing = {".".join(p) for p in leaves} - seen
         if missing:
@@ -3895,6 +3970,20 @@ class DeviceFileReader:
                 f"row group {index} missing columns {sorted(missing)}"
             )
         return plans
+
+    @staticmethod
+    def _chunk_spans(tr, name, pages, route, t0, t_collect, t_preship,
+                     finish) -> None:
+        """One chunk's spans, recorded once the chunk is planned: its
+        ``collect`` and ``preship`` children when they ran here (not on
+        the chunk feed), its ``finish`` child, then ``chunk`` itself."""
+        if t_collect is not None:
+            tr.complete("collect", t0, t_collect, column=name)
+            tr.complete("preship", t_collect, t_preship, column=name)
+        if finish is not None:
+            tr.complete("finish", *finish, column=name)
+        tr.complete("chunk", t0, time.perf_counter(), column=name,
+                    pages=pages, route=route)
 
     def _note_staged(self, stager: _RowGroupStager) -> None:
         """A staged row-group buffer is on the device: into the ledger,
@@ -3949,12 +4038,13 @@ class DeviceFileReader:
         if plans:
             tr0 = time.perf_counter() if rtrace is not None else 0.0
             if buf_dev is None:
-                t0 = time.perf_counter()
+                t0, c0 = time.perf_counter(), time.thread_time()
                 with self._pipe_stats.timed("stage", bytes=stager.total), \
                         _xprof_annotation("stage"):
                     buf_dev = stager.stage()
                 with self._stats_lock:
                     self._stats.stage_seconds += time.perf_counter() - t0
+                self._stats.host_phase.add_stage_cpu(time.thread_time() - c0)
                 self._note_staged(stager)
             if stager.ready is not None:
                 # the copies ran on the stream current when the stager was
@@ -4215,12 +4305,13 @@ def _timed_stage(reader: DeviceFileReader, stager: _RowGroupStager):
     """Stage on the worker, into the owning reader's ``stage`` lane and
     ``stage_seconds`` (the worker and the consumer write the stats at
     once: hence the lock)."""
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.thread_time()
     with reader._pipe_stats.timed("stage", bytes=stager.total), \
             _xprof_annotation("stage"):
         buf_dev = stager.stage()
     with reader._stats_lock:
         reader._stats.stage_seconds += time.perf_counter() - t0
+    reader._stats.host_phase.add_stage_cpu(time.thread_time() - c0)
     reader._note_staged(stager)
     return buf_dev
 
@@ -4389,12 +4480,26 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None,
         return comp + max(md.total_uncompressed_size or 0, comp)
 
     def collect(item):
+        """One chunk's host phase on a pool worker: a unit of its reader's
+        ``host_phase``, and with the tracer active its ``collect`` and
+        ``preship`` spans."""
         r, i, p, leaf, md, offset, skip, buf0, fetcher = item
         if md is None:
             return (id(r), i), None, None
+        phase = r._stats.host_phase
+        t0 = time.perf_counter()
+        unit = phase.begin()
+        try:
+            return collect_chunk(r, i, p, leaf, md, offset, skip, buf0,
+                                 fetcher, t0)
+        finally:
+            phase.end(unit, time.perf_counter() - t0)
+
+    def collect_chunk(r, i, p, leaf, md, offset, skip, buf0, fetcher, t0):
         stats = r._pipe_stats
+        name = ".".join(p)
         ctx = {"file": r._source_name, "row_group": i,
-               "column": ".".join(p), "chunk_offset": offset}
+               "column": name, "chunk_offset": offset}
         try:
             tracker = AllocTracker(r.alloc.max_size)
             tracker.register(md.total_compressed_size)
@@ -4402,9 +4507,11 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None,
                 buf = buf0  # the pruning planner already read this chunk
             else:
                 with stats.timed("io"):
-                    buf = (fetcher.read(offset, md.total_compressed_size)
-                           if fetcher is not None
-                           else r._sr.pread(offset, md.total_compressed_size))
+                    buf = timed_part(
+                        PART_READ,
+                        fetcher.read if fetcher is not None
+                        else r._sr.pread,
+                        offset, md.total_compressed_size)
             require_full(buf, offset, md.total_compressed_size,
                          context=f"column {'.'.join(p)}")
             with stats.timed("decompress"):
@@ -4425,8 +4532,13 @@ def _chunk_feed(work, prefetch: int, budget_bytes: int = 0, cancel=None,
                 e, **{k: v for k, v in ctx.items() if k != "chunk_offset"})))
         # ship planning on the same worker (its compression seconds land
         # in the recompress lane): overlaps the consumer's stage/dispatch
+        t1 = time.perf_counter()
         asm.preship(r._ship_planner, stats,
-                    route_hint=r._plan.route_hint(i, ".".join(p)))
+                    route_hint=r._plan.route_hint(i, name))
+        tr = stats.tracer
+        if tr is not None and tr.active:
+            tr.complete("collect", t0, t1, column=name)
+            tr.complete("preship", t1, time.perf_counter(), column=name)
         stats.count_chunk()
         return (id(r), i), p, (md, asm)
 

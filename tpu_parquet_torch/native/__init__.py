@@ -16,6 +16,20 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
+
+try:
+    from ..obs import (PART_RUN_WALK, PART_SNAPPY_WALK, PART_TRANSCODE,
+                       host_part, host_unit)
+except ImportError:
+    # loaded on its own, outside the package: no host-phase counters
+    PART_RUN_WALK = PART_SNAPPY_WALK = PART_TRANSCODE = 0
+
+    def host_part(part):
+        return lambda fn: fn
+
+    def host_unit():
+        return None
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ["snappy.cpp", "meta_parse.cpp"]
@@ -224,6 +238,7 @@ def snappy_decompress(data, max_size: int = -1):
     return out[:n]
 
 
+@host_part(PART_TRANSCODE)
 def snappy_compress(data) -> bytes:
     lib = load()
     if lib is None:
@@ -372,6 +387,7 @@ def hybrid_meta_retry(buf: bytes, n: int, pos: int, width: int, count: int,
         return res
 
 
+@host_part(PART_RUN_WALK)
 def bytearray_walk(buf: bytes, count: int):
     """Walk PLAIN BYTE_ARRAY length prefixes natively (meta_parse.cpp).
 
@@ -400,6 +416,7 @@ def bytearray_walk(buf: bytes, count: int):
     return offsets, heap[: int(rc)]
 
 
+@host_part(PART_RUN_WALK)
 def bytearray_lengths(buf: bytes, count: int, pos: int = 0):
     """Validate PLAIN BYTE_ARRAY prefixes from ``pos`` and return the u32
     lengths only (no copies anywhere: the caller passes the whole page
@@ -424,6 +441,7 @@ def bytearray_lengths(buf: bytes, count: int, pos: int = 0):
     return lens, int(rc)
 
 
+@host_part(PART_SNAPPY_WALK)
 def snappy_plan(payload: bytes, expect: int):
     """Parse a raw snappy stream's TAG STRUCTURE only (no byte movement).
 
@@ -448,7 +466,12 @@ def snappy_plan(payload: bytes, expect: int):
     # up front costs more than the walk itself on multi-MB pages
     cap = min(full_cap, max(n // 32, 64))
     pll = ctypes.POINTER(ctypes.c_longlong)
+    # the host phase's walk counts: a restart on ERR_CAP is a retry, its
+    # attempt's seconds wasted; a walk that succeeds stays open until its
+    # plan is staged or thrown away (obs.snappy_walks_settle)
+    unit = host_unit()
     while True:
+        t0 = time.perf_counter()
         cap2 = 1
         while cap2 < cap:
             cap2 <<= 1
@@ -464,8 +487,16 @@ def snappy_plan(payload: bytes, expect: int):
             seg.ctypes.data_as(pll), cap2, out.ctypes.data_as(pll),
         )
         if rc == -10 and cap < full_cap:
+            if unit is not None:
+                unit.retries += 1
+                unit.wasted += time.perf_counter() - t0
             cap = min(full_cap, cap * 8)
             continue
+        if unit is not None:
+            unit.walks += 1
+            if rc >= 0:
+                unit.open_n += 1
+                unit.open_s += time.perf_counter() - t0
         if rc < 0:
             return int(rc)
         r = int(rc)
@@ -530,6 +561,7 @@ def bp_pack(vals, width: int):
     return out
 
 
+@host_part(PART_TRANSCODE)
 def int_minmax(buf: bytes, pos: int, n: int, width: int):
     """Min/max of ``n`` little-endian signed ``width``-byte ints at buf+pos.
 
@@ -548,6 +580,7 @@ def int_minmax(buf: bytes, pos: int, n: int, width: int):
     return int(out[0]), int(out[1])
 
 
+@host_part(PART_TRANSCODE)
 def int_truncate(buf: bytes, pos: int, n: int, width: int, bias: int, k: int,
                  dst) -> bool:
     """Write ``(v - bias) mod 2**(8*width)`` truncated to k bytes per value

@@ -46,6 +46,7 @@ kernel names are the CUDA kernels (``hybrid_unpack_combine``,
 from __future__ import annotations
 
 import atexit
+import functools
 import json
 import os
 import sys
@@ -56,18 +57,20 @@ from collections import deque
 from typing import Optional
 
 __all__ = [
-    "FLIGHT_VERSION", "OBS_VERSION", "ConsumerLane", "FlightRecorder",
+    "FLIGHT_VERSION", "HOST_PARTS", "OBS_VERSION", "ConsumerLane",
+    "FlightRecorder", "HostPhaseStats",
     "LatencyHistogram", "MetricsDumper", "RequestTrace",
     "Sampler", "StatsRegistry", "TailSampler", "Tracer", "Watchdog",
-    "autopsy_dump",
+    "autopsy_dump", "clock_anchor",
     "current_request_trace", "current_tracer", "doctor_registry",
     "env_float", "env_int", "fleet_host",
     "flight_dump_path",
-    "flight_recorder", "install_flight_hooks", "note_worker_crash",
+    "flight_recorder", "host_phase_totals", "install_flight_hooks",
+    "note_worker_crash",
     "register_flight_registry", "register_flight_source",
     "render_openmetrics",
     "resolve_hang_s", "resolve_sample_ms", "resolve_tracer",
-    "set_request_trace", "trace_summary", "warn_env_once",
+    "set_request_trace", "trace_summary", "unix_ns", "warn_env_once",
 ]
 
 # version of every schema this module emits (the registry tree, the trace
@@ -820,6 +823,9 @@ class FlightRecorder:
             "error": ({"type": type(error).__name__,
                        "message": str(error)[:500]}
                       if error is not None else None),
+            # the events' ages count back from this anchor's perf_counter
+            # reading: unix_ns - age_s * 1e9 puts them on the wall clock
+            "clock_sync": clock_anchor(),
         }
         try:
             from . import alloc
@@ -895,6 +901,29 @@ def flight_recorder() -> FlightRecorder:
 
 
 # ---------------------------------------------------------------------------
+# one clock with the device trace
+# ---------------------------------------------------------------------------
+
+def clock_anchor() -> dict:
+    """``perf_counter`` (the tracer's and the flight ring's clock) and
+    ``time.time_ns()`` (the wall clock ``torch.profiler``'s device events
+    carry) read together: ``{"perf_counter_s", "unix_ns"}``, the
+    ``perf_counter`` reading the midpoint of two around the wall clock's."""
+    p0 = time.perf_counter()
+    u = time.time_ns()
+    p1 = time.perf_counter()
+    return {"perf_counter_s": (p0 + p1) / 2, "unix_ns": u}
+
+
+def unix_ns(t: float, anchor: "dict | None" = None) -> int:
+    """A ``perf_counter`` second ``t`` on the wall clock, in ns since the
+    epoch, through ``anchor`` (a :func:`clock_anchor`; default: one read
+    now, so the two clocks' drift counts only from ``t`` to the call)."""
+    a = clock_anchor() if anchor is None else anchor
+    return a["unix_ns"] + round((t - a["perf_counter_s"]) * 1e9)
+
+
+# ---------------------------------------------------------------------------
 # span tracer
 # ---------------------------------------------------------------------------
 
@@ -939,7 +968,11 @@ class Tracer:
     so nesting is implied by containment — Perfetto and ``chrome://tracing``
     rebuild the flame graph per (pid, tid) without begin/end pairing.
     ``instant``/``counter`` events carry point-in-time facts (a chunk's
-    chosen ship route, the shuffle window's occupancy).
+    chosen ship route, the shuffle window's occupancy).  The export leads
+    with a ``clock_sync`` metadata event: :func:`clock_anchor` read at the
+    tracer's creation (``created``) and at the export (``exported``), so a
+    span's ``ts`` maps onto the device trace's wall clock and the two
+    clocks' drift over the run shows.
 
     When ``enabled`` is False every record call is one ``if`` and ``span()``
     returns a module-level no-op singleton — the hot loops keep their obs
@@ -965,6 +998,7 @@ class Tracer:
         self._pid = os.getpid()
         self._named_tids: set[int] = set()
         self._written = False
+        self.clock_sync = clock_anchor()
         if path is not None and self.enabled:
             atexit.register(self._atexit_write)
 
@@ -1071,8 +1105,11 @@ class Tracer:
         other: dict = {"obs_version": OBS_VERSION}
         if registry is not None:
             other["registry"] = registry.as_dict()
+        sync = {"name": "clock_sync", "ph": "M", "pid": self._pid, "tid": 0,
+                "args": {"created": self.clock_sync,
+                         "exported": clock_anchor()}}
         return {
-            "traceEvents": self.events(),
+            "traceEvents": [sync, *self.events()],
             "displayTimeUnit": "ms",
             "otherData": other,
         }
@@ -1264,6 +1301,195 @@ class Sampler:
                 except Exception:  # noqa: BLE001
                     self.dropped += 1
         self.ticks += 1
+
+
+# ---------------------------------------------------------------------------
+# host-phase parts: where the device read's host phase spends its time
+# ---------------------------------------------------------------------------
+
+# the timed parts, in the order their indices run, then the remainder
+HOST_PARTS = ("read", "crc", "decompress", "page_parse", "run_walk",
+              "snappy_walk", "transcode", "host_copy", "python")
+(PART_READ, PART_CRC, PART_DECOMPRESS, PART_PAGE_PARSE, PART_RUN_WALK,
+ PART_SNAPPY_WALK, PART_TRANSCODE, PART_HOST_COPY) = range(8)
+_N_TIMED = len(HOST_PARTS) - 1
+
+
+class _HostTLS(threading.local):
+    unit = None  # the class default: a thread with no unit reads None
+
+
+_host_tls = _HostTLS()
+_perf = time.perf_counter
+
+
+class _HostUnit:
+    """One unit of a reader's host phase on one thread: a row group's
+    prepare on the caller, or one chunk's collection on a chunk-feed
+    worker.  ``inner`` is the time of the timed parts run inside the part
+    now open, which that part leaves out of its own (self time).
+    ``open_n`` / ``open_s``: snappy tag walks whose plan is not yet used
+    or thrown away."""
+
+    __slots__ = ("parts", "inner", "walks", "retries", "declined", "wasted",
+                 "open_n", "open_s", "outer", "cpu0")
+
+    def __init__(self, outer):
+        self.parts = [0.0] * _N_TIMED
+        self.inner = 0.0
+        self.walks = self.retries = self.declined = 0
+        self.wasted = self.open_s = 0.0
+        self.open_n = 0
+        self.outer = outer
+        self.cpu0 = time.thread_time()
+
+
+def host_unit() -> "_HostUnit | None":
+    """The host-phase unit open on this thread, or None."""
+    return _host_tls.unit
+
+
+def timed_part(part: int, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds added to ``part`` of the unit
+    open on this thread (less the parts timed inside it); without a unit,
+    just the call."""
+    u = _host_tls.unit
+    if u is None:
+        return fn(*args, **kwargs)
+    outer = u.inner
+    u.inner = 0.0
+    t0 = _perf()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        dt = _perf() - t0
+        u.parts[part] += dt - u.inner
+        u.inner = outer + dt
+
+
+def host_part(part: int):
+    """Decorator: every call of the function is :func:`timed_part` (its
+    body inlined: the per-page leaves pay no second Python frame)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            u = _host_tls.unit
+            if u is None:
+                return fn(*args, **kwargs)
+            outer = u.inner
+            u.inner = 0.0
+            t0 = _perf()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = _perf() - t0
+                u.parts[part] += dt - u.inner
+                u.inner = outer + dt
+        return timed
+    return deco
+
+
+def snappy_walks_settle(used: bool) -> None:
+    """The snappy tag walks made since the last settle have been staged
+    (``used``) or thrown away: those count in ``declined`` and their
+    seconds in ``wasted_seconds``.  A walk never settled counts as used."""
+    u = _host_tls.unit
+    if u is None:
+        return
+    if not used:
+        u.declined += u.open_n
+        u.wasted += u.open_s
+    u.open_n, u.open_s = 0, 0.0
+
+
+class HostPhaseStats:
+    """Self-time counters of one reader's host phase: ``parts`` (seconds
+    per :data:`HOST_PARTS` name, ``python`` the remainder, so they sum to
+    ``seconds``), ``cpu_seconds`` (``time.thread_time`` over the same
+    units: ``seconds - cpu_seconds`` is time off the CPU, the GIL waits
+    among it), ``stage_cpu_seconds`` (the staging thread's CPU time) and
+    the snappy tag walk's counts.  Each unit folds in once, under a lock,
+    here and into the process's :func:`host_phase_totals`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.seconds = 0.0
+        self.cpu_seconds = 0.0
+        self.stage_cpu_seconds = 0.0
+        self.rows = 0
+        self.parts = [0.0] * len(HOST_PARTS)
+        self.walks = self.retries = self.declined = 0
+        self.wasted_seconds = 0.0
+
+    def begin(self) -> _HostUnit:
+        """Open a unit on this thread (the leaves' seconds go to it)."""
+        u = _HostUnit(_host_tls.unit)
+        _host_tls.unit = u
+        return u
+
+    def end(self, u: _HostUnit, seconds: float, rows: int = 0) -> None:
+        """Close ``u`` (``seconds`` long, ``rows`` finished) and fold it."""
+        cpu = time.thread_time() - u.cpu0
+        _host_tls.unit = u.outer
+        parts = u.parts + [seconds - sum(u.parts)]
+        for stats in (self, _TOTALS):
+            with stats._lock:
+                stats._fold(seconds, cpu, rows, parts, u)
+
+    @staticmethod
+    def drop(u: _HostUnit) -> None:
+        """Close ``u`` without folding it (its work raised)."""
+        _host_tls.unit = u.outer
+
+    def _fold(self, seconds, cpu, rows, parts, u) -> None:
+        self.seconds += seconds
+        self.cpu_seconds += cpu
+        self.rows += rows
+        for i, v in enumerate(parts):
+            self.parts[i] += v
+        self.walks += u.walks
+        self.retries += u.retries
+        self.declined += u.declined
+        self.wasted_seconds += u.wasted
+
+    def add_stage_cpu(self, seconds: float) -> None:
+        for stats in (self, _TOTALS):
+            with stats._lock:
+                stats.stage_cpu_seconds += seconds
+
+    def as_dict(self) -> dict:
+        with self._lock:
+            return {
+                "host_seconds": self.seconds,
+                "host_cpu_seconds": self.cpu_seconds,
+                "stage_cpu_seconds": self.stage_cpu_seconds,
+                "rows": self.rows,
+                "parts": dict(zip(HOST_PARTS, self.parts)),
+                "snappy_walk": {"walks": self.walks,
+                                "retries": self.retries,
+                                "declined": self.declined,
+                                "wasted_seconds": self.wasted_seconds},
+            }
+
+    def progress(self) -> dict:
+        """Flat numbers for a sampler track."""
+        d = self.as_dict()
+        out = {k: d[k] for k in ("host_seconds", "host_cpu_seconds",
+                                 "stage_cpu_seconds")}
+        out.update({f"{k}_s": v for k, v in d["parts"].items()})
+        out.update({f"snappy_{k}": v for k, v in d["snappy_walk"].items()})
+        return out
+
+
+# every DeviceFileReader's units of the process, folded as each ends
+_TOTALS = HostPhaseStats()
+
+
+def host_phase_totals() -> dict:
+    """The process's host-phase counters, summed over every device reader
+    since import (:meth:`HostPhaseStats.as_dict`'s keys): what an
+    operator's scrape, or a benchmark's reading of a window, takes."""
+    return _TOTALS.as_dict()
 
 
 # ---------------------------------------------------------------------------

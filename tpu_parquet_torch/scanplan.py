@@ -37,6 +37,7 @@ from typing import Optional
 from .chunk_decode import validate_chunk_meta, walk_pages
 from .errors import ParquetError
 from .format import PageType
+from .obs import PART_PAGE_PARSE, PART_READ, host_part, timed_part
 from .ship import ROUTES
 
 __all__ = [
@@ -495,6 +496,7 @@ def int_stats_span(statistics, leaf) -> "tuple[int, int] | None":
 # page-level predicate pushdown planning
 # ---------------------------------------------------------------------------
 
+@host_part(PART_PAGE_PARSE)
 def walk_header_pages(f, offset: int, size: int, num_values: int):
     """Page headers of a chunk read via seeks — header bytes only, never
     the payloads (the pruning planner needs page BOUNDARIES of every
@@ -514,7 +516,7 @@ def walk_header_pages(f, offset: int, size: int, num_values: int):
         win = 1024
         while True:
             f.seek(offset + pos)
-            head = f.read(min(win, size - pos))
+            head = timed_part(PART_READ, f.read, min(win, size - pos))
             try:
                 header, hlen = _read_page_header(head, 0)
                 break
@@ -610,7 +612,7 @@ def plan_page_pruning(rg, leaves, schema, pred, f):
         md, offset = validate_chunk_meta(chunk, leaf)
         if name in fcols:
             f.seek(offset)
-            buf = f.read(md.total_compressed_size)
+            buf = timed_part(PART_READ, f.read, md.total_compressed_size)
             if tuple(name.split(".")) in leaves:
                 bufs[tuple(name.split("."))] = buf
             hdrs = [ps.header for ps in walk_pages(buf, md.num_values)]

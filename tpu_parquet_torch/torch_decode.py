@@ -41,6 +41,8 @@ from .chunk_decode import (PageSlice, _byte_stream_split_decode, _check_crc,
                            validate_chunk_meta, walk_pages)
 from .errors import error_context
 from .native import NATIVE_ERRORS as _NATIVE_ERRORS
+from .obs import (PART_HOST_COPY, PART_PAGE_PARSE, PART_RUN_WALK, host_part,
+                  timed_part)
 from .schema.core import SchemaNode
 
 __all__ = [
@@ -133,6 +135,7 @@ class HybridMeta:
 
 
 
+@host_part(PART_RUN_WALK)
 def parse_hybrid_meta(
     buf: bytes, width: int, count: int, pos: int = 0, end: Optional[int] = None,
     compute_max: bool = False, eq_target: Optional[int] = None,
@@ -282,13 +285,12 @@ def decode_hybrid_device(raw, meta: HybridMeta, width: int,
     plan = _plan_hybrid_pallas(stager, [(meta, raw, count)], width, count,
                                _bucket_count(count))
     if plan is not None:
-        return plan.fn(stager.stage().to(device), *plan.dyn)[:count]
+        return plan.fn(_h2d(stager.stage(), device), *plan.dyn)[:count]
     buf = pad_buffer(raw, device)
     return _hybrid(
-        buf, torch.from_numpy(meta.run_ends).to(device),
-        torch.from_numpy(meta.run_is_rle).to(device),
-        torch.from_numpy(meta.run_values.astype(np.int64)).to(device),
-        torch.from_numpy(meta.run_bit_starts).to(device), count,
+        buf, _h2d(meta.run_ends, device), _h2d(meta.run_is_rle, device),
+        _h2d(meta.run_values.astype(np.int64), device),
+        _h2d(meta.run_bit_starts, device), count,
         width=width, count=count)
 
 
@@ -340,14 +342,14 @@ def decode_delta_device(buf: torch.Tensor, meta: DeltaMeta, bits: int):
     ``meta.count`` values (``int32`` or ``int64``)."""
     dev = buf.device
     return K.delta_reconstruct(
-        buf, meta.first_value,
-        torch.from_numpy(meta.mini_bit_starts).to(dev),
-        torch.from_numpy(meta.mini_widths).to(dev),
-        torch.from_numpy(meta.mini_min_delta.view(np.int64)).to(dev),
+        buf, meta.first_value, _h2d(meta.mini_bit_starts, dev),
+        _h2d(meta.mini_widths, dev),
+        _h2d(meta.mini_min_delta.view(np.int64), dev),
         meta.values_per_mini, meta.count, bits,
         max_width=max(int(meta.mini_widths.max(initial=0)), 1))
 
 
+@host_part(PART_RUN_WALK)
 def parse_delta_meta(buf: bytes, bits: int, pos: int = 0) -> DeltaMeta:
     """Walk DELTA_BINARY_PACKED headers, recording per-miniblock geometry.
 
@@ -434,6 +436,7 @@ class ParsedDataPage:
         return self.raw
 
 
+@host_part(PART_PAGE_PARSE)
 def parse_data_page(
     ps: PageSlice, buf: bytes, codec: int, leaf: SchemaNode,
     validate_crc: bool = False, alloc=None, decode_levels: bool = True,
@@ -604,6 +607,14 @@ def parse_data_page(
 # helpers; the value stream starts at byte ``off`` of ``buf``)
 # ---------------------------------------------------------------------------
 
+def _h2d(t, device) -> torch.Tensor:
+    """``t`` (a host tensor or array) on ``device``: the host-decode path's
+    copy, timed as the host phase's ``host_copy``."""
+    if isinstance(t, np.ndarray):
+        t = torch.from_numpy(t)
+    return timed_part(PART_HOST_COPY, t.to, device)
+
+
 def pad_buffer(raw, device: torch.device) -> torch.Tensor:
     """Stage a byte buffer on ``device``, padded so bit-extract gathers stay
     in bounds."""
@@ -612,7 +623,7 @@ def pad_buffer(raw, device: torch.device) -> torch.Tensor:
     n = len(arr)
     out = torch.zeros(_bucket_bytes(n + _SLACK, 64), dtype=torch.uint8)
     out.numpy()[:n] = arr
-    return out.to(device)
+    return _h2d(out, device)
 
 
 def _plain(buf: torch.Tensor, off: int, *, dtype: str, count: int):
@@ -673,7 +684,7 @@ def _u32_tensor(arr: np.ndarray, device) -> torch.Tensor:
     a = np.ascontiguousarray(arr)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a).to(device)
+    return _h2d(a, device)
 
 
 def host_decode_dictionary(raw: bytes, leaf: SchemaNode, encoding: int, count: int):
@@ -873,8 +884,8 @@ class DeviceChunkDecoder:
             decoded = plain_host.decode(raw[pos:], ptype, count,
                                         self.leaf.type_length)
             if isinstance(decoded, ByteArrayData):
-                return (None, torch.from_numpy(decoded.offsets).to(dev),
-                        torch.from_numpy(decoded.heap).to(dev))
+                return (None, _h2d(decoded.offsets, dev),
+                        _h2d(decoded.heap, dev))
             return _u32_tensor(decoded, dev), None, None
 
         if enc == Encoding.RLE_DICTIONARY:
@@ -908,7 +919,9 @@ class DeviceChunkDecoder:
                 return (K.dict_gather_bytes(self.dict_u8, idx,
                                             self.dict_dtype), None, None)
             # ragged dictionary: the output heap size is needed on the host
-            host_idx = (idx.to(torch.int64) & 0xFFFFFFFF).cpu().numpy()
+            host_idx = timed_part(
+                PART_HOST_COPY, (idx.to(torch.int64) & 0xFFFFFFFF).cpu
+            ).numpy()
             off = self._dict_host_offsets
             if count and host_idx.max(initial=0) >= len(off) - 1:
                 raise ParquetError(
@@ -944,9 +957,9 @@ class DeviceChunkDecoder:
                     raw[pos:], ptype, count, self.leaf.type_length
                 )
                 if isinstance(decoded, ByteArrayData):
-                    return (None, torch.from_numpy(decoded.offsets).to(dev),
-                            torch.from_numpy(decoded.heap).to(dev))
-                return torch.from_numpy(decoded).to(dev), None, None
+                    return (None, _h2d(decoded.offsets, dev),
+                            _h2d(decoded.heap, dev))
+                return _h2d(decoded, dev), None, None
             need = count * np.dtype(name).itemsize
             if avail < need:
                 raise ParquetError(
@@ -977,8 +990,7 @@ class DeviceChunkDecoder:
         else:
             raise ParquetError(
                 f"unsupported value encoding {enc.name} for {ptype!r}")
-        return (None, torch.from_numpy(d.offsets).to(dev),
-                torch.from_numpy(d.heap).to(dev))
+        return (None, _h2d(d.offsets, dev), _h2d(d.heap, dev))
 
     # -- pages ---------------------------------------------------------------
 
