@@ -466,6 +466,7 @@ def test_a_deferred_range_check_is_not_contained(files, monkeypatch, k):
     from tpu_parquet_torch import native
 
     monkeypatch.setattr(native, "hybrid_meta", lambda *a, **kw: None)
+    monkeypatch.setattr(native, "chunk_runs", lambda *a, **kw: None)
     monkeypatch.setattr(ref_native, "hybrid_meta", lambda *a, **kw: None)
     _clean, bad, _ = files["dict_index"]
     want = _run(_scan_read(RDR, [bad], "skip_unit", k, RQ))

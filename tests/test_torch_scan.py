@@ -336,6 +336,7 @@ def test_corrupt_dictionary_index_deferred_without_native(
     every group is yielded, then the scan raises, as the reference's."""
     path = _corrupt_dict_file(tmp_path)
     reference_env.setattr(native, "hybrid_meta", lambda *a, **kw: None)
+    reference_env.setattr(native, "chunk_runs", lambda *a, **kw: None)
     reference_env.setattr(ref_native, "hybrid_meta", lambda *a, **kw: None)
     ref_groups = []
 

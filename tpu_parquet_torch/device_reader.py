@@ -90,7 +90,7 @@ import numpy as np
 import torch
 
 from . import cuda_kernels as _CK
-from . import native
+from . import chunk_walk, native
 from . import torch_kernels as K
 from .alloc import AllocTracker, InFlightBudget
 from .chunk_decode import _check_crc, walk_pages
@@ -111,7 +111,7 @@ from .kernels import bitpack
 from .kernels.delta import _read_uvarint
 from .obs import (PART_READ, HostPhaseStats, Sampler, StatsRegistry,
                   Watchdog, current_request_trace, env_float, env_int,
-                  register_flight_registry, resolve_hang_s,
+                  note_chunk_walk, register_flight_registry, resolve_hang_s,
                   resolve_sample_ms, resolve_tracer, snappy_walks_settle,
                   timed_part, warn_env_once)
 from .pipeline import PipelineStats, prefetch_map
@@ -844,7 +844,9 @@ def _plan_hybrid_pallas(stager: _RowGroupStager, pages_info, width: int,
     combine, ``cuda_kernels.hybrid_unpack_combine``).
 
     ``pages_info``: [(HybridMeta, source_buffer, page_value_count)] in
-    stream order.  Registers each bit-packed run's payload with the stager
+    stream order, or the same pages' runs already concatenated (a
+    ``chunk_walk.RunTables``, whose bit-packed payloads come packed back to
+    back).  Registers each bit-packed run's payload with the stager
     so the staged buffer holds ALL BP groups contiguously (RLE values never
     ship — they live in the run table), then returns a ``_Plan`` producing
     ``int32[count_pad]`` (uint32 bits).  Returns None when the stream has no
@@ -853,19 +855,29 @@ def _plan_hybrid_pallas(stager: _RowGroupStager, pages_info, width: int,
     run-table expand path, exactly as the reference declines."""
     if width <= 0 or width > 32 or total > _I32_MAX:
         return None
-    ks = np.array([m.n_runs for m, _, _ in pages_info], dtype=np.int64)
+    runs = pages_info if isinstance(pages_info, chunk_walk.RunTables) else None
+    if runs is not None:
+        ks = runs.ks
+    else:
+        ks = np.array([m.n_runs for m, _, _ in pages_info], dtype=np.int64)
     nr = int(ks.sum())
     if nr == 0:
         return None
-    ends_c = np.concatenate([m.run_ends[: m.n_runs] for m, _, _ in pages_info])
-    isr = np.concatenate([m.run_is_rle[: m.n_runs] for m, _, _ in pages_info])
-    rvals = np.concatenate([m.run_values[: m.n_runs] for m, _, _ in pages_info])
-    bst = np.concatenate(
-        [m.run_bit_starts[: m.n_runs] for m, _, _ in pages_info]
-    )
+    if runs is not None:
+        ends_c, isr, rvals, bst = runs.ends, runs.kinds, runs.vals, runs.starts
+        pcounts = runs.counts
+    else:
+        ends_c = np.concatenate(
+            [m.run_ends[: m.n_runs] for m, _, _ in pages_info])
+        isr = np.concatenate(
+            [m.run_is_rle[: m.n_runs] for m, _, _ in pages_info])
+        rvals = np.concatenate(
+            [m.run_values[: m.n_runs] for m, _, _ in pages_info])
+        bst = np.concatenate(
+            [m.run_bit_starts[: m.n_runs] for m, _, _ in pages_info])
+        pcounts = np.array([c for _, _, c in pages_info], dtype=np.int64)
     run_page_start = np.repeat(np.cumsum(ks) - ks, ks)  # first run idx of page
     page_of = np.repeat(np.arange(len(ks)), ks)
-    pcounts = np.array([c for _, _, c in pages_info], dtype=np.int64)
     prefix = np.concatenate([[0], np.cumsum(pcounts)[:-1]])
     # within-page run start = previous run's end (0 for a page's first run)
     rstart = np.empty(nr, np.int64)
@@ -885,9 +897,6 @@ def _plan_hybrid_pallas(stager: _RowGroupStager, pages_info, width: int,
     ends = (ends_c + prefix[page_of]).astype(np.int32)
     bib = np.where(isr, 0,
                    gbase * 8 - (rstart + prefix[page_of])).astype(np.int32)
-    srcs = [s for _, s, _ in pages_info]
-    segs = [(srcs[p], int(b), int(g) * width)
-            for p, b, g in zip(page_of[sel], pay[sel], groups[sel])]
     rp = _bucket(max(nr, 1))
     if rp > nr:
         pad = rp - nr
@@ -902,8 +911,14 @@ def _plan_hybrid_pallas(stager: _RowGroupStager, pages_info, width: int,
         # mutation so the fallback leaves no dead bytes)
         return None
     tbase = _pack_tables(stager, [ends, isr.astype(np.uint8), rvals, bib])
-    bases = stager.add_segments(segs)
-    bp_base = int(bases[0])
+    if runs is not None:
+        # the same bytes as the segments below, already back to back
+        bp_base = stager.add(runs.packed_bytes())
+    else:
+        srcs = [s for _, s, _ in pages_info]
+        bp_base = int(stager.add_segments([
+            (srcs[p], int(b), int(g) * width)
+            for p, b, g in zip(page_of[sel], pay[sel], groups[sel])])[0])
     # K1 may read gpad*width bytes from bp_base: past the real payload it
     # sees later regions' bytes — values the combine never selects
     stager.note_read_extent(bp_base, gpad * width)
@@ -1231,6 +1246,13 @@ def _fused_words_cast(words: torch.Tensor, dtype: str) -> torch.Tensor:
     return words.view(_TORCH_DTYPES[dtype]).reshape(-1)
 
 
+def _page_encodings(pages) -> set:
+    """The pages' value encodings, each distinct one parsed once, in page
+    order (the first unknown one raises)."""
+    return {parse_encoding(e)
+            for e in dict.fromkeys(p.encoding for p in pages)}
+
+
 class _ChunkAssembler:
     """Collects a chunk's pages, then emits one device decode plan."""
 
@@ -1465,7 +1487,7 @@ class _ChunkAssembler:
         self._preship_dict(planner, pipe_stats)
         if not self.pages:
             return
-        if {parse_encoding(p.encoding) for p in self.pages} != {Encoding.PLAIN}:
+        if _page_encodings(self.pages) != {Encoding.PLAIN}:
             return
         if self.leaf.physical_type in _PTYPE_TO_NAME:
             self._preship_fixed(planner, pipe_stats)
@@ -1636,7 +1658,7 @@ class _ChunkAssembler:
         return the chunk's ``_Plan``."""
         leaf = self.leaf
         slots = sum(p.num_values for p in self.pages)
-        encs = {parse_encoding(p.encoding) for p in self.pages}
+        encs = _page_encodings(self.pages)
         encs = {
             Encoding.RLE_DICTIONARY if e == Encoding.PLAIN_DICTIONARY else e
             for e in encs
@@ -1649,8 +1671,7 @@ class _ChunkAssembler:
             or leaf.physical_type == Type.BYTE_ARRAY
         )
         if any(p.comp is not None for p in self.pages) and not lazy_ok:
-            for p in self.pages:
-                p.materialize()
+            chunk_walk.materialize_pages(self.pages)
         slots_pad = _bucket_count(slots)
         d_plan = r_plan = None
         if leaf.max_def > 0:
@@ -2252,6 +2273,56 @@ class _ChunkAssembler:
             host_max = None  # Python fallback walk: defer check to device
         return meta, width, stream, host_max
 
+    def _walked_index_runs(self, pages):
+        """The chunk walk's run tables of the dictionary-index ``pages`` and
+        their folded range max (``chunk_walk.ChunkWalk.index_runs``: one
+        native call, the pages' parse errors raised in page order), or None
+        when the pages came through the page loop or the walk is
+        unavailable."""
+        walk = getattr(pages[0], "walk", None) if pages else None
+        if walk is None:
+            return None
+        return walk.index_runs(pages, self.dict_len)
+
+    def _expand_index_runs(self, stager, runs, prefix: int, cp: int,
+                           uniform: bool):
+        """The run-table expand of a walked chunk's index streams (the
+        fused K1 declined them, or their widths differ): the same staged
+        segments and tables as the page loop's, from one set of run
+        tables."""
+        pages = runs.pages
+        bases = stager.add_segments([
+            (p.raw, p.value_pos, len(p.raw) - p.value_pos) for p in pages])
+        ks, widths = runs.ks, runs.widths
+        page_of = np.repeat(np.arange(len(ks)), ks)
+        pos0 = np.cumsum(runs.counts) - runs.counts
+        # global bit base: page byte base within buf, re-zeroed for the
+        # global value position
+        tables = _merge_run_tables(
+            [runs.ends + pos0[page_of]], [runs.kinds], [runs.vals],
+            [runs.starts + (bases * 8 - pos0 * widths)[page_of]],
+            fill_end=prefix, widths_l=[widths[page_of]])
+        if uniform:
+            width = int(widths[0]) if len(widths) else 0
+            tables = tables[:4]  # one width: no per-run width table
+            idx_dyn = tuple(_stage_array(stager, t) for t in tables)
+
+            def idx_fn(buf, *specs):
+                e, r, v, s = (_staged(buf, t) for t in specs)
+                return _hybrid(buf, e, r != 0, v, s, prefix, width=width,
+                               count=cp)
+
+            return idx_fn, idx_dyn
+        idx_dyn = tuple(_stage_array(stager, t) for t in tables)
+        mw = min(max(8, (int(widths.max()) + 7) // 8 * 8), 32)
+
+        def idx_fn(buf, *specs):
+            e, r, v, s, w = (_staged(buf, t) for t in specs)
+            return _hybrid_vw(buf, e, r != 0, v, s, w, prefix,
+                              max_width=mw, count=cp)
+
+        return idx_fn, idx_dyn
+
     def _check_dict_range(self, prefix, host_max):
         if prefix and self.dict_len == 0:
             raise ParquetError("dictionary indices with empty dictionary")
@@ -2269,25 +2340,36 @@ class _ChunkAssembler:
         :class:`DeviceDictColumn`, gathered only by ``materialize()``."""
         if self.dict_u8 is None and self.dict_ragged is None:
             raise ParquetError("dictionary-encoded page but no dictionary page seen")
-        parsed = []  # (page, stream, meta)
-        page_widths = []
-        host_max = 0 if self.pages else None
-        for p in self.pages:
-            meta, pw, stream, host_max = self._parse_dict_index_page(p, host_max)
-            parsed.append((p, stream, meta))
-            page_widths.append(pw)
-        uniform = len(set(page_widths)) <= 1
-        width = page_widths[0] if page_widths else 0
-        prefix = sum(p.defined for p in self.pages)
+        walked = self._walked_index_runs(self.pages)
+        if walked is not None:
+            runs, host_max = walked
+            widths = runs.widths
+            uniform = bool((widths == widths[0]).all())
+            width = int(widths[0])
+            prefix = int(runs.counts.sum())
+            pages_info = runs
+        else:
+            parsed = []  # (page, stream, meta)
+            page_widths = []
+            host_max = 0 if self.pages else None
+            for p in self.pages:
+                meta, pw, stream, host_max = self._parse_dict_index_page(
+                    p, host_max)
+                parsed.append((p, stream, meta))
+                page_widths.append(pw)
+            uniform = len(set(page_widths)) <= 1
+            width = page_widths[0] if page_widths else 0
+            prefix = sum(p.defined for p in self.pages)
+            pages_info = [(m, s, p.defined) for p, s, m in parsed]
         cp = _bucket_count(prefix)
         plan = None
         if uniform and prefix:
-            plan = _plan_hybrid_pallas(
-                stager, [(m, s, p.defined) for p, s, m in parsed],
-                width, prefix, cp,
-            )
+            plan = _plan_hybrid_pallas(stager, pages_info, width, prefix, cp)
         if plan is not None:
             idx_fn, idx_dyn = plan.fn, plan.dyn
+        elif walked is not None:
+            idx_fn, idx_dyn = self._expand_index_runs(stager, runs, prefix,
+                                                      cp, uniform)
         else:
             bases = stager.add_segments([
                 (p.raw, p.value_pos, len(p.raw) - p.value_pos)
@@ -2529,14 +2611,21 @@ class _ChunkAssembler:
 
         # dictionary prefix: parse every page (folding the host max), then
         # group consecutive live pages of one width
-        parsed = []  # (page, stream, meta, width)
-        prefix = 0
-        host_max = 0
-        for p in dict_pages:
-            meta, width, stream, host_max = self._parse_dict_index_page(
-                p, host_max)
-            parsed.append((p, stream, meta, width))
-            prefix += p.defined
+        walked = self._walked_index_runs(dict_pages)
+        if walked is not None:
+            runs, host_max = walked
+            parsed = [(p, None, j, w) for j, (p, w) in enumerate(
+                zip(dict_pages, runs.widths.tolist()))]
+            prefix = int(runs.counts.sum())
+        else:
+            parsed = []  # (page, stream, meta, width)
+            prefix = 0
+            host_max = 0
+            for p in dict_pages:
+                meta, width, stream, host_max = self._parse_dict_index_page(
+                    p, host_max)
+                parsed.append((p, stream, meta, width))
+                prefix += p.defined
         self._check_dict_range(prefix, host_max)
         _check_plain_sizes(plain_pages, itemsize)
         groups: list[list] = []
@@ -2551,13 +2640,20 @@ class _ChunkAssembler:
         for group in groups:
             width = group[0][3]
             total = sum(p.defined for p, _, _, _ in group)
-            plan = _plan_hybrid_pallas(
-                stager, [(m, st, p.defined) for p, st, m, _ in group],
-                width, total, _bucket_count(total))
+            if walked is not None:
+                # the group's pages as one run table (a page left out of
+                # the group holds no index, and no run)
+                pages_info = runs.sub(group[0][2], group[-1][2] + 1)
+            else:
+                pages_info = [(m, st, p.defined) for p, st, m, _ in group]
+            plan = _plan_hybrid_pallas(stager, pages_info, width, total,
+                                       _bucket_count(total))
             if plan is not None:
                 idx_calls.append((plan.fn, plan.dyn, total))
                 continue
             for p, _, meta, _ in group:
+                if walked is not None:
+                    meta = runs.meta(meta)  # the page's position in runs
                 base = int(stager.add_segments(
                     [(p.raw, p.value_pos, len(p.raw) - p.value_pos)])[0])
                 tables = tuple(_stage_array(stager, t) for t in (
@@ -2771,6 +2867,12 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
     PLAIN pages of a SNAPPY chunk stay compressed (lazy pages) for the
     compressed-shipping routes; every other page is decompressed here.
 
+    A flat leaf's chunk of v1 pages, UNCOMPRESSED or SNAPPY, is walked in a
+    few native calls (``chunk_walk``); any other chunk, or any run without
+    the native library, takes the page loop (:func:`_collect_pages`).  Both
+    give the same assembler and raise the same errors; the host phase
+    counts which one ran (``obs.note_chunk_walk``).
+
     ``context`` ({file, column, row_group, chunk_offset}) is stamped onto
     every raise (``errors.error_context``), with the failing page's ordinal
     and absolute byte offset.  ``alloc`` (an ``AllocTracker``) registers
@@ -2785,6 +2887,19 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
     through, keyed by the context's (row group, column) and the CRC tier:
     a hit adopts the table and its snappy payload without decompressing or
     parsing the dictionary page again."""
+    return _collect_chunk_as(True, buf, codec, total_values, leaf,
+                             deferred_checks, validate_crc, alloc,
+                             statistics, skip_pages, context, device,
+                             dict_cache)
+
+
+def _collect_chunk_as(walk: bool, buf, codec, total_values, leaf,
+                      deferred_checks, validate_crc=False, alloc=None,
+                      statistics=None, skip_pages=None, context=None,
+                      device=None, dict_cache=None) -> _ChunkAssembler:
+    """:func:`_collect_chunk`, through the native chunk walk where it
+    engages (``walk``), else through the page loop alone (the walk's
+    reference: the tests and the fuzz harness compare the two)."""
     ctx = dict(context or {})
     if "column" not in ctx and leaf.path:
         ctx["column"] = ".".join(leaf.path)
@@ -2792,12 +2907,81 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
     asm = _ChunkAssembler(leaf, deferred_checks, device)
     asm.stats_span = _int_stats_span(statistics, leaf)
     asm.alloc = alloc
-    # parse_data_page applies the per-page conditions (PLAIN encoding,
-    # levels outside the compressed region)
-    lazy = (codec == CompressionCodec.SNAPPY
+    args = (buf, codec, leaf, asm, ctx, chunk_offset, validate_crc, alloc,
+            skip_pages, dict_cache)
+    if not walk:
+        _collect_pages(total_values, *args)
+        return asm
+    reason = chunk_walk.declines(codec, leaf)
+    if reason is None:
+        with error_context(**ctx):
+            cw = chunk_walk.ChunkWalk.headers(buf, total_values, codec)
+        if cw.has_v2:
+            reason = "page_v2"
+        elif (alloc is not None and alloc.max_size > 0
+              and alloc.total + cw.upper_bytes() > alloc.max_size):
+            # the budget may run out mid-chunk: the page loop registers
+            # page by page, so the failing page is the loop's
+            reason = "budget"
+        else:
+            note_chunk_walk(None)
+            _collect_walked(cw, *args)
+            return asm
+    note_chunk_walk(reason)
+    _collect_pages(total_values, *args)
+    return asm
+
+
+def _collect_dictionary(ps, buf, codec, asm, ctx, chunk_offset,
+                        validate_crc, alloc, dict_cache) -> None:
+    """The chunk's dictionary page (``ps``, a ``PageSlice``) into ``asm``:
+    adopted from the dictionary cache, or CRC-checked, registered,
+    decompressed and decoded (and put in the cache)."""
+    # the CRC tier is in the key: a validating read never adopts an
+    # unvalidated decode
+    dk = (ctx.get("row_group"), ctx.get("column"),
+          f"dev:v{1 if validate_crc else 0}")
+    cacheable = (dict_cache is not None and dk[0] is not None
+                 and dk[1] is not None)
+    if cacheable:
+        hit = dict_cache.get(*dk)
+        if hit is not None:
+            asm.adopt_dictionary(hit)
+            return
+    header = ps.header
+    with error_context(offset=chunk_offset + ps.payload_start, **ctx):
+        payload = buf[ps.payload_start : ps.payload_end]
+        _check_crc(header, payload, validate_crc)
+        if alloc is not None:
+            alloc.register(max(header.uncompressed_page_size or 0, 0))
+        raw = decompress_block(payload, codec, header.uncompressed_page_size)
+        dh = header.dictionary_page_header
+        asm.set_dictionary(raw, dh.encoding, dh.num_values or 0)
+    if codec == CompressionCodec.SNAPPY:
+        # kept: the planner may ship the dictionary VALUE TABLE
+        # compressed (_preship_dict / _finish_dict)
+        asm.dict_comp = (payload,
+                         max(header.uncompressed_page_size or 0, 0))
+    if cacheable:
+        entry = asm.dict_cache_entry()
+        if entry is not None:
+            dict_cache.put(*dk, entry, entry["nbytes"])
+
+
+def _lazy_chunk(codec, leaf) -> bool:
+    """Whether the chunk's PLAIN pages may stay compressed (lazy pages;
+    ``parse_data_page`` applies the per-page conditions)."""
+    return (codec == CompressionCodec.SNAPPY
             and (leaf.physical_type in _PTYPE_TO_NAME
                  or leaf.physical_type == Type.BYTE_ARRAY)
             and native.available())
+
+
+def _collect_pages(total_values, buf, codec, leaf, asm, ctx, chunk_offset,
+                   validate_crc, alloc, skip_pages, dict_cache) -> None:
+    """The page loop: ``walk_pages``, then the dictionary page and each
+    data page through ``parse_data_page``."""
+    lazy = _lazy_chunk(codec, leaf)
     with error_context(**ctx):
         pages = walk_pages(buf, total_values)
     data_ordinal = 0
@@ -2805,35 +2989,8 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
         header = ps.header
         pt = header.type
         if pt == PageType.DICTIONARY_PAGE:
-            # the CRC tier is in the key: a validating read never adopts an
-            # unvalidated decode
-            dk = (ctx.get("row_group"), ctx.get("column"),
-                  f"dev:v{1 if validate_crc else 0}")
-            cacheable = (dict_cache is not None and dk[0] is not None
-                         and dk[1] is not None)
-            if cacheable:
-                hit = dict_cache.get(*dk)
-                if hit is not None:
-                    asm.adopt_dictionary(hit)
-                    continue
-            with error_context(offset=chunk_offset + ps.payload_start, **ctx):
-                payload = buf[ps.payload_start : ps.payload_end]
-                _check_crc(header, payload, validate_crc)
-                if alloc is not None:
-                    alloc.register(max(header.uncompressed_page_size or 0, 0))
-                raw = decompress_block(payload, codec,
-                                       header.uncompressed_page_size)
-                dh = header.dictionary_page_header
-                asm.set_dictionary(raw, dh.encoding, dh.num_values or 0)
-            if codec == CompressionCodec.SNAPPY:
-                # kept: the planner may ship the dictionary VALUE TABLE
-                # compressed (_preship_dict / _finish_dict)
-                asm.dict_comp = (payload,
-                                 max(header.uncompressed_page_size or 0, 0))
-            if cacheable:
-                entry = asm.dict_cache_entry()
-                if entry is not None:
-                    dict_cache.put(*dk, entry, entry["nbytes"])
+            _collect_dictionary(ps, buf, codec, asm, ctx, chunk_offset,
+                                validate_crc, alloc, dict_cache)
             continue
         if pt in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
             if skip_pages and data_ordinal in skip_pages:
@@ -2850,7 +3007,43 @@ def _collect_chunk(buf: bytes, codec: int, total_values: int,
                 )
             data_ordinal += 1
         # index/unknown pages: skip
-    return asm
+
+
+def _collect_walked(cw, buf, codec, leaf, asm, ctx, chunk_offset,
+                    validate_crc, alloc, skip_pages, dict_cache) -> None:
+    """The chunk walk's collection (one flat leaf, v1 pages): the
+    dictionary page as the page loop does it, then every data page left
+    after pruning registered at once and CRC-checked and decompressed in one
+    native call.  A failing page raises what ``parse_data_page`` raises for
+    it, with its ordinal and offset; the registrations of the pages after it
+    are released."""
+    ps = cw.dictionary_page()
+    if ps is not None:
+        _collect_dictionary(ps, buf, codec, asm, ctx, chunk_offset,
+                            validate_crc, alloc, dict_cache)
+    ix = cw.data_pages()
+    ords = np.arange(len(ix))
+    if skip_pages:
+        pruned = np.isin(ords, np.fromiter(skip_pages, np.int64))
+        asm.pages_pruned += int(pruned.sum())
+        ix, ords = ix[~pruned], ords[~pruned]
+    if not len(ix):
+        return
+    sizes = cw.pt[ix, native.PT_USIZE]
+    if alloc is not None:
+        alloc.register(int(sizes.sum()))
+    pages, failed = cw.materialise(ix, validate_crc, _lazy_chunk(codec, leaf))
+    asm.pages = pages
+    if failed is not None:
+        j, code, exc = failed
+        if alloc is not None:
+            # the page loop registers a page after its CRC check
+            crc = code == chunk_walk.W_CRC
+            alloc.release(int(sizes[j if crc else j + 1:].sum()))
+        with error_context(page=int(ords[j]),
+                           offset=chunk_offset
+                           + int(cw.pt[ix[j], native.PT_START]), **ctx):
+            raise exc
 
 
 def decode_chunk_batched(buf: bytes, codec: int, total_values: int,

@@ -256,6 +256,140 @@ def fuzz_device_reader(data: bytes, device=None) -> None:
                     raise AssertionError(f"{name} levels differ in {k}")
 
 
+# the leaves a ``chunk_walk`` blob may name (its byte 1, modulo their count)
+_WALK_TYPES = ("INT64", "DOUBLE", "BYTE_ARRAY", "INT32")
+
+
+def _walk_frame(codec: int, kind: int, total: int, chunk: bytes,
+                crc: bool = True) -> bytes:
+    """A ``chunk_walk`` blob: the codec and the CRC check (byte 0: bit 0
+    SNAPPY, else UNCOMPRESSED; bit 1 set, page CRCs not checked, so the
+    mutants of a payload reach the decompression and the run walks), the
+    leaf's type (byte 1, an index into ``_WALK_TYPES``), the chunk's value
+    count (bytes 2-5, little-endian) and the chunk's bytes."""
+    return (bytes([codec | (0 if crc else 2), kind])
+            + int(total).to_bytes(4, "little") + chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_leaf(kind: int):
+    from .format import FieldRepetitionType as FRT, Type
+    from .schema.core import build_schema, data_column
+
+    return build_schema([data_column(
+        "c", Type[_WALK_TYPES[kind]], FRT.REQUIRED)]).leaves[0]
+
+
+def _walk_outcome(walk: bool, codec: int, total: int, leaf, chunk: bytes,
+                  crc: bool = True):
+    """One collection of a chunk (``device_reader._collect_chunk_as``) and
+    its plan, as comparable values: the pages, the dictionary and the
+    pruning count, then the staged bytes, the plan's arguments and the ship
+    records — or the ParquetError either step raised."""
+    import torch
+
+    from . import device_reader as DR
+    from .ship import default_planner
+
+    def b(x):
+        return None if x is None else bytes(np.frombuffer(x, np.uint8))
+
+    try:
+        asm = DR._collect_chunk_as(walk, chunk, codec, total, leaf, [],
+                                   validate_crc=crc,
+                                   device=torch.device("cpu"))
+    except ParquetError as e:
+        return "collect", type(e).__name__, str(e)
+    pages = [(p.num_values, p.defined, p.encoding, p.value_pos, b(p.raw),
+              None if p.comp is None else (b(p.comp[0]), p.comp[2]))
+             for p in asm.pages]
+    rag = asm.dict_ragged
+    state = (pages, asm.pages_pruned, asm.dict_len, b(asm.dict_u8),
+             None if rag is None else (b(rag.offsets), b(rag.heap)),
+             None if asm.dict_comp is None else b(asm.dict_comp[0]))
+    if not asm.pages:
+        return "collected", state
+    try:
+        asm.preship(default_planner())
+        stager = DR._RowGroupStager()
+        plan = asm.finish(stager)
+        buf = np.zeros(stager.size(), np.uint8)
+        stager.fill(buf)
+        return ("planned", state, buf.tobytes(), repr(plan.dyn),
+                asm.ship_records, asm._deferred)
+    except ParquetError as e:
+        return "finish", state, type(e).__name__, str(e)
+
+
+def fuzz_chunk_walk(data: bytes) -> None:
+    """Differential: the device reader's chunk walk (``chunk_walk``: a
+    column chunk's page headers, CRCs, decompression and dictionary-index
+    run walks in a few native calls) against the page loop it replaces, on
+    one framed column chunk (``_walk_frame``).  The two must raise the same
+    error, or give the same pages, dictionary, staged bytes and plan."""
+    if len(data) < 6:
+        raise ParquetError("chunk_walk blob shorter than its frame")
+    codec, crc = data[0] & 1, not data[0] & 2
+    leaf = _walk_leaf(data[1] % len(_WALK_TYPES))
+    total = int.from_bytes(data[2:6], "little") & 0xFFFFF
+    chunk = data[6:]
+    want = _walk_outcome(False, codec, total, leaf, chunk, crc)
+    got = _walk_outcome(True, codec, total, leaf, chunk, crc)
+    if got != want:
+        raise AssertionError(f"chunk walk differs from the page loop: "
+                             f"{got!r:.300} != {want!r:.300}")
+    if want[0] in ("collect", "finish"):
+        raise ParquetError(want[-1])
+
+
+def _chunk_walk_seeds() -> "list[bytes]":
+    """Column chunks of the port writer's files, framed for ``chunk_walk``:
+    dictionary and PLAIN INT64, PLAIN DOUBLE and dictionary strings, in
+    SNAPPY and UNCOMPRESSED, small pages, page CRCs checked and not."""
+    import io as _io
+
+    from .column import ByteArrayData, ColumnData
+    from .footer import read_file_metadata
+    from .format import CompressionCodec, FieldRepetitionType as FRT, Type
+    from .schema.core import build_schema, data_column
+    from .writer import FileWriter
+
+    rng = np.random.default_rng(0)
+    n = 600
+    words = [b"alpha", b"", b"bb", b"gamma-gamma", b"x"]
+    svals = [words[i] for i in rng.integers(0, len(words), n)]
+    files = [  # (dictionary on, {name: (type, values)})
+        (True, {"d": (Type.INT64, rng.integers(0, 40, n)),
+                "s": (Type.BYTE_ARRAY, ColumnData(values=ByteArrayData(
+                    offsets=np.cumsum([0] + [len(v) for v in svals]),
+                    heap=np.frombuffer(b"".join(svals), np.uint8).copy())))}),
+        (False, {"p": (Type.INT64, rng.integers(-(1 << 50), 1 << 50, n)),
+                 "f": (Type.DOUBLE, rng.random(n))}),
+    ]
+    out = []
+    for codec in (CompressionCodec.SNAPPY, CompressionCodec.UNCOMPRESSED):
+        for use_dict, cols in files:
+            sink = _io.BytesIO()
+            schema = build_schema([data_column(k, t, FRT.REQUIRED)
+                                   for k, (t, _) in cols.items()])
+            with FileWriter(sink, schema, codec=codec, page_size=1024,
+                            use_dictionary=use_dict, write_crc=True) as w:
+                w.write_columns({k: v for k, (_, v) in cols.items()})
+            whole = sink.getvalue()
+            for c in read_file_metadata(whole).row_groups[0].columns:
+                m = c.meta_data
+                start = min(x for x in (m.dictionary_page_offset,
+                                        m.data_page_offset)
+                            if x is not None)
+                kind = _WALK_TYPES.index(Type(m.type).name)
+                for crc in (True, False):
+                    out.append(_walk_frame(
+                        int(codec), kind, m.num_values,
+                        whole[start : start + m.total_compressed_size],
+                        crc))
+    return out
+
+
 def fuzz_page_header(data: bytes) -> None:
     """Native vs python PageHeader parse parity (the C parser replicates
     thrift.py's compact-protocol semantics byte for byte — same
@@ -1885,6 +2019,8 @@ TARGETS = {
     "fetch_engine": fuzz_fetch_engine,
     "request_trace": fuzz_request_trace,
     "fleet_snapshot": fuzz_fleet_snapshot,
+    # the port's own: no counterpart in the reference's harness
+    "chunk_walk": fuzz_chunk_walk,
 }
 
 
@@ -2011,6 +2147,8 @@ def _seed_inputs(target: str) -> list[bytes]:
                 ))})
             return [whole, sink2.getvalue()]
         return [whole]
+    if target == "chunk_walk":
+        return _chunk_walk_seeds()
     if target == "hybrid":
         from .kernels import rle
 

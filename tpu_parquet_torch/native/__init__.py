@@ -32,7 +32,7 @@ except ImportError:
         return None
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ["snappy.cpp", "meta_parse.cpp"]
+_SOURCES = ["snappy.cpp", "meta_parse.cpp", "chunk_walk.cpp"]
 _LIB_BASENAME = "_libtpq_native.so"
 
 _lock = threading.Lock()
@@ -185,6 +185,19 @@ def load():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, c_ll, ctypes.c_int, c_ll, ctypes.c_void_p,
             ]
+            vp = ctypes.c_void_p
+            lib.tpq_crc32.restype = ctypes.c_uint32
+            lib.tpq_crc32.argtypes = [vp, c_ll]
+            lib.tpq_chunk_headers.restype = c_ll
+            lib.tpq_chunk_headers.argtypes = [vp, c_ll, c_ll, c_ll, vp, c_ll,
+                                              vp]
+            lib.tpq_chunk_materialise.restype = c_ll
+            lib.tpq_chunk_materialise.argtypes = [vp, vp, vp, c_ll, c_ll, vp,
+                                                  vp, vp, vp]
+            lib.tpq_chunk_runs.restype = c_ll
+            lib.tpq_chunk_runs.argtypes = [vp, vp, vp, vp, c_ll, c_ll, vp,
+                                           vp, vp, vp, vp, vp, c_ll, vp, vp,
+                                           vp]
             _lib = lib
         except Exception:
             _load_failed = True
@@ -735,6 +748,116 @@ def hybrid_expand(buf, ends, kinds, vals, starts, width: int, count: int):
         len(e), width, count, out.ctypes.data,
     )
     return out
+
+
+# the whole-chunk page walk (chunk_walk.cpp): the page table's columns, its
+# flag bits, the materialise call's flags and page states
+PT_FIELDS = 10
+(PT_TYPE, PT_FLAGS, PT_USIZE, PT_CSIZE, PT_CRC, PT_NVALUES, PT_ENCODING,
+ PT_START, PT_END, PT_CLAIM) = range(PT_FIELDS)
+F_TYPE, F_CRC, F_ENCODING, F_V2 = 1, 2, 4, 8
+M_VALIDATE_CRC, M_LAZY, M_SNAPPY, M_DECOMPRESS = 1, 2, 4, 8
+S_ARENA, S_LAZY, S_VIEW = 1, 2, 3
+
+
+def crc32(buf) -> "int | None":
+    """zlib's CRC-32 of a byte buffer, computed in C (chunk_walk.cpp);
+    None when the native library is unavailable."""
+    import numpy as np
+
+    lib = load()
+    if lib is None:
+        return None
+    a = np.frombuffer(buf, np.uint8)
+    return int(lib.tpq_crc32(a.ctypes.data, a.nbytes))
+
+
+def chunk_headers(arr, total_values: int, snappy: bool):
+    """Walk one chunk's page headers (chunk_walk.cpp ``tpq_chunk_headers``)
+    over ``arr`` (the chunk as a uint8 array).  Returns (page table
+    int64[pages, PT_FIELDS], res int64[4]: W_* code, pages, value,
+    present), or None when the native library is unavailable."""
+    import numpy as np
+
+    lib = load()
+    if lib is None:
+        return None
+    n = arr.nbytes
+    full = n // 4 + 2  # a page header takes at least four bytes
+    cap = min(full, 256)
+    res = np.zeros(4, dtype=np.int64)
+    while True:
+        pt = np.empty((cap, PT_FIELDS), dtype=np.int64)
+        rc = lib.tpq_chunk_headers(arr.ctypes.data, n, total_values,
+                                   1 if snappy else 0, pt.ctypes.data, cap,
+                                   res.ctypes.data)
+        if rc == -10 and cap < full:
+            cap = min(full, cap * 8)
+            continue
+        return pt[: int(res[1])], res
+
+
+def chunk_materialise(arr, pt, ix, flags: int, dst, arena):
+    """CRC-check and decompress the data pages ``pt[ix]`` in order
+    (chunk_walk.cpp ``tpq_chunk_materialise``), page j into ``arena`` at
+    ``dst[j]``.  Returns (state uint8[len(ix)], res int64[6]: W_* code,
+    failing j, two values, CRC and decompression nanoseconds); None when
+    the native library is unavailable."""
+    import numpy as np
+
+    lib = load()
+    if lib is None:
+        return None
+    m = len(ix)
+    state = np.zeros(m, dtype=np.uint8)
+    res = np.zeros(6, dtype=np.int64)
+    lib.tpq_chunk_materialise(arr.ctypes.data, pt.ctypes.data, ix.ctypes.data,
+                              m, flags, dst.ctypes.data, arena.ctypes.data,
+                              state.ctypes.data, res.ctypes.data)
+    return state, res
+
+
+def chunk_runs(base, off, lens, counts, dict_len: int):
+    """Walk the hybrid index streams of dictionary-index pages
+    (chunk_walk.cpp ``tpq_chunk_runs``): page j's stream is ``lens[j]``
+    bytes of ``base`` from ``off[j]``, ``counts[j]`` indices.  Returns
+    (ks, widths, ends, kinds, vals, starts, packed, pk, res) with the run
+    tables trimmed to the runs written (res int64[6]: W_* code, failing j,
+    value, -, runs, range max), or None when the native library is
+    unavailable."""
+    import numpy as np
+
+    lib = load()
+    if lib is None:
+        return None
+    m = len(off)
+    total = int(lens.sum())
+    # one run per 8 stream bytes covers run-heavy pages; the retry takes
+    # the provable worst case (a run per value and per byte)
+    full = int(np.minimum(counts, np.maximum(lens, 1)).sum()) + 1
+    cap = min(full, total // 8 + 16 * m + 16)
+    ks = np.empty(m, dtype=np.int64)
+    widths = np.empty(m, dtype=np.int64)
+    pk = np.empty(m + 1, dtype=np.int64)
+    packed = np.empty(total, dtype=np.uint8)
+    res = np.zeros(6, dtype=np.int64)
+    while True:
+        ends = np.empty(cap, dtype=np.int64)
+        starts = np.empty(cap, dtype=np.int64)
+        vals = np.empty(cap, dtype=np.uint32)
+        kinds = np.empty(cap, dtype=np.uint8)
+        rc = lib.tpq_chunk_runs(
+            base.ctypes.data, off.ctypes.data, lens.ctypes.data,
+            counts.ctypes.data, m, dict_len, ks.ctypes.data,
+            widths.ctypes.data, ends.ctypes.data, kinds.ctypes.data,
+            vals.ctypes.data, starts.ctypes.data, cap, packed.ctypes.data,
+            pk.ctypes.data, res.ctypes.data)
+        if rc == -10 and cap < full:
+            cap = full
+            continue
+        r = int(res[4])
+        return (ks, widths, ends[:r], kinds[:r], vals[:r], starts[:r],
+                packed, pk, res)
 
 
 def available() -> bool:

@@ -1332,7 +1332,8 @@ class _HostUnit:
     or thrown away."""
 
     __slots__ = ("parts", "inner", "walks", "retries", "declined", "wasted",
-                 "open_n", "open_s", "outer", "cpu0")
+                 "open_n", "open_s", "outer", "cpu0", "chunk_walks",
+                 "walk_fallbacks")
 
     def __init__(self, outer):
         self.parts = [0.0] * _N_TIMED
@@ -1342,6 +1343,8 @@ class _HostUnit:
         self.open_n = 0
         self.outer = outer
         self.cpu0 = time.thread_time()
+        self.chunk_walks = 0
+        self.walk_fallbacks = None  # {reason: chunks}, made on first use
 
 
 def host_unit() -> "_HostUnit | None":
@@ -1389,6 +1392,35 @@ def host_part(part: int):
     return deco
 
 
+def split_part(rest: int, seconds: float, measured) -> None:
+    """Add a native call of ``seconds`` to the unit open on this thread:
+    each ``(part, seconds)`` of ``measured`` as the call timed it inside,
+    the rest of the call to ``rest``.  The call must run no timed part."""
+    u = _host_tls.unit
+    if u is None:
+        return
+    inside = 0.0
+    for part, s in measured:
+        u.parts[part] += s
+        inside += s
+    u.parts[rest] += seconds - inside
+    u.inner += seconds
+
+
+def note_chunk_walk(fallback: "str | None") -> None:
+    """One column chunk collected: walked in one native call (``None``), or
+    through the page loop for ``fallback``, the reason the walk declined."""
+    u = _host_tls.unit
+    if u is None:
+        return
+    if fallback is None:
+        u.chunk_walks += 1
+        return
+    if u.walk_fallbacks is None:
+        u.walk_fallbacks = {}
+    u.walk_fallbacks[fallback] = u.walk_fallbacks.get(fallback, 0) + 1
+
+
 def snappy_walks_settle(used: bool) -> None:
     """The snappy tag walks made since the last settle have been staged
     (``used``) or thrown away: those count in ``declined`` and their
@@ -1407,9 +1439,11 @@ class HostPhaseStats:
     per :data:`HOST_PARTS` name, ``python`` the remainder, so they sum to
     ``seconds``), ``cpu_seconds`` (``time.thread_time`` over the same
     units: ``seconds - cpu_seconds`` is time off the CPU, the GIL waits
-    among it), ``stage_cpu_seconds`` (the staging thread's CPU time) and
-    the snappy tag walk's counts.  Each unit folds in once, under a lock,
-    here and into the process's :func:`host_phase_totals`."""
+    among it), ``stage_cpu_seconds`` (the staging thread's CPU time), the
+    snappy tag walk's counts, and the column chunks whose pages were walked
+    in one native call (``chunk_walks``) or took the page loop
+    (``chunk_walk_fallbacks``, by reason).  Each unit folds in once, under a
+    lock, here and into the process's :func:`host_phase_totals`."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -1420,6 +1454,8 @@ class HostPhaseStats:
         self.parts = [0.0] * len(HOST_PARTS)
         self.walks = self.retries = self.declined = 0
         self.wasted_seconds = 0.0
+        self.chunk_walks = 0
+        self.chunk_walk_fallbacks: dict = {}
 
     def begin(self) -> _HostUnit:
         """Open a unit on this thread (the leaves' seconds go to it)."""
@@ -1451,6 +1487,11 @@ class HostPhaseStats:
         self.retries += u.retries
         self.declined += u.declined
         self.wasted_seconds += u.wasted
+        self.chunk_walks += u.chunk_walks
+        if u.walk_fallbacks:
+            for k, v in u.walk_fallbacks.items():
+                self.chunk_walk_fallbacks[k] = (
+                    self.chunk_walk_fallbacks.get(k, 0) + v)
 
     def add_stage_cpu(self, seconds: float) -> None:
         for stats in (self, _TOTALS):
@@ -1469,6 +1510,8 @@ class HostPhaseStats:
                                 "retries": self.retries,
                                 "declined": self.declined,
                                 "wasted_seconds": self.wasted_seconds},
+                "chunk_walks": self.chunk_walks,
+                "chunk_walk_fallbacks": dict(self.chunk_walk_fallbacks),
             }
 
     def progress(self) -> dict:
