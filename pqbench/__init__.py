@@ -4,5 +4,6 @@
 --trace <0|1>`` runs one cell of ``BENCHMARK.json`` once on the card and
 prints one JSON result line.  Configurations, traffic mixes and per-layer
 metrics are found by name under ``configs/``, ``traffic/`` and
-``metrics/``.
+``metrics/``; a configuration's table and layout under ``tables/`` and
+``writers/``.
 """

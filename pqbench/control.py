@@ -30,7 +30,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from pqbench import harness, lineitem, reference  # noqa: E402
+from pqbench import harness, reference, tables  # noqa: E402
 
 
 def readings(root: str, workload: str, seed: int, seconds: float) -> dict:
@@ -40,18 +40,18 @@ def readings(root: str, workload: str, seed: int, seconds: float) -> dict:
     config = harness.load_data(os.path.join(root, entry["file"]))
     traffic = harness.load_data(harness.find(root, bench, "traffic",
                                              cell["traffic"]))
-    groups = lineitem.draw(seed, int(config["rows"]),
-                           int(config["rows_per_group"]))
+    table = tables.load(config["table"])
+    groups = table.draw(seed, config)
     kind = traffic["kind"]
     if kind == "scan":
-        names = traffic.get("columns") or lineitem.COLUMNS
+        names = traffic.get("columns") or table.LEAVES
         want = reference.group_digests(groups, names)
         got = reference.group_digests(groups, names, control=True)
         return {"digest_mismatches": int(np.any(got != want, axis=2).sum()),
                 "row_groups_compared": len(groups)}
     if kind == "loader":
         names = traffic["columns"]
-        rows = [len(g["l_orderkey"]) for g in groups]
+        rows = [len(g[names[0]]) for g in groups]
         order = reference.LoaderOrder(seed, rows, int(
             traffic["shuffle_window"]), int(traffic["batch_size"]))
         want = reference.LoaderAnswers(groups, names, order)

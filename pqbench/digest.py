@@ -12,6 +12,13 @@ arrays) without keeping them:
   ``[3000, n, sum(len_i * (i + 1)), sum(b + 1), sum((b + 1) * (p + 1))]``
   over each row's length and each heap byte ``b`` at heap position ``p``.
 
+A leaf that carries def or rep levels digests its defined values so, in
+slot order, and its levels into six more numbers (:func:`level_digests`):
+each level stream's count, sum and position-weighted sum over the leaf's
+``num_leaf_slots``.  A row group of flat leaves launches nothing for them:
+its six numbers a leaf are zeros, filled on the host (:meth:`HostStore.put`
+of ``None``).
+
 Only torch is imported: the program's column objects are read by their
 fields (``values``; ``offsets`` and ``heap``; a dictionary column's
 ``indices`` with ``dict_u8`` or ``dict_offsets`` and ``dict_heap``).  No
@@ -78,11 +85,15 @@ class HostStore:
                                        dtype=torch.int64,
                                        pin_memory=self.pin))
 
-    def put(self, d: torch.Tensor) -> None:
+    def put(self, d: "torch.Tensor | None") -> None:
+        """Store ``d``; ``None`` stores a row of zeros, on the host."""
         if self.n == len(self.blocks) * self.ROWS:
             self._grow()
         row = self.blocks[self.n // self.ROWS][self.n % self.ROWS]
-        row.copy_(d, non_blocking=self.pin)
+        if d is None:
+            row.zero_()
+        else:
+            row.copy_(d, non_blocking=self.pin)
         self.n += 1
 
     def array(self):
@@ -192,12 +203,12 @@ def string_digest(col, pos: Positions) -> torch.Tensor:
 
 
 def group_digest(group: dict, names, pos: Positions) -> torch.Tensor:
-    """``[len(names), 5]``: each column's digest; a column that is missing
-    or carries levels digests as ``-1``s."""
+    """``[len(names), 5]``: each leaf's digest (of a leaf with levels, its
+    defined values); a leaf that is missing digests as ``-1``s."""
     fixed, rows, order = [], [], []
     for i, name in enumerate(names):
         col = group.get(name)
-        if col is None or col.max_def or col.max_rep:
+        if col is None:
             rows.append(pos.const((-1, -1, -1, -1, -1)))
             order.append(("other", i))
         elif is_string(col):
@@ -223,6 +234,35 @@ def group_digest(group: dict, names, pos: Positions) -> torch.Tensor:
     return torch.stack(out)
 
 
+def level_digest(col, pos: Positions) -> torch.Tensor:
+    """``[6]``: the def levels' count, sum and position-weighted sum over
+    the leaf's slots, then the rep levels' (zeros for a stream the leaf
+    does not have)."""
+    n = col.num_leaf_slots
+    p = None
+    out = []
+    for levels, most in ((col.def_levels, col.max_def),
+                         (col.rep_levels, col.max_rep)):
+        if not most or levels is None:
+            out.append(pos.const((0, 0, 0)))
+            continue
+        p = pos(n) if p is None else p
+        w = levels[:n].to(torch.int64)
+        out += [pos.const((n,)), torch.stack([w.sum(), (w * p).sum()])]
+    return torch.cat(out)
+
+
+def level_digests(group: dict, names, pos: Positions):
+    """``[len(names), 6]``: each leaf's :func:`level_digest` (zeros for a
+    flat or missing leaf), or ``None`` where no leaf carries levels, so a
+    flat row group launches nothing."""
+    cols = [group.get(name) for name in names]
+    if not any(c is not None and (c.max_def or c.max_rep) for c in cols):
+        return None
+    return torch.stack([level_digest(c, pos) if c is not None
+                        else pos.const((0,) * 6) for c in cols])
+
+
 def batch_digest(batch: dict, names, pos: Positions) -> torch.Tensor:
     """``[len(names), 5]``: each column of one loader batch."""
     return fixed_digests([batch[c] for c in names], pos)
@@ -236,11 +276,14 @@ def tensors_of(col) -> list:
 def output_bytes(col, plain_bytes: int) -> int:
     """The bytes a decode has to write to return ``col`` in the form the
     program returned it: a dictionary column's indices (its real count)
-    and its dictionary tables; any other column its values as
-    ``plain_bytes`` gives them (the reference's count)."""
+    and its dictionary tables, and one byte a slot for each level stream
+    it has; any other column as ``plain_bytes`` gives it (the reference's
+    count, levels included)."""
     if getattr(col, "indices", None) is None:
         return int(plain_bytes)
     dict_bytes = sum(t.numel() * t.element_size()
                      for t in (col.dict_u8, col.dict_offsets, col.dict_heap)
                      if t is not None)
-    return int(col.num_values * col.indices.element_size() + dict_bytes)
+    streams = (col.max_def > 0) + (col.max_rep > 0)
+    return int(col.num_values * col.indices.element_size() + dict_bytes
+               + streams * col.num_leaf_slots)

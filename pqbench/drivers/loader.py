@@ -132,7 +132,8 @@ class Driver:
         return {"rows_per_s": timing.rate(self.rows, seconds)}
 
     def layer(self) -> dict:
-        return {"loader": {"decode_wait_seconds": self.wait1 - self.wait0},
+        return {"window_rows": self.rows,
+                "loader": {"decode_wait_seconds": self.wait1 - self.wait0},
                 "epoch_s": self.epoch_s}
 
     def labelled_spans(self) -> list:

@@ -1,10 +1,11 @@
 """A closed loop of full scans: one caller reading the file again and again
 with ``DeviceFileReader(path, prefetch=...).iter_row_groups()``.
 
-Each row group's columns are digested on the device as they arrive (the
+Each row group's leaves are digested on the device as they arrive (the
 digest is this caller's only work), the digest copied to pinned host
-memory, and the row group dropped.  The pass the window's end cuts off
-counts only for the row groups it yielded.
+memory, and the row group dropped.  Without a ``columns`` list the traffic
+reads every leaf of the configuration's table.  The pass the window's end
+cuts off counts only for the row groups it yielded.
 """
 
 from __future__ import annotations
@@ -13,16 +14,19 @@ import time
 
 import numpy as np
 
-from .. import digest, lineitem, reference, timing
+from .. import digest, reference, tables, timing
 
 
 class Driver:
     def __init__(self, ctx):
         self.ctx = ctx
-        self.columns = ctx.traffic.get("columns") or list(lineitem.COLUMNS)
+        self.columns = ctx.traffic.get("columns") or list(
+            tables.load(ctx.config["table"]).LEAVES)
         self.prefetch = int(ctx.traffic["prefetch"])
         self.group_rows = ctx.layout["row_group_rows"]
         self.digests = digest.HostStore((len(self.columns), 5), ctx.device)
+        self.levels = digest.HostStore(
+            (len(self.columns), reference.LEVEL_WIDTH), ctx.device)
         self.group_ids: list = []
         self.passes: list = []
         self.rows = 0
@@ -79,8 +83,10 @@ class Driver:
 
     def _fold(self, out: dict, keep: bool) -> None:
         d = digest.group_digest(out, self.columns, self.ctx.pos)
+        lv = digest.level_digests(out, self.columns, self.ctx.pos)
         if keep:
             self.digests.put(d)
+            self.levels.put(lv)
 
     def warm(self) -> None:
         self._pass(None, keep=False)
@@ -108,7 +114,8 @@ class Driver:
                    for c in self.columns)
         written = sum(self.written[g][c] for g in self.group_ids
                       for c in self.columns)
-        return {"reader": sums if self.passes else None,
+        return {"window_rows": self.rows,
+                "reader": sums if self.passes else None,
                 "decode_bytes": {"read": read, "written": written},
                 "pass_s": [round(p["seconds"], 4) for p in self.passes]}
 
@@ -117,7 +124,8 @@ class Driver:
 
     def verify(self) -> tuple:
         ref = reference.group_digests(self.ctx.groups, self.columns)
-        got = self.digests.array()
+        got = np.concatenate([self.digests.array(), self.levels.array()],
+                             axis=2)
         want = ref[self.group_ids] if self.group_ids else got
         bad = int(np.any(got != want, axis=2).sum())
         checks = [("digest_mismatches", bad, "<=", 0),

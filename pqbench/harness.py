@@ -4,20 +4,22 @@ Everything a cell is made of is found by name: its configuration in the
 file ``BENCHMARK.json`` gives it, its traffic mix as
 ``<path>/traffic/<name>.json`` and each per-layer metric as
 ``<path>/metrics/<name>.py`` under the benchmark's ``paths``; the traffic
-file's ``kind`` names the module that drives it (``drivers/<kind>.py``).
-A cell, a mix or a metric is added by adding files and entries, never by
-editing one.
+file's ``kind`` names the module that drives it (``drivers/<kind>.py``),
+and the configuration's ``table`` and ``layout`` the modules that draw its
+table and write its file (``tables/<table>.py``, ``writers/<layout>.py``).
+A configuration, a cell, a mix or a metric is added by adding files and
+entries, never by editing one.
 
 A run: the card is checked (no card, or fewer than the cell asks for: exit
 non-zero, no result); the table is drawn from the seed and written by the
-program's writer into a temporary directory, and its layout is held
-against the one the configuration pins; the kernels are built (in the
-checkout, so only a checkout's first run builds); the traffic's module
-warms the cell's shapes; then one window of ``--seconds`` is measured,
-traced by ``torch.profiler`` with ``--trace 1``.  Once the window has
-closed and the program's state is freed, the reference judges what the
-window produced.  Last, the process must hold no module of JAX or of the
-JAX package.
+program's writer in the configuration's layout into a temporary directory,
+and its layout is held against the one the configuration pins; the kernels
+are built (in the checkout, so only a checkout's first run builds); the
+traffic's module warms the cell's shapes; then one window of ``--seconds``
+is measured, traced by ``torch.profiler`` with ``--trace 1``.  Once the
+window has closed and the program's state is freed, the reference judges
+what the window produced.  Last, the process must hold no module of JAX or
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -83,6 +85,12 @@ def load_metric(root: str, bench: dict, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader_of(name: str):
+    """The ``read`` of the metric file ``name`` beside this module: a
+    metric split by cell reads as the one it was split from."""
+    return load_metric(ROOT, {"paths": [os.path.basename(HERE)]}, name).read
 
 
 def cell_of(bench: dict, workload: str) -> dict:
@@ -245,10 +253,9 @@ def run(argv, *, root: str = ROOT, t_start: "float | None" = None,
     t = time.perf_counter()
     split["import_and_init_s"] = t - t_start
 
-    from . import devtrace, lineitem, timing, write
+    from . import devtrace, tables, timing, write
 
-    groups = lineitem.draw(args.seed, int(config["rows"]),
-                           int(config["rows_per_group"]))
+    groups = tables.load(config["table"]).draw(args.seed, config)
     t1 = time.perf_counter()
     split["draw_s"] = t1 - t
     with tempfile.TemporaryDirectory(prefix="pqbench-") as tmp:

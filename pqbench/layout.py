@@ -14,7 +14,7 @@ import tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from pqbench import lineitem, write  # noqa: E402
+from pqbench import tables, write  # noqa: E402
 
 
 def main() -> int:
@@ -24,8 +24,7 @@ def main() -> int:
     args = ap.parse_args()
     with open(args.config) as f:
         config = json.load(f)
-    groups = lineitem.draw(args.seed, int(config["rows"]),
-                           int(config["rows_per_group"]))
+    groups = tables.load(config["table"]).draw(args.seed, config)
     with tempfile.TemporaryDirectory(prefix="pqbench-") as tmp:
         path = os.path.join(tmp, "layout.parquet")
         write.write_file(config, groups, path)

@@ -1,0 +1,6 @@
+"""``decode_roofline_share`` in ``pyarrow_scan``, whose rate is watched per
+layer (``rows_per_s.pyarrow``): the same reading."""
+
+from pqbench.harness import reader_of
+
+read = reader_of("decode_roofline_share")

@@ -1,8 +1,17 @@
-"""Host seconds per million rows in the page and run walks: the page-header
-walk and data-page parse (``walk_pages``, ``parse_data_page``, their
-Python loops) and the level, index and length structure walks
+"""Host seconds per million rows in the page and run walks.
+
+On a flat leaf's chunk of v1 pages, UNCOMPRESSED or SNAPPY, the program
+walks the chunk natively (``chunk_walk``): ``page_parse`` holds the header
+call and the materialise call's own time (its CRC and decompression
+nanoseconds go to the ``crc`` and ``decompress`` parts), and ``run_walk``
+the index-run call, range max included.  Only the chunks the walk declines
+(counted by reason in ``chunk_walk_fallbacks``: levels, codec, v2 pages,
+budget, no native library) take the page loop, whose page-header walk and
+data-page parse (``walk_pages``, ``parse_data_page``) land in
+``page_parse`` and whose level, index and length structure walks
 (``hybrid_meta``, ``delta_meta``, ``bytearray_walk``,
-``bytearray_lengths``).
+``bytearray_lengths``) in ``run_walk``; the DELTA and byte-array walks are
+``run_walk``'s on either path.
 
 The program's process-wide host-phase counters
 (``tpu_parquet_torch.obs.host_phase_totals()``: self time per part, summed

@@ -5,7 +5,11 @@ NumPy only; it imports neither JAX nor anything of the program, and reads
 nothing the program made.  It computes the digests :mod:`pqbench.digest`
 takes of the program's outputs (same definitions, wrapping ``int64``):
 
-- a scan's row groups, every column, strings included;
+- a scan's row groups, every leaf, strings and levels included.  A table
+  (``pqbench/tables/<name>.py``) draws each row group as a dict from the
+  leaf's dotted path to its values: a flat REQUIRED leaf's array, or
+  ``(pool, indices)`` for a STRING leaf (its values are ``pool[indices]``),
+  or a :class:`Leaf` for one that carries def or rep levels;
 - a training loader's batches.  The loader's order is a pure function of
   (seed, epoch, position), specified by its sampler: Philox keyed through a
   splitmix64 chain, permutations as an argsort of raw 64-bit draws with the
@@ -20,14 +24,28 @@ states.  It has to come out as not correct.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 
-from . import lineitem
-
 STRING_CODE = 3000
+# per leaf, after its five value numbers: the def levels' count, sum and
+# position-weighted sum, then the rep levels' (zeros for a stream it lacks)
+LEVEL_WIDTH = 6
 _CODES = {np.dtype(np.int64): 1008, np.dtype(np.int32): 1004,
           np.dtype(np.float64): 2008, np.dtype(np.float32): 2004}
+
+
+class Leaf(NamedTuple):
+    """A leaf that carries levels: its defined values (an array, or
+    ``(pool, indices)``), its def levels, one per leaf slot, and its rep
+    levels (``None`` where ``max_rep`` is 0)."""
+
+    values: object
+    def_levels: np.ndarray
+    rep_levels: "np.ndarray | None"
+    max_def: int
+    max_rep: int
 
 
 def words(a: np.ndarray) -> np.ndarray:
@@ -68,33 +86,64 @@ def controlled(a: np.ndarray, control: bool) -> np.ndarray:
     return a
 
 
+def value_digest(v, control: bool = False) -> list:
+    return (string_digest(*v) if isinstance(v, tuple)
+            else fixed_digest(controlled(v, control)))
+
+
+def level_digest(levels) -> list:
+    """A level stream's count, sum and position-weighted sum (zeros for
+    none)."""
+    if levels is None:
+        return [0, 0, 0]
+    w = np.asarray(levels, dtype=np.int64)
+    pos = np.arange(1, len(w) + 1, dtype=np.int64)
+    return [len(w), _wsum(w), _wsum(w * pos)]
+
+
+def leaf_digest(v, control: bool = False) -> list:
+    """A leaf's five value numbers and :data:`LEVEL_WIDTH` level numbers."""
+    if not isinstance(v, Leaf):
+        return value_digest(v, control) + [0] * LEVEL_WIDTH
+    return (value_digest(v.values, control)
+            + level_digest(v.def_levels if v.max_def else None)
+            + level_digest(v.rep_levels if v.max_rep else None))
+
+
 def group_digests(groups: list, names, control: bool = False) -> np.ndarray:
-    """``[groups, len(names), 5]``: every column of every row group."""
-    out = np.zeros((len(groups), len(names), 5), dtype=np.int64)
+    """``[groups, len(names), 5 + LEVEL_WIDTH]``: every leaf of every row
+    group."""
+    out = np.zeros((len(groups), len(names), 5 + LEVEL_WIDTH),
+                   dtype=np.int64)
     for gi, g in enumerate(groups):
         for ci, c in enumerate(names):
-            v = g[c]
-            out[gi, ci] = (string_digest(*v) if isinstance(v, tuple)
-                           else fixed_digest(controlled(v, control)))
+            out[gi, ci] = leaf_digest(g[c], control)
     return out
+
+
+def _value_bytes(v) -> int:
+    if isinstance(v, tuple):
+        pool, idx = v
+        lens = np.array([len(s) for s in pool], dtype=np.int64)
+        return (len(idx) + 1) * 8 + int(lens[idx].sum())
+    return int(v.nbytes)
+
+
+def leaf_bytes(v) -> int:
+    """The bytes a decode has to write for a leaf: a fixed-width leaf's
+    values, a STRING leaf's ``int64`` offsets and heap (the work a decode
+    has to write, whatever implements it); a leaf with levels adds one
+    byte a slot for each level stream it has, the least any decode
+    writes."""
+    if not isinstance(v, Leaf):
+        return _value_bytes(v)
+    streams = (v.max_def > 0) + (v.max_rep > 0)
+    return _value_bytes(v.values) + streams * len(v.def_levels)
 
 
 def decoded_bytes(groups: list) -> list:
-    """Per row group and column, the bytes of its values decoded: a
-    fixed-width column's values, a STRING column's ``int64`` offsets and
-    heap (the work a decode has to write, whatever implements it)."""
-    out = []
-    for g in groups:
-        row = {}
-        for c, v in g.items():
-            if isinstance(v, tuple):
-                pool, idx = v
-                lens = np.array([len(s) for s in pool], dtype=np.int64)
-                row[c] = (len(idx) + 1) * 8 + int(lens[idx].sum())
-            else:
-                row[c] = int(v.nbytes)
-        out.append(row)
-    return out
+    """Per row group and leaf, :func:`leaf_bytes`."""
+    return [{c: leaf_bytes(v) for c, v in g.items()} for g in groups]
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +234,8 @@ class LoaderAnswers:
                  control: bool = False):
         self.names = list(names)
         self.order = order
-        self.cols = {c: controlled(lineitem.column(groups, c), control)
-                     for c in names}
+        self.cols = {c: controlled(np.concatenate([g[c] for g in groups]),
+                                   control) for c in names}
         self.words = {c: words(self.cols[c]) for c in names}
         self.totals = np.array([_wsum(self.words[c]) for c in names],
                                dtype=np.int64)

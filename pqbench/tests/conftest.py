@@ -7,7 +7,7 @@ inside each such test.
 
 import pytest
 
-from pqbench_support import make_root
+from pqbench_support import add_nested, make_root
 
 
 def pytest_configure(config):
@@ -21,3 +21,15 @@ def tiny_root(tmp_path_factory):
     every configuration cut to a size the CPU runs in seconds (its layout
     pinned from a write at that size)."""
     return make_root(str(tmp_path_factory.mktemp("pqbench_root")))
+
+
+@pytest.fixture(scope="session")
+def nested_root(tiny_root, tmp_path_factory):
+    """``tiny_root`` with the nested configuration and its full-scan cell
+    added by files and entries (:func:`pqbench_support.add_nested`)."""
+    import shutil
+
+    root = str(tmp_path_factory.mktemp("pqbench_nested") / "root")
+    shutil.copytree(tiny_root, root)
+    add_nested(root)
+    return root

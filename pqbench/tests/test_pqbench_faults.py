@@ -5,7 +5,7 @@ program's plain versions run on the CPU)."""
 
 import pytest
 
-from pqbench_support import run_cell
+from pqbench_support import NESTED_CELL, run_cell
 from pqbench import control
 
 
@@ -87,3 +87,70 @@ def test_the_control_is_not_correct(tiny_root, cell):
     r = control.readings(tiny_root, cell, seed=17, seconds=2.0)
     bad = {k: v for k, v in r.items() if "mismatch" in k or "wrong" in k}
     assert bad and all(v > 0 for v in bad.values()), r
+
+
+def move_rep(col) -> None:
+    """One rep level moved: an order's first lineitem made the last of
+    the order before it."""
+    r = col.rep_levels
+    n = col.num_leaf_slots
+    i = int(((r[1:n] == 0) & (r[: n - 1] == 1)).nonzero()[0])
+    r[i], r[i + 1] = 0, 1
+
+
+def halve_orders(rg: dict) -> None:
+    """Half of the row group's orders left out: the order keys and every
+    lineitem leaf's slots, levels and values cut where the second half of
+    the orders starts."""
+    key = rg["o_orderkey"]
+    orders = key.num_values // 2
+    key.n_values = orders
+    for name, col in rg.items():
+        if col.max_rep:
+            starts = (col.rep_levels[: col.num_leaf_slots] == 0).nonzero()
+            col.num_leaf_slots = int(starts[orders])
+            col.n_values = col.num_leaf_slots
+
+
+NESTED_FAULTS = {"value_moved": "l_extendedprice", "rep_moved": "l_quantity",
+                 "half_the_orders": None}
+
+
+@pytest.fixture
+def break_nested(monkeypatch):
+    from tpu_parquet_torch import device_reader
+
+    def broken(fault):
+        real = device_reader.DeviceFileReader.iter_row_groups
+
+        def it(self, *a, **k):
+            for out in real(self, *a, **k):
+                if fault == "half_the_orders":
+                    halve_orders(out)
+                for name, col in out.items():
+                    if name.endswith("." + str(NESTED_FAULTS[fault])):
+                        (alter if fault == "value_moved" else move_rep)(col)
+                yield out
+
+        monkeypatch.setattr(device_reader.DeviceFileReader,
+                            "iter_row_groups", it)
+
+    return broken
+
+
+def test_the_nested_cell_unbroken_is_correct(nested_root):
+    res = run_cell(nested_root, NESTED_CELL, seconds=1.5)
+    assert res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("fault", sorted(NESTED_FAULTS))
+def test_the_nested_cell_broken_is_not_correct(nested_root, break_nested,
+                                               fault):
+    break_nested(fault)
+    res = run_cell(nested_root, NESTED_CELL, seconds=1.5)
+    assert not res["correct"], res["checks"]
+
+
+def test_the_nested_control_is_not_correct(nested_root):
+    r = control.readings(nested_root, NESTED_CELL, seed=17, seconds=2.0)
+    assert r["digest_mismatches"] > 0, r

@@ -9,7 +9,7 @@ import shutil
 
 import pytest
 
-from pqbench_support import ROOT, run_cell
+from pqbench_support import NESTED_CELL, ROOT, add_nested, run_cell
 from pqbench import harness, reference
 
 with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
@@ -97,12 +97,17 @@ FACTS = {
                          "stage_seconds": 0.01, "dispatch_seconds": 0.03,
                          "pool_lane_seconds": 0.5},
               "decode_bytes": {"read": 335_000_000_000, "written": 0},
-              "loader": {"decode_wait_seconds": 3.0}},
+              "loader": {"decode_wait_seconds": 3.0},
+              "window_rows": 2_000_000},
     "device": {"window_s": 10.0, "busy_s": 0.5, "program_busy_s": 0.2},
     "window_s": 10.0, "peak_bytes_per_s": 3.35e12}
 WANT = {"host_s_per_Mrow": 0.05, "enqueue_s_per_Mrow": 0.02,
         "decode_roofline_share": 50.0,
-        "device_idle_share.scan": 98.0, "decode_wait_share": 30.0}
+        "device_idle_share.scan": 98.0, "decode_wait_share": 30.0,
+        "rows_per_s.pyarrow": 200_000.0, "rows_per_s.loader": 200_000.0,
+        "host_s_per_Mrow.pyarrow": 0.05, "enqueue_s_per_Mrow.pyarrow": 0.02,
+        "decode_roofline_share.pyarrow": 50.0,
+        "device_idle_share.pyarrow": 98.0, "device_idle_share.loader": 98.0}
 
 
 @pytest.mark.parametrize("name", sorted(WANT))
@@ -121,6 +126,7 @@ def test_the_roofline_byte_counts():
 
     from pqbench import digest
 
+    flat = {"max_def": 0, "max_rep": 0, "num_leaf_slots": 10}
     g = {"a": np.zeros(10, np.int64), "b": np.zeros(10, np.int32),
          "s": ([b"xy", b"abcd"], np.array([0, 1, 1, 0]))}
     plain = reference.decoded_bytes([g])[0]
@@ -133,13 +139,27 @@ def test_the_roofline_byte_counts():
     dcol = type("Dict", (), {
         "indices": torch.zeros(16, dtype=torch.int32), "num_values": 10,
         "dict_u8": torch.zeros((8, 4), dtype=torch.uint8),
-        "dict_offsets": None, "dict_heap": None})()
+        "dict_offsets": None, "dict_heap": None, **flat})()
     assert digest.output_bytes(dcol, plain["b"]) == 10 * 4 + 32
     scol = type("Dict", (), {
         "indices": torch.zeros(4, dtype=torch.int32), "num_values": 4,
         "dict_u8": None, "dict_offsets": torch.zeros(3, dtype=torch.int64),
-        "dict_heap": torch.zeros(6, dtype=torch.uint8)})()
+        "dict_heap": torch.zeros(6, dtype=torch.uint8), **flat})()
     assert digest.output_bytes(scol, plain["s"]) == 4 * 4 + 24 + 6
+    # a leaf with levels adds one byte a slot for each level stream, in
+    # either form: 7 slots, 6 of them defined
+    d = np.array([2, 2, 1, 2, 2, 2, 2], np.int32)
+    r = np.array([0, 1, 0, 0, 1, 1, 0], np.int32)
+    nested = reference.decoded_bytes([{
+        "n": reference.Leaf(np.zeros(6, np.int64), d, r, 2, 1),
+        "o": reference.Leaf(np.zeros(6, np.int64), d, None, 2, 0)}])[0]
+    assert nested == {"n": 48 + 2 * 7, "o": 48 + 7}
+    lcol = type("Dict", (), {
+        "indices": torch.zeros(8, dtype=torch.int32), "num_values": 6,
+        "dict_u8": torch.zeros((2, 8), dtype=torch.uint8),
+        "dict_offsets": None, "dict_heap": None, "max_def": 2,
+        "max_rep": 1, "num_leaf_slots": 7})()
+    assert digest.output_bytes(lcol, nested["n"]) == 6 * 4 + 16 + 2 * 7
 
 
 def test_a_cell_mix_and_metric_are_added_by_adding_files(tiny_root,
@@ -185,3 +205,51 @@ def test_a_cell_mix_and_metric_are_added_by_adding_files(tiny_root,
     assert traced["correct"]
     assert traced["metrics"]["rows_in_passes"]["value"] > 0
     assert traced["metrics"]["rows_in_passes"]["unit"] == "rows"
+
+
+def tree(root: str) -> dict:
+    """Every file under ``root`` and its bytes."""
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def test_a_configuration_with_its_own_table_is_added_by_files(tiny_root,
+                                                              tmp_path):
+    import io
+
+    from pqbench import tables
+
+    root = str(tmp_path / "root")
+    shutil.copytree(tiny_root, root)
+    before = tree(root)
+    cfg = add_nested(root)
+    after = tree(root)
+    # new files and BENCHMARK.json's new entries alone
+    changed = {k for k in before if after[k] != before[k]}
+    assert changed == {"BENCHMARK.json"}
+    assert set(after) - set(before) == {"pqbench/configs/tiny_orders_nested"
+                                        ".json"}
+    res = run_cell(root, NESTED_CELL, seconds=1.5)
+    assert res["correct"], res["checks"]
+    assert set(res["metrics"]) == {"rows_per_s", "peak_device_mib",
+                                   "setup_s"}
+    out = io.StringIO()
+    traced = run_cell(root, NESTED_CELL, seconds=1.5, trace=1, out=out)
+    assert traced["correct"], traced["checks"]
+    assert traced["metrics"]["host_s_per_Mrow"]["value"] > 0
+    # the roofline's bytes written hold one byte a slot for each of a
+    # lineitem leaf's two level streams
+    side = json.loads(out.getvalue().splitlines()[-2])
+    groups = tables.load(cfg["table"]).draw(2_147_483_901, cfg)
+    slots = [len(g["lines.list.element.l_partkey"].def_levels)
+             for g in groups]
+    compared = traced["checks"]["row_groups_compared"]["value"]
+    passes = compared // len(groups)
+    levels = 6 * 2 * sum(slots) * passes
+    values = sum(8 * len(g["o_orderkey"]) for g in groups) * passes
+    assert side["layer"]["decode_bytes"]["written"] > levels + values

@@ -108,3 +108,120 @@ def test_configuration_files_state_their_deployment(name):
     assert sorted(pin["chunk_encodings"]) == sorted(lineitem.COLUMNS)
     assert all(len(v) == len(pin["row_group_rows"])
                for v in pin["chunk_encodings"].values())
+
+
+def test_frozen_nested_orders_is_chip_smokes():
+    from tpu_parquet_torch.column import ByteArrayData
+
+    from pqbench import tables
+
+    cs = chip_smoke()
+    orig = cs.nested_orders(list(cs.draw_lineitem16(30_000, seed=4)))
+    t = tables.load("orders_nested")
+    mine = t.draw(4, {"lineitems": 30_000, "rows_per_group": 250_000})
+    assert len(mine) == len(orig) == 1
+    g, o = mine[0], orig[0]
+    assert np.array_equal(g["o_orderkey"], o["o_orderkey"])
+    d, r = cs.list_levels(o["lens"], np.zeros(len(o["lens"]), bool))
+    for c in t.NESTED_LINE_COLUMNS:
+        leaf = g[t.LINE_PATH + c]
+        assert (leaf.max_def, leaf.max_rep) == (2, 1)
+        for mine_lv, orig_lv, listed in ((leaf.def_levels, o["def"], d),
+                                         (leaf.rep_levels, o["rep"], r)):
+            assert np.array_equal(mine_lv, orig_lv)
+            assert np.array_equal(mine_lv, listed)
+        if isinstance(leaf.values, tuple):
+            ba = ByteArrayData.from_list(leaf.values[0]).take(leaf.values[1])
+            assert np.array_equal(ba.offsets, o[c].offsets)
+            assert np.array_equal(ba.heap, o[c].heap)
+        else:
+            assert np.array_equal(leaf.values, o[c])
+
+
+def test_the_nested_order_structure_is_the_same_for_every_seed():
+    from pqbench import tables
+
+    t = tables.load("orders_nested")
+    cfg = {"lineitems": 10_000, "rows_per_group": 1_000}
+    a, b = t.draw(1, cfg), t.draw(2_147_483_901, cfg)
+    leaf = t.LINE_PATH + "l_partkey"
+    for ga, gb in zip(a, b, strict=True):
+        assert np.array_equal(ga["o_orderkey"], gb["o_orderkey"])
+        assert np.array_equal(ga[leaf].rep_levels, gb[leaf].rep_levels)
+    assert not np.array_equal(a[0][leaf].values, b[0][leaf].values)
+
+
+def draw_sha(groups) -> str:
+    """SHA-256 of every drawn array of a flat table, in draw order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for g in groups:
+        for c, v in g.items():
+            h.update(c.encode())
+            if isinstance(v, tuple):
+                h.update(b"\0".join(v[0]))
+                v = v[1]
+            h.update(str(v.dtype).encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+# recorded from the benchmark before configurations named their table and
+# writer (its lineitem.draw and write.write_file at TINY_ROWS in groups of
+# TINY_GROUP); "digest0" is row group 0's group_digest of all 16 columns
+# as read back on the CPU
+BEFORE = {
+    ("tpch_lineitem_sf1", 5): (
+        "aaa69f1470388d1a6f66a56373459bba5cdc678bf49fcf7b301add96a2448699",
+        "296a7bcdb51f32287ca5b8e21082e14fa962f7c18b5f76cb8991f03322e1ed68",
+        "e60b69240ed896a78061c76e81df855a948f5779df132b2b9a4cdf3ff51ef0cf"),
+    ("tpch_lineitem_sf1", 2_147_483_901): (
+        "96a6b6653c3a027344f49e457bfeaeae6b555ebd7491c86bc7efb91a1abfc579",
+        "4c1422de582655278d9e5c4f8ac0364434b098a185f045357be1e4d4f2d039ce",
+        "4d250718940b356826dedef1e148d9315d7094174aa46fbf114ddef28493b380"),
+    ("tpch_lineitem_sf1_pyarrow", 5): (
+        "aaa69f1470388d1a6f66a56373459bba5cdc678bf49fcf7b301add96a2448699",
+        "85906432f72ff9c4b7008068c81beef2300fdf83253de11dfce5973476e80d60",
+        "e60b69240ed896a78061c76e81df855a948f5779df132b2b9a4cdf3ff51ef0cf"),
+    ("tpch_lineitem_sf1_pyarrow", 2_147_483_901): (
+        "96a6b6653c3a027344f49e457bfeaeae6b555ebd7491c86bc7efb91a1abfc579",
+        "6c5b7a6dd98535ee2377c3716bea051acc81c472ee829ab82cca55fabab015c3",
+        "4d250718940b356826dedef1e148d9315d7094174aa46fbf114ddef28493b380"),
+}
+
+
+@pytest.mark.parametrize("name,seed", sorted(BEFORE))
+def test_the_flat_configurations_draw_write_and_digest_as_before(
+        name, seed, tmp_path):
+    import hashlib
+
+    import torch
+
+    from pqbench_support import TINY_GROUP, TINY_ROWS
+    from pqbench import digest, tables
+    from tpu_parquet_torch import device_reader
+
+    with open(os.path.join(ROOT, "pqbench/configs", name + ".json")) as f:
+        cfg = json.load(f)
+    cfg["rows"], cfg["rows_per_group"] = TINY_ROWS, TINY_GROUP
+    table = tables.load(cfg["table"])
+    groups = table.draw(seed, cfg)
+    want_draw, want_file, want_digest = BEFORE[(name, seed)]
+    assert draw_sha(groups) == want_draw
+    path = str(tmp_path / "f.parquet")
+    write.write_file(cfg, groups, path)
+    with open(path, "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest() == want_file
+    cpu = torch.device("cpu")
+    r = device_reader.DeviceFileReader(path, columns=list(table.LEAVES),
+                                       device=cpu, prefetch=0)
+    it = r.iter_row_groups()
+    g0 = next(it)
+    it.close()
+    r.close()
+    pos = digest.Positions(cpu)
+    d = digest.group_digest(g0, table.LEAVES, pos).numpy()
+    assert hashlib.sha256(np.ascontiguousarray(d).tobytes()).hexdigest() \
+        == want_digest
+    assert digest.level_digests(g0, table.LEAVES, pos) is None

@@ -65,6 +65,24 @@ print(json.dumps(sorted({n.split(".")[0] for n in sys.modules})))
     assert not tops & {"jax", "jaxlib", "flax", "tpu_parquet"}
 
 
+def test_the_nested_tables_reference_loads_nothing_of_the_program():
+    code = REFUSE.format(root=ROOT) + """
+import json
+from pqbench import reference, tables
+t = tables.load("orders_nested")
+g = t.draw(3, {"lineitems": 9_000, "rows_per_group": 1_000})
+reference.group_digests(g, t.LEAVES)
+reference.group_digests(g, t.LEAVES, control=True)
+reference.decoded_bytes(g)
+print(json.dumps(sorted({n.split(".")[0] for n in sys.modules})))
+"""
+    p = run_py(code)
+    assert p.returncode == 0, p.stderr[-3000:]
+    tops = set(json.loads(p.stdout.strip().splitlines()[-1]))
+    assert "tpu_parquet_torch" not in tops and "torch" not in tops
+    assert not tops & {"jax", "jaxlib", "flax", "tpu_parquet"}
+
+
 def test_a_process_holding_jax_gives_no_result(monkeypatch):
     from pqbench import harness
 

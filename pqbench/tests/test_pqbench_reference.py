@@ -152,3 +152,106 @@ def test_wrap_is_int64_arithmetic():
     assert reference.wrap(2**63) == -(2**63)
     assert reference.wrap(-1) == -1
     assert reference.wrap(2**64 + 5) == 5
+
+
+# ---------------------------------------------------------------------------
+# leaves that carry def and rep levels
+# ---------------------------------------------------------------------------
+
+def nested_group():
+    from pqbench import tables
+
+    return tables.load("orders_nested").draw(
+        9, {"lineitems": 4_000, "rows_per_group": 2_000})[0]
+
+
+def program_column(leaf):
+    """The program's form of a drawn leaf with levels, as a read returns
+    it: the defined values, the levels as ``int32`` padded past the
+    slots."""
+    from tpu_parquet_torch.torch_decode import DeviceColumnData
+
+    pad = np.zeros(5, np.int32)
+    common = dict(def_levels=torch.from_numpy(np.concatenate(
+        [leaf.def_levels, pad])), rep_levels=torch.from_numpy(np.concatenate(
+            [leaf.rep_levels, pad])), max_def=leaf.max_def,
+        max_rep=leaf.max_rep, num_leaf_slots=len(leaf.def_levels))
+    if isinstance(leaf.values, tuple):
+        from tpu_parquet_torch.column import ByteArrayData
+
+        ba = ByteArrayData.from_list(leaf.values[0]).take(leaf.values[1])
+        return DeviceColumnData(
+            offsets=torch.from_numpy(np.asarray(ba.offsets, np.int64)),
+            heap=torch.from_numpy(ba.heap), **common)
+    return DeviceColumnData(values=torch.from_numpy(leaf.values.copy()),
+                            **common)
+
+
+def device_leaf_digest(col) -> list:
+    p = pos()
+    g = {"x": col}
+    return (list(digest.group_digest(g, ["x"], p)[0].numpy())
+            + list(digest.level_digests(g, ["x"], p)[0].numpy()))
+
+
+@pytest.mark.parametrize("leaf", ["o_orderkey",
+                                  "lines.list.element.l_quantity",
+                                  "lines.list.element.l_extendedprice",
+                                  "lines.list.element.l_shipdate",
+                                  "lines.list.element.l_comment"])
+def test_level_digests_match_reference(leaf):
+    g = nested_group()
+    want = reference.leaf_digest(g[leaf])
+    if leaf == "o_orderkey":
+        col = torch.from_numpy(g[leaf])
+        p = pos()
+        got = {"x": type("Flat", (), {"values": col, "max_def": 0,
+                                      "max_rep": 0, "num_values": len(col),
+                                      "indices": None})()}
+        assert digest.level_digests(got, ["x"], p) is None
+        assert want[5:] == [0] * reference.LEVEL_WIDTH
+        return
+    assert want[5:8] == [len(g[leaf].def_levels),
+                         2 * len(g[leaf].def_levels), want[7]]
+    assert device_leaf_digest(program_column(g[leaf])) == want
+
+
+def move_rep(col):
+    """An order's first lineitem made the last of the order before it."""
+    r = col.rep_levels
+    i = int(np.flatnonzero((r[1:].numpy() == 0) & (r[:-1].numpy() == 1))[0])
+    r[i], r[i + 1] = 0, 1
+
+
+def drop_one(col):
+    """One element dropped: its slot, levels and value."""
+    n = col.num_leaf_slots
+    keep = torch.arange(n) != n // 2
+    col.def_levels = col.def_levels[:n][keep]
+    col.rep_levels = col.rep_levels[:n][keep]
+    col.values = col.values[:n][keep]
+    col.num_leaf_slots = n - 1
+
+
+def change_value(col):
+    col.values[7] += 1
+
+
+def change_def(col):
+    col.def_levels[11] = 1
+
+
+def swap_values(col):
+    col.values[[3, 9]] = col.values[[9, 3]]
+
+
+@pytest.mark.parametrize("fault", [change_value, change_def, move_rep,
+                                   drop_one, swap_values],
+                         ids=lambda f: f.__name__)
+def test_level_digests_see_each_fault(fault):
+    leaf = nested_group()["lines.list.element.l_partkey"]
+    want = reference.leaf_digest(leaf)
+    col = program_column(leaf)
+    assert not torch.equal(col.values[3], col.values[9])
+    fault(col)
+    assert device_leaf_digest(col) != want

@@ -1,20 +1,13 @@
 """Writing a configuration's file with the program's writer, and reading
 back the layout it got.
 
-Frozen copies of ``chip_smoke.py``'s ``lineitem16_layout``,
-``fallback_layout``, ``_first_seen_dictionary``, ``_fallback_encoder_class``
-and ``write_pyarrow_layout`` (their ``fail`` calls raise ``RuntimeError``
-here).  Two layouts:
-
-- ``port_writer``: ``bench.py`` ``gen_lineitem16``'s writer settings:
-  SNAPPY, dictionary on, DELTA_BINARY_PACKED where the writer declines a
-  dictionary on ``l_orderkey`` and the dates, page CRCs.
-- ``pyarrow_default``: pyarrow's dictionary-on layout (Arrow C++
-  ``WriterProperties`` defaults) on the program's encoders: data pages of at
-  most 20,000 rows or 1 MiB filled 1,024 rows at a time, each dictionary
-  page's index width the bit width of the dictionary's size when the page
-  is written, fallback to PLAIN pages once the dictionary passes its limit,
-  SNAPPY, page CRCs.
+A configuration's ``layout`` names its writer, ``writers/<layout>.py``,
+which sets the layout alone (codec, dictionary, DELTA, page limits, CRCs);
+the schema and the leaves, with their levels, come from the
+configuration's table (:mod:`pqbench.tables`) through :func:`columns`.
+Frozen copies of ``chip_smoke.py``'s ``fallback_layout``,
+``_first_seen_dictionary`` and ``_fallback_encoder_class`` (their ``fail``
+calls raise ``RuntimeError`` here), the pyarrow layout's machinery.
 
 Set-up compares :func:`file_layout` with the layout the configuration file
 pins, so a change to the writer cannot change the read workload silently.
@@ -24,63 +17,49 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import lineitem
-
 PYARROW_DICT_LIMIT = 1 << 20
 PYARROW_PAGE_SIZE = 1 << 20
 PYARROW_BATCH = 1024
 PYARROW_PAGE_ROWS = 20_000
 
 
+def _values(v):
+    """``(pool, indices)`` built into the program's ``ByteArrayData``; an
+    array as it is."""
+    from tpu_parquet_torch.column import ByteArrayData
+
+    return (ByteArrayData.from_list(v[0]).take(v[1])
+            if isinstance(v, tuple) else v)
+
+
 def strings_group(group: dict) -> dict:
     """The group with each ``(pool, indices)`` STRING column built into the
     program's ``ByteArrayData``."""
-    from tpu_parquet_torch.column import ByteArrayData
-
-    return {c: (ByteArrayData.from_list(v[0]).take(v[1])
-                if isinstance(v, tuple) else v) for c, v in group.items()}
+    return {c: _values(v) for c, v in group.items()}
 
 
-def schema(columns=lineitem.COLUMNS):
-    """LINEITEM's 16 columns REQUIRED, the STRING columns UTF8."""
-    from tpu_parquet_torch.format import (ConvertedType,
-                                          FieldRepetitionType as FRT,
-                                          LogicalType, StringType, Type)
-    from tpu_parquet_torch.schema.core import (ColumnParameters,
-                                               build_schema, data_column)
-
-    def column(c):
-        ptype = getattr(Type, lineitem.PHYSICAL[c])
-        if c in lineitem.STRING_COLUMNS:
-            return data_column(c, ptype, FRT.REQUIRED,
-                               ColumnParameters(
-                                   logical_type=LogicalType(
-                                       STRING=StringType()),
-                                   converted_type=ConvertedType.UTF8))
-        return data_column(c, ptype, FRT.REQUIRED)
-
-    return build_schema([column(c) for c in columns])
-
-
-def _batch(group: dict) -> dict:
+def columns(group: dict) -> dict:
+    """A drawn row group as the program's writer takes it: a flat
+    fixed-width leaf its array, a STRING leaf a ``ColumnData`` of
+    ``ByteArrayData``, a :class:`~pqbench.reference.Leaf` a ``ColumnData``
+    with its levels."""
     from tpu_parquet_torch.column import ByteArrayData, ColumnData
 
-    return {c: ColumnData(values=v) if isinstance(v, ByteArrayData) else v
-            for c, v in group.items()}
+    from .reference import Leaf
 
-
-def write_port_writer(path: str, groups) -> None:
-    from tpu_parquet_torch.format import CompressionCodec, Encoding
-    from tpu_parquet_torch.writer import FileWriter
-
-    with FileWriter(path, schema(), codec=CompressionCodec.SNAPPY,
-                    use_dictionary=True, write_crc=True,
-                    row_group_size=128 << 20,
-                    column_encodings={c: Encoding.DELTA_BINARY_PACKED
-                                      for c in lineitem.DELTA_COLUMNS}) as w:
-        for g in groups:
-            w.write_columns(_batch(strings_group(g)))
-            w.flush_row_group()
+    out = {}
+    for c, v in group.items():
+        if isinstance(v, Leaf):
+            out[c] = ColumnData(values=_values(v.values),
+                                def_levels=v.def_levels,
+                                rep_levels=v.rep_levels, max_def=v.max_def,
+                                max_rep=v.max_rep,
+                                num_leaf_slots=len(v.def_levels))
+        else:
+            v = _values(v)
+            out[c] = (ColumnData(values=v) if isinstance(v, ByteArrayData)
+                      else v)
+    return out
 
 
 def _first_seen_dictionary(values):
@@ -250,37 +229,13 @@ def _fallback_encoder_class():
     return FallbackEncoder
 
 
-def write_pyarrow_default(path: str, groups, limits: dict) -> None:
-    """``groups`` one row group each, SNAPPY with page CRCs, in pyarrow's
-    dictionary-on layout with the dictionary limits ``limits`` (column ->
-    bytes; :data:`PYARROW_DICT_LIMIT` for the others)."""
-    from tpu_parquet_torch import writer as W
-    from tpu_parquet_torch.format import CompressionCodec
-
-    enc = _fallback_encoder_class()
-    enc.limits = dict(limits)
-    real = W.ChunkEncoder
-    W.ChunkEncoder = enc
-    try:
-        with W.FileWriter(path, schema(), codec=CompressionCodec.SNAPPY,
-                          use_dictionary=True, write_crc=True,
-                          row_group_size=128 << 20,
-                          page_size=PYARROW_PAGE_SIZE) as w:
-            for g in groups:
-                w.write_columns(_batch(strings_group(g)))
-                w.flush_row_group()
-    finally:
-        W.ChunkEncoder = real
-
-
 def write_file(config: dict, groups, path: str) -> None:
-    layout = config["layout"]
-    if layout == "port_writer":
-        write_port_writer(path, groups)
-    elif layout == "pyarrow_default":
-        write_pyarrow_default(path, groups, config.get("dict_limits", {}))
-    else:
-        raise ValueError(f"unknown layout {layout!r}")
+    """The configuration's table (``tables/<table>.py``) written by its
+    layout's writer (``writers/<layout>.py``)."""
+    from . import tables, writers
+
+    writers.load(config["layout"]).write(
+        path, tables.load(config["table"]), groups, config)
 
 
 def file_layout(path: str) -> dict:
