@@ -1,0 +1,6 @@
+"""``host_python_s_per_Mrow`` in ``orders_nested_scan``, whose rate is watched
+per layer (``rows_per_s.nested``): the same reading."""
+
+from pqbench.harness import reader_of
+
+read = reader_of("host_python_s_per_Mrow")

@@ -642,6 +642,8 @@ def test_the_counters_count_every_chunk_by_its_path(files, name, reasons):
     if d["chunk_walks"]:
         for part in ("crc", "page_parse", "run_walk"):
             assert d["parts"][part] > 0, part
+    # the def streams' walks are a part of their own
+    assert (d["parts"]["level_walk"] > 0) == ("levels" in reasons)
 
 
 def test_the_counters_count_the_chunk_feeds_chunks(files):

@@ -28,7 +28,8 @@ ROWS, GROUP = 24_000, 8_000
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 METRICS = ("page_parse_s_per_Mrow", "snappy_walk_s_per_Mrow",
            "decompress_s_per_Mrow", "host_python_s_per_Mrow",
-           "host_offcpu_share", "snappy_walk_wasted_share")
+           "host_offcpu_share", "snappy_walk_wasted_share",
+           "level_walk_s_per_Mrow")
 
 
 def _required(cols: dict) -> pa.Table:
@@ -112,6 +113,8 @@ def test_parts_sum_to_the_host_phase(lineitem, prefetch):
     for part in ("crc", "decompress", "page_parse", "run_walk", "python"):
         assert d["parts"][part] > 0, part
     assert d["parts"]["read"] > 0
+    # REQUIRED leaves: no level stream to walk
+    assert d["parts"]["level_walk"] == 0
     assert 0 < d["host_cpu_seconds"] <= d["host_seconds"] * 1.05 + 0.01
     assert d["stage_cpu_seconds"] > 0
 
@@ -375,13 +378,15 @@ TOTALS = {"host_seconds": 4.0, "host_cpu_seconds": 3.0,
           "stage_cpu_seconds": 0.5, "rows": 40_000_000,
           "parts": {"read": 0.2, "crc": 0.2, "decompress": 0.4,
                     "page_parse": 0.6, "run_walk": 0.2, "snappy_walk": 0.5,
-                    "transcode": 0.1, "host_copy": 0.3, "python": 1.5},
+                    "transcode": 0.1, "host_copy": 0.3, "python": 1.5,
+                    "level_walk": 0.25},
           "snappy_walk": {"walks": 10, "retries": 2, "declined": 1,
                           "wasted_seconds": 0.125}}
 # the window's host_s_per_Mrow is 0.1; each part's share of it
 WANT = {"page_parse_s_per_Mrow": 0.02, "snappy_walk_s_per_Mrow": 0.0125,
         "decompress_s_per_Mrow": 0.01, "host_python_s_per_Mrow": 0.0375,
-        "host_offcpu_share": 25.0, "snappy_walk_wasted_share": 25.0}
+        "host_offcpu_share": 25.0, "snappy_walk_wasted_share": 25.0,
+        "level_walk_s_per_Mrow": 0.00625}
 
 
 @pytest.mark.parametrize("name", METRICS)

@@ -111,7 +111,8 @@ from .kernels import bitpack
 from .kernels.delta import _read_uvarint
 from .obs import (PART_READ, HostPhaseStats, Sampler, StatsRegistry,
                   Watchdog, current_request_trace, env_float, env_int,
-                  note_chunk_walk, register_flight_registry, resolve_hang_s,
+                  note_chunk_walk, note_levels, register_flight_registry,
+                  resolve_hang_s,
                   resolve_sample_ms, resolve_tracer, snappy_walks_settle,
                   timed_part, warn_env_once)
 from .pipeline import PipelineStats, prefetch_map
@@ -134,7 +135,7 @@ from .torch_decode import (
     _SLACK, _PTYPE_TO_NAME, _concat_ragged, _h2d, _hybrid, _hybrid_vw,
     _max_index, _plain, _plain_flba, _plain_rows,
     _resolve_device, host_decode_dictionary, parse_data_page,
-    parse_delta_meta, parse_hybrid_meta,
+    parse_delta_meta, parse_hybrid_meta, parse_level_meta,
 )
 
 __all__ = ["DeviceDictColumn", "DeviceFileReader", "DeviceStats",
@@ -1286,6 +1287,13 @@ class _ChunkAssembler:
         # level lanes, i32 ceilings) — a counter, never a crash
         self.fused_fallbacks = 0
         self.ship_records: list = []
+        # how the pages were collected: "native" (the chunk walk) or the
+        # walk's fallback reason; None on the page loop alone
+        self.walk: "str | None" = None
+        # each level plan of finish: (kind, slots, streams, route, t0, t1),
+        # the ``levels`` spans of the chunk; a list only while spans are
+        # recorded
+        self.level_plans: "list | None" = None
         # AllocTracker: the link-recompression copies count against the
         # budget too (set by _collect_chunk)
         self.alloc = None
@@ -1676,7 +1684,7 @@ class _ChunkAssembler:
         d_plan = r_plan = None
         if leaf.max_def > 0:
             d_plan = self._plan_levels(
-                stager, [p.def_stream for p in self.pages],
+                stager, "def", [p.def_stream for p in self.pages],
                 bitpack.bit_width(leaf.max_def), slots, slots_pad,
                 metas=[p.def_meta for p in self.pages],
             )
@@ -1684,7 +1692,7 @@ class _ChunkAssembler:
             # no metas, as in the reference: the page parse walked only the
             # def stream, so each rep stream's runs are walked here
             r_plan = self._plan_levels(
-                stager, [p.rep_stream for p in self.pages],
+                stager, "rep", [p.rep_stream for p in self.pages],
                 bitpack.bit_width(leaf.max_rep), slots, slots_pad,
             )
         common = dict(
@@ -1728,12 +1736,29 @@ class _ChunkAssembler:
         self.pages = []
         return _compose_column(value_plan, d_plan, r_plan)
 
-    def _plan_levels(self, stager: _RowGroupStager, streams, width: int,
-                     slots: int, slots_pad: int, metas=None):
-        """Stage the pages' raw RLE level streams and expand them on the
-        device: through the fused K1 where the stream has bit-packed runs,
-        else the run-table expand.  The plan yields ``int32[slots_pad]``
-        (tail past ``slots`` zeroed)."""
+    def _plan_levels(self, stager: _RowGroupStager, kind: str, streams,
+                     width: int, slots: int, slots_pad: int, metas=None):
+        """Stage the pages' raw RLE ``kind`` (``def`` or ``rep``) level
+        streams and expand them on the device: through the fused K1 where
+        the stream has bit-packed runs, else the run-table expand.  The plan
+        yields ``int32[slots_pad]`` (tail past ``slots`` zeroed).  The
+        streams and slots are counted by kind and route
+        (``obs.note_levels``), and the plan kept for the chunk's ``levels``
+        span while spans are recorded."""
+        spans = self.level_plans is not None
+        t0 = time.perf_counter() if spans else 0.0
+        plan, route = self._plan_level_streams(stager, streams, width,
+                                               slots, slots_pad, metas)
+        note_levels(kind, route, len(streams), slots)
+        if spans:
+            self.level_plans.append((kind, slots, len(streams), route, t0,
+                                     time.perf_counter()))
+        return plan
+
+    def _plan_level_streams(self, stager, streams, width, slots, slots_pad,
+                            metas):
+        """:meth:`_plan_levels`' plan and its route (``k1`` or
+        ``run_table``)."""
         if metas is None:
             metas = [None] * len(self.pages)
         if any(s is None for s in streams):
@@ -1741,7 +1766,7 @@ class _ChunkAssembler:
                 "internal: level stream span missing on the batched path"
             )
         metas = [
-            m if m is not None else parse_hybrid_meta(
+            m if m is not None else parse_level_meta(
                 src, width, p.num_values, pos=start, end=start + size
             )
             for (src, start, size), p, m in zip(streams, self.pages, metas)
@@ -1753,7 +1778,7 @@ class _ChunkAssembler:
             width, slots, slots_pad,
         )
         if plan is not None:
-            return plan
+            return plan, "k1"
         bases = stager.add_segments(list(streams))
         ends_l, rle_l, vals_l, starts_l = [], [], [], []
         prefix = 0
@@ -1779,7 +1804,7 @@ class _ChunkAssembler:
                            count=slots_pad)
 
         # run-table expand + tail mask: two passes in the reference
-        return _Plan(fn, tables, None, stages=2)
+        return _Plan(fn, tables, None, stages=2), "run_table"
 
     def _stage_fixed_width(self, stager, width: int):
         """Register exactly the pages' value bytes back-to-back for a
@@ -2924,9 +2949,11 @@ def _collect_chunk_as(walk: bool, buf, codec, total_values, leaf,
             # page by page, so the failing page is the loop's
             reason = "budget"
         else:
+            asm.walk = "native"
             note_chunk_walk(None)
             _collect_walked(cw, *args)
             return asm
+    asm.walk = reason
     note_chunk_walk(reason)
     _collect_pages(total_values, *args)
     return asm
@@ -3119,9 +3146,10 @@ class ReaderStats:
     def host_parts(self) -> dict:
         """The host phase's self-time split: seconds per part (``read``,
         ``crc``, ``decompress``, ``page_parse``, ``run_walk``,
-        ``snappy_walk``, ``transcode``, ``host_copy``, and ``python``, the
-        remainder: they sum to ``host_seconds``), the host phase's and the
-        staging thread's CPU seconds, and the snappy tag walk's counts.
+        ``snappy_walk``, ``transcode``, ``host_copy``, ``level_walk``, and
+        ``python``, the remainder: they sum to ``host_seconds``), the host
+        phase's and the staging thread's CPU seconds, and the snappy tag
+        walk's counts.
         The host phase is ``host_seconds`` at prefetch 0; with the chunk
         feed it adds each chunk's collection on the pool."""
         return self.host_phase.as_dict()
@@ -4120,8 +4148,10 @@ class DeviceFileReader:
                 )
                 if spans:
                     self._chunk_spans(tr, name, 0, None, t_chunk, t_collect,
-                                      t_preship, None)
+                                      t_preship, None, asm)
                 continue
+            if spans:
+                asm.level_plans = []
             t_finish = time.perf_counter()
             plan = asm.finish(stager)
             t_done = time.perf_counter()
@@ -4155,7 +4185,7 @@ class DeviceFileReader:
             if spans:
                 self._chunk_spans(tr, name, n_pages, plan.route,
                                   t_chunk, t_collect, t_preship,
-                                  (t_finish, t_done))
+                                  (t_finish, t_done), asm)
         seen = set(out) | {name for name, _ in plans}
         missing = {".".join(p) for p in leaves} - seen
         if missing:
@@ -4166,17 +4196,26 @@ class DeviceFileReader:
 
     @staticmethod
     def _chunk_spans(tr, name, pages, route, t0, t_collect, t_preship,
-                     finish) -> None:
+                     finish, asm) -> None:
         """One chunk's spans, recorded once the chunk is planned: its
         ``collect`` and ``preship`` children when they ran here (not on
-        the chunk feed), its ``finish`` child, then ``chunk`` itself."""
+        the chunk feed), its ``finish`` child with a ``levels`` child for
+        each level plan (``kind``, ``slots``, ``streams``, ``route``), then
+        ``chunk`` itself (``column``, ``pages``, ``route``, the leaf's
+        ``max_def`` and ``max_rep``, and ``walk``: ``native`` or the chunk
+        walk's fallback reason)."""
         if t_collect is not None:
             tr.complete("collect", t0, t_collect, column=name)
             tr.complete("preship", t_collect, t_preship, column=name)
         if finish is not None:
             tr.complete("finish", *finish, column=name)
+            for kind, slots, streams, lroute, l0, l1 in asm.level_plans or ():
+                tr.complete("levels", l0, l1, column=name, kind=kind,
+                            slots=slots, streams=streams, route=lroute)
+        leaf = asm.leaf
         tr.complete("chunk", t0, time.perf_counter(), column=name,
-                    pages=pages, route=route)
+                    pages=pages, route=route, max_def=leaf.max_def,
+                    max_rep=leaf.max_rep, walk=asm.walk)
 
     def _note_staged(self, stager: _RowGroupStager) -> None:
         """A staged row-group buffer is on the device: into the ledger,

@@ -25,7 +25,7 @@ except ImportError:
     # loaded on its own, outside the package: no host-phase counters
     PART_RUN_WALK = PART_SNAPPY_WALK = PART_TRANSCODE = 0
 
-    def host_part(part):
+    def host_part(part, walk_counts=False):
         return lambda fn: fn
 
     def host_unit():
@@ -454,7 +454,7 @@ def bytearray_lengths(buf: bytes, count: int, pos: int = 0):
     return lens, int(rc)
 
 
-@host_part(PART_SNAPPY_WALK)
+@host_part(PART_SNAPPY_WALK, walk_counts=True)
 def snappy_plan(payload: bytes, expect: int):
     """Parse a raw snappy stream's TAG STRUCTURE only (no byte movement).
 
@@ -481,7 +481,8 @@ def snappy_plan(payload: bytes, expect: int):
     pll = ctypes.POINTER(ctypes.c_longlong)
     # the host phase's walk counts: a restart on ERR_CAP is a retry, its
     # attempt's seconds wasted; a walk that succeeds stays open until its
-    # plan is staged or thrown away (obs.snappy_walks_settle)
+    # plan is staged or thrown away (obs.snappy_walks_settle), holding the
+    # rest of the call's seconds (obs.host_part)
     unit = host_unit()
     while True:
         t0 = time.perf_counter()
@@ -509,7 +510,6 @@ def snappy_plan(payload: bytes, expect: int):
             unit.walks += 1
             if rc >= 0:
                 unit.open_n += 1
-                unit.open_s += time.perf_counter() - t0
         if rc < 0:
             return int(rc)
         r = int(rc)

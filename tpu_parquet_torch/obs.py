@@ -66,6 +66,7 @@ __all__ = [
     "env_float", "env_int", "fleet_host",
     "flight_dump_path",
     "flight_recorder", "host_phase_totals", "install_flight_hooks",
+    "level_totals",
     "note_worker_crash",
     "register_flight_registry", "register_flight_source",
     "render_openmetrics",
@@ -1307,11 +1308,15 @@ class Sampler:
 # host-phase parts: where the device read's host phase spends its time
 # ---------------------------------------------------------------------------
 
-# the timed parts, in the order their indices run, then the remainder
+# the timed parts, in the order their indices run, then the remainder;
+# ``level_walk`` holds the run-header walks (and host decodes) of def and
+# rep level streams, ``run_walk`` every other structure walk
 HOST_PARTS = ("read", "crc", "decompress", "page_parse", "run_walk",
-              "snappy_walk", "transcode", "host_copy", "python")
+              "snappy_walk", "transcode", "host_copy", "level_walk",
+              "python")
 (PART_READ, PART_CRC, PART_DECOMPRESS, PART_PAGE_PARSE, PART_RUN_WALK,
- PART_SNAPPY_WALK, PART_TRANSCODE, PART_HOST_COPY) = range(8)
+ PART_SNAPPY_WALK, PART_TRANSCODE, PART_HOST_COPY,
+ PART_LEVEL_WALK) = range(9)
 _N_TIMED = len(HOST_PARTS) - 1
 
 
@@ -1370,9 +1375,16 @@ def timed_part(part: int, fn, *args, **kwargs):
         u.inner = outer + dt
 
 
-def host_part(part: int):
+def host_part(part: int, walk_counts: bool = False):
     """Decorator: every call of the function is :func:`timed_part` (its
-    body inlined: the per-page leaves pay no second Python frame)."""
+    body inlined: the per-page leaves pay no second Python frame).
+
+    With ``walk_counts`` (the snappy tag walk, ``native.snappy_plan``) the
+    call's self time also goes to the walk counts, from the same two clock
+    reads: the attempts restarted inside the call add theirs to ``wasted``
+    as they fail, and the rest goes to the walk the call leaves open, if it
+    leaves one.  So a walk thrown away whole (:func:`snappy_walks_settle`)
+    adds to ``wasted_seconds`` exactly what it added to the part."""
     def deco(fn):
         @functools.wraps(fn)
         def timed(*args, **kwargs):
@@ -1381,13 +1393,18 @@ def host_part(part: int):
                 return fn(*args, **kwargs)
             outer = u.inner
             u.inner = 0.0
+            if walk_counts:
+                wasted0, open0 = u.wasted, u.open_n
             t0 = _perf()
             try:
                 return fn(*args, **kwargs)
             finally:
                 dt = _perf() - t0
-                u.parts[part] += dt - u.inner
+                own = dt - u.inner
+                u.parts[part] += own
                 u.inner = outer + dt
+                if walk_counts and u.open_n > open0:
+                    u.open_s += own - (u.wasted - wasted0)
         return timed
     return deco
 
@@ -1432,6 +1449,55 @@ def snappy_walks_settle(used: bool) -> None:
         u.declined += u.open_n
         u.wasted += u.open_s
     u.open_n, u.open_s = 0, 0.0
+
+
+# level streams: the two kinds, and the routes a stream's expansion takes
+# (the fused K1 ``hybrid_unpack_combine``, the run-table expand, or the
+# host decode of ``torch_decode.DeviceChunkDecoder``)
+LEVEL_KINDS = ("def", "rep")
+LEVEL_ROUTES = ("k1", "run_table", "host")
+
+
+class _LevelCounts:
+    """Level streams and slots planned in the process, by kind and by
+    route; always on (one update a column chunk and kind)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.streams = dict.fromkeys(LEVEL_KINDS + LEVEL_ROUTES, 0)
+        self.slots = dict.fromkeys(LEVEL_KINDS + LEVEL_ROUTES, 0)
+
+    def note(self, kind: str, route: str, streams: int, slots: int) -> None:
+        with self._lock:
+            self.streams[kind] += streams
+            self.streams[route] += streams
+            self.slots[kind] += slots
+            self.slots[route] += slots
+
+    def as_dict(self) -> dict:
+        with self._lock:
+            return {what: {"by_kind": {k: n[k] for k in LEVEL_KINDS},
+                           "by_route": {k: n[k] for k in LEVEL_ROUTES}}
+                    for what, n in (("streams", self.streams),
+                                    ("slots", self.slots))}
+
+
+_LEVELS = _LevelCounts()
+
+
+def note_levels(kind: str, route: str, streams: int, slots: int) -> None:
+    """One column chunk's ``kind`` level streams (``def`` or ``rep``, one a
+    page) planned along ``route`` (:data:`LEVEL_ROUTES`), ``slots`` leaf
+    slots in all."""
+    _LEVELS.note(kind, route, streams, slots)
+
+
+def level_totals() -> dict:
+    """The level streams and slots the process has planned since import,
+    each by kind and by route (``{"streams": {"by_kind": {...},
+    "by_route": {...}}, "slots": {...}}``): a benchmark's reading, as
+    :func:`host_phase_totals` is."""
+    return _LEVELS.as_dict()
 
 
 class HostPhaseStats:

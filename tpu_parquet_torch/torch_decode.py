@@ -41,8 +41,8 @@ from .chunk_decode import (PageSlice, _byte_stream_split_decode, _check_crc,
                            validate_chunk_meta, walk_pages)
 from .errors import error_context
 from .native import NATIVE_ERRORS as _NATIVE_ERRORS
-from .obs import (PART_HOST_COPY, PART_PAGE_PARSE, PART_RUN_WALK, host_part,
-                  timed_part)
+from .obs import (PART_HOST_COPY, PART_LEVEL_WALK, PART_PAGE_PARSE,
+                  PART_RUN_WALK, host_part, note_levels, timed_part)
 from .schema.core import SchemaNode
 
 __all__ = [
@@ -167,6 +167,11 @@ def parse_hybrid_meta(
         if got is not None:
             return got
     return _parse_hybrid_meta_py(buf, width, count, pos, n)
+
+
+# the same walk over a def or rep level stream, its seconds in the host
+# phase's ``level_walk`` part (``run_walk`` keeps every other stream's)
+parse_level_meta = host_part(PART_LEVEL_WALK)(parse_hybrid_meta.__wrapped__)
 
 
 def _native_hybrid_meta(buf, n, pos, width, count, compute_max=False,
@@ -501,9 +506,9 @@ def parse_data_page(
 
         if max_rep > 0:
             if decode_levels:
-                rlv, used = rle.decode_prefixed(
-                    raw[pos:], bitpack.bit_width(max_rep), num_values
-                )
+                rlv, used = timed_part(
+                    PART_LEVEL_WALK, rle.decode_prefixed, raw[pos:],
+                    bitpack.bit_width(max_rep), num_values)
             else:
                 used = 4 + _prefixed_span(pos)
             rsp = (raw, pos + 4, used - 4)  # hybrid payload past the u32 size
@@ -511,16 +516,18 @@ def parse_data_page(
         if max_def > 0:
             w = bitpack.bit_width(max_def)
             if decode_levels:
-                dlv, used = rle.decode_prefixed(raw[pos:], w, num_values)
+                dlv, used = timed_part(PART_LEVEL_WALK, rle.decode_prefixed,
+                                       raw[pos:], w, num_values)
             else:
                 size = _prefixed_span(pos)
                 used = 4 + size
-                def_meta = parse_hybrid_meta(
+                def_meta = parse_level_meta(
                     raw, w, num_values, pos=pos + 4, end=pos + 4 + size,
                     eq_target=max_def,
                 )
                 if def_meta.eq_count is None:  # no native walk: must decode
-                    dlv, _ = rle.decode_prefixed(raw[pos:], w, num_values)
+                    dlv, _ = timed_part(PART_LEVEL_WALK, rle.decode_prefixed,
+                                        raw[pos:], w, num_values)
             dsp = (raw, pos + 4, used - 4)
             pos += used
         if def_meta is not None and def_meta.eq_count is not None:
@@ -550,24 +557,24 @@ def parse_data_page(
         if rep_len == 0:
             raise ParquetError("v2 page missing repetition levels")
         if decode_levels:
-            rlv = rle.decode(payload[:rep_len], bitpack.bit_width(max_rep),
-                             num_values)
+            rlv = timed_part(PART_LEVEL_WALK, rle.decode, payload[:rep_len],
+                             bitpack.bit_width(max_rep), num_values)
         rsp = (payload, 0, rep_len)
     if max_def > 0:
         w = bitpack.bit_width(max_def)
         if decode_levels:
-            dlv = rle.decode(
-                payload[rep_len : rep_len + def_len], w, num_values
-            )
+            dlv = timed_part(PART_LEVEL_WALK, rle.decode,
+                             payload[rep_len : rep_len + def_len], w,
+                             num_values)
         else:
-            def_meta = parse_hybrid_meta(
+            def_meta = parse_level_meta(
                 payload, w, num_values, pos=rep_len,
                 end=rep_len + def_len, eq_target=max_def,
             )
             if def_meta.eq_count is None:  # no native walk: must decode
-                dlv = rle.decode(
-                    payload[rep_len : rep_len + def_len], w, num_values
-                )
+                dlv = timed_part(PART_LEVEL_WALK, rle.decode,
+                                 payload[rep_len : rep_len + def_len], w,
+                                 num_values)
         dsp = (payload, rep_len, def_len)
     if def_meta is not None and def_meta.eq_count is not None:
         defined = def_meta.eq_count
@@ -1077,9 +1084,11 @@ class DeviceChunkDecoder:
         if def_parts:
             out.def_levels = (def_parts[0] if len(def_parts) == 1
                               else torch.cat(def_parts))
+            note_levels("def", "host", len(def_parts), slots)
         if rep_parts:
             out.rep_levels = (rep_parts[0] if len(rep_parts) == 1
                               else torch.cat(rep_parts))
+            note_levels("rep", "host", len(rep_parts), slots)
         return out
 
 
